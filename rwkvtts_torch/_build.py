@@ -1,0 +1,133 @@
+"""Build-on-demand for the package's CUDA kernels, bound through ctypes.
+
+Every ``csrc/*.cu`` file is compiled by one ``nvcc`` call into a shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds, not minutes) and loaded with ``ctypes``. The library is cached in
+``csrc/build/`` under a hash of the sources and flags, so an edited kernel
+rebuilds and an unchanged one loads at once.
+
+The build is never attempted at import time: the first kernel launch asks
+for the library. Without ``nvcc`` the call raises; no caller falls back to
+another implementation when that happens.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# seconds the nvcc run of this process took (0.0 while none ran)
+last_build_seconds = 0.0
+
+
+def sources() -> list[Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
+        "rwkvtts_torch cannot be built on this machine"
+    )
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"librwkvtts_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists.
+
+    Writes nvcc's output (ptxas register and shared-memory counts) beside
+    the library as ``<lib>.log``."""
+    global last_build_seconds
+    out = library_path()
+    if out.is_file():
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sources() if p.suffix == ".cu"]
+    t0 = time.perf_counter()
+    # compile to a temporary name, then rename: a concurrent or interrupted
+    # build never leaves a half-written library under the final name
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = out.with_suffix(".log")
+    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
+        )
+    os.replace(tmp, out)
+    last_build_seconds = time.perf_counter() - t0
+    return out
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C entry points and their argument types (each returns cudaError_t as int)
+_SIGNATURES = {
+    "wkv7_fwd": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "decode_b64_step": [
+        _I, _I, _I, _F, _F,          # L, C, B, norm_eps, ln_x_eps
+        _P, _P, _P, _P,              # x, h_out, ln0 (scale, bias)
+        _P, _P,                      # ln_out (scale, bias)
+        _P, _P, _P, _P, _P, _P,      # rkv_q/s, li_q/s, lo_q/s
+        _P, _P, _P, _P, _P, _P,      # out_q/s, fk_q/s, fv_q/s
+        _P,                          # smalls
+        _P, _P, _P,                  # att_x, ffn_x, wkv (updated in place)
+        _P,                          # workspace
+        ctypes.POINTER(_I),          # launch counts by kernel (3 ints, increased)
+        _P,                          # stream
+    ],
+}
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    lib.decode_b64_workspace_bytes.argtypes = [ctypes.c_int]
+    lib.decode_b64_workspace_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = library().cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

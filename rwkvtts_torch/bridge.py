@@ -1,0 +1,82 @@
+"""Bridge from the JAX package's arrays to the port's tensors, in numpy
+(no JAX import): parameters name for name, and the B=64 decode state
+between the TPU kernel's transposed layout and the port's natural one.
+
+Parameter trees have the same names and shapes in both packages, so
+``params_from_numpy`` copies leaf by leaf. The JAX decode-step state
+``wkv`` is (L, P, 4096, 128) with P = C/128 head pairs, row i*64 + j
+(i the value dim, j the key dim) and lane h*64 + b (h the head in the
+pair, b the batch row) — rwkvtts_tpu/ops/decode_mega_b64.py:255-281. The
+port keeps (L, B, H, 64, 64).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+B = 64
+
+
+def to_tensor(a, device=None) -> torch.Tensor:
+    """numpy (or array-like, including ml_dtypes bfloat16) -> tensor of the
+    same dtype; bf16 goes through an exact f32 copy."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Tensor -> numpy; bf16 comes back as f32 (exact)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """A JAX parameter tree (leaves as numpy or JAX arrays) -> the port's."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return to_tensor(tree, device)
+
+
+def wkv_from_mega(wkv: np.ndarray, num_heads: int) -> np.ndarray:
+    """(L, P, 4096, 128) transposed blocks -> (L, B, H, 64, 64)."""
+    L, P = wkv.shape[:2]
+    w = np.asarray(wkv).reshape(L, P, 64, 64, 2, B)   # (L, p, i, j, h, b)
+    w = np.transpose(w, (0, 5, 1, 4, 2, 3))            # (L, b, p, h, i, j)
+    return w.reshape(L, B, num_heads, 64, 64)
+
+
+def wkv_to_mega(wkv: np.ndarray) -> np.ndarray:
+    """(L, B, H, 64, 64) -> the transposed (L, P, 4096, 128) blocks."""
+    L, Bn, H = wkv.shape[:3]
+    P = H // 2
+    w = np.asarray(wkv).reshape(L, Bn, P, 2, 64, 64)   # (L, b, p, h, i, j)
+    w = np.transpose(w, (0, 2, 4, 5, 3, 1))            # (L, p, i, j, h, b)
+    return w.reshape(L, P, 4096, 128)
+
+
+def state_from_mega(mstate: Dict[str, Any], num_heads: int, device=None
+                    ) -> Dict[str, torch.Tensor]:
+    """JAX megakernel state {'att_x', 'wkv', 'ffn_x'} -> the port's decode
+    state (bf16, natural layout)."""
+    conv = lambda a: to_tensor(a, device).to(torch.bfloat16).contiguous()
+    return {
+        "att_x": conv(mstate["att_x"]),
+        "wkv": conv(wkv_from_mega(np.asarray(mstate["wkv"]), num_heads)),
+        "ffn_x": conv(mstate["ffn_x"]),
+    }
+
+
+def state_to_mega(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's decode state -> the JAX megakernel layout (numpy f32
+    holding bf16 values; cast to bf16 on the JAX side)."""
+    return {
+        "att_x": to_numpy(state["att_x"]),
+        "wkv": wkv_to_mega(to_numpy(state["wkv"])),
+        "ffn_x": to_numpy(state["ffn_x"]),
+    }

@@ -1,0 +1,329 @@
+"""RWKV-7 core model in PyTorch (counterpart of rwkvtts_tpu/models/rwkv7.py).
+
+Functional, like the JAX package: a config, a parameter tree of plain
+dicts with every block parameter stacked along a leading layer axis
+(``params["blocks"]["att"]["receptance"]`` is (L, C, C)), and functions
+that apply it. The names and shapes are the JAX tree's, so the bridge
+(rwkvtts_torch/bridge.py) is a name-for-name copy.
+
+Ported here: the config, ``init_params`` (same tree, shapes and init
+distributions; values from a ``torch.Generator``, so they differ from
+JAX's), ``init_model_state``, the full-sequence ``block_forward`` and
+``forward`` (the prefill), and the int8 weight quantizer. The WKV
+recurrence goes through ``ops/wkv7.wkv7`` (the CUDA kernel on a card).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from rwkvtts_torch.ops import wkv7 as wkv7_ops
+from rwkvtts_torch.ops.norm import group_norm, l2_normalize, layer_norm
+
+Params = Dict[str, Any]
+
+
+def _round32(x: float) -> int:
+    return max(32, int(round(x / 32)) * 32)
+
+
+@dataclasses.dataclass(frozen=True)
+class RWKV7Config:
+    vocab_size: int
+    hidden_size: int
+    num_layers: int
+    head_size: int = 64
+    gate_lora: int = 128
+    norm_eps: float = 1e-5
+    # GroupNorm eps = 1e-5 * head_size_divisor**2 with divisor 8
+    ln_x_eps: float = 64e-5
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def num_heads(self) -> int:
+        assert self.hidden_size % self.head_size == 0
+        return self.hidden_size // self.head_size
+
+    @property
+    def decay_lora(self) -> int:
+        return _round32(1.8 * math.sqrt(self.hidden_size))
+
+    @property
+    def a_lora(self) -> int:
+        return _round32(1.8 * math.sqrt(self.hidden_size))
+
+    @property
+    def v_lora(self) -> int:
+        return _round32(1.3 * math.sqrt(self.hidden_size))
+
+
+def tree_map(fn: Callable, tree):
+    """Apply fn to every tensor leaf of a tree of dicts."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _orthogonal(g: torch.Generator, shape, gain: float) -> torch.Tensor:
+    """Orthogonal init (rows or columns orthonormal, whichever are fewer),
+    as jax.nn.initializers.orthogonal; on the generator's device."""
+    rows, cols = shape
+    a = torch.randn(max(rows, cols), min(rows, cols), generator=g, device=g.device)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    return gain * (q if rows >= cols else q.T).contiguous()
+
+
+def _ortho_gain(rows: int, cols: int) -> float:
+    return math.sqrt(rows / cols) if rows > cols else 1.0
+
+
+def init_block_params(g: torch.Generator, cfg: RWKV7Config, layer_id: int) -> Params:
+    """One block, the JAX package's formulas; f32 on the generator's
+    device."""
+    C, H, N, L = cfg.hidden_size, cfg.num_heads, cfg.head_size, cfg.num_layers
+    dev = g.device
+    r01 = layer_id / max(L - 1, 1)
+    r10 = 1.0 - layer_id / L
+    ddd = torch.arange(C, dtype=torch.float32, device=dev) / C
+    n = torch.arange(C, dtype=torch.float32, device=dev)
+    linear = n / (C - 1) - 0.5
+    zig = ((n % N) - (N - 1) / 2) / ((N - 1) / 2)
+    zigzag = zig * zig.abs()
+    www = -6.0 + 6.0 * (n / (C - 1)) ** (1.0 + 1.0 * r01**0.3)
+    Dw, Da, Dv, Dg = cfg.decay_lora, cfg.a_lora, cfg.v_lora, cfg.gate_lora
+    s = 1.0 / math.sqrt(C)
+
+    def uniform(shape, scale):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * scale
+
+    zeros = lambda *shape: torch.zeros(shape, device=dev)
+    full = lambda shape, value: torch.full(shape, value, device=dev)
+    att = {
+        "x_r": 1.0 - ddd ** (0.2 * r10),
+        "x_w": 1.0 - ddd ** (0.9 * r10),
+        "x_k": 1.0 - ddd ** (0.7 * r10),
+        "x_v": 1.0 - ddd ** (0.7 * r10),
+        "x_a": 1.0 - ddd ** (0.9 * r10),
+        "x_g": 1.0 - ddd ** (0.2 * r10),
+        "w0": www + 0.5 + zigzag * 2.5,
+        "w1": zeros(C, Dw),
+        "w2": _orthogonal(g, (Dw, C), 0.1 * _ortho_gain(Dw, C)),
+        "a0": -0.19 + zigzag * 0.3 + linear * 0.4,
+        "a1": zeros(C, Da),
+        "a2": _orthogonal(g, (Da, C), 0.1 * _ortho_gain(Da, C)),
+        # v-lora exists on every layer for a uniform tree; unused on layer 0
+        "v0": 0.73 - linear * 0.4,
+        "v1": zeros(C, Dv),
+        "v2": _orthogonal(g, (Dv, C), 0.1 * _ortho_gain(Dv, C)),
+        "g1": zeros(C, Dg),
+        "g2": _orthogonal(g, (Dg, C), 0.1 * _ortho_gain(Dg, C)),
+        "k_k": 0.71 - linear * 0.1,
+        "k_a": full((C,), 1.02),
+        "r_k": full((H, N), -0.04),
+        "receptance": uniform((C, C), 0.5 * s),
+        "key": uniform((C, C), 0.05 * s),
+        "value": uniform((C, C), 0.5 * s),
+        "output": zeros(C, C),
+        "ln_x_scale": full((C,), 1.0),
+        "ln_x_bias": zeros(C),
+    }
+    ffn = {
+        "x_k": 1.0 - ddd ** (r10**4),
+        "key": uniform((C, 4 * C), 0.5 * s),
+        "value": zeros(4 * C, C),
+    }
+    return {
+        "ln1_scale": full((C,), 1.0), "ln1_bias": zeros(C),
+        "ln2_scale": full((C,), 1.0), "ln2_bias": zeros(C),
+        "att": att, "ffn": ffn,
+    }
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_params(g: torch.Generator, cfg: RWKV7Config) -> Params:
+    """f32 parameters drawn from `g`, on the generator's device (a CUDA
+    generator puts the whole tree on its card)."""
+    C, dev = cfg.hidden_size, g.device
+    blocks = [init_block_params(g, cfg, i) for i in range(cfg.num_layers)]
+    ones = lambda: torch.ones(C, device=dev)
+    zeros = lambda: torch.zeros(C, device=dev)
+    params: Params = {
+        "blocks": _stack(blocks),
+        "ln0_scale": ones(), "ln0_bias": zeros(),
+        "ln_out_scale": ones(), "ln_out_bias": zeros(),
+    }
+    V = cfg.vocab_size
+    params["embedding"] = (torch.rand(V, C, generator=g, device=dev) * 2 - 1) * 1e-4
+    params["head"] = _orthogonal(g, (C, V), 0.5 * math.sqrt(V / C) if V > C else 0.5)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# State
+# ---------------------------------------------------------------------------
+
+
+def init_model_state(cfg: RWKV7Config, batch: int, dtype=None, device=None) -> Params:
+    """att_x (L,B,C), wkv (L,B,H,N,N) f32, ffn_x (L,B,C)."""
+    L, C, H, N = cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.head_size
+    dt = dtype or cfg.dtype
+    return {
+        "att_x": torch.zeros(L, batch, C, dtype=dt, device=device),
+        "wkv": torch.zeros(L, batch, H, N, N, dtype=torch.float32, device=device),
+        "ffn_x": torch.zeros(L, batch, C, dtype=dt, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Block forward (full sequence)
+# ---------------------------------------------------------------------------
+
+
+def _lora(x, w1, w2, act=None):
+    h = x @ w1
+    if act is not None:
+        h = act(h)
+    return h @ w2
+
+
+def _time_shift(x: torch.Tensor, x_prev: Optional[torch.Tensor]) -> torch.Tensor:
+    """(B,T,C): prepend x_prev (or zeros) and drop the last position."""
+    prev = torch.zeros_like(x[:, :1]) if x_prev is None else x_prev[:, None].to(x.dtype)
+    return torch.cat([prev, x[:, :-1]], 1)
+
+
+def block_forward(
+    bp: Params, cfg: RWKV7Config, x: torch.Tensor,
+    mask: Optional[torch.Tensor], resets: Optional[torch.Tensor],
+    layer_idx: int, v_first: torch.Tensor, st: Optional[Params] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Params]:
+    """One block over a (B, T, C) sequence; st is this layer's state slice
+    {'att_x': (B,C), 'wkv': (B,H,N,N), 'ffn_x': (B,C)} and the updated
+    slice is returned. `mask` (B, T) zeroes xn and v at pad positions."""
+    B, T, C = x.shape
+    H, N = cfg.num_heads, cfg.head_size
+    att, ffn = bp["att"], bp["ffn"]
+    cast = lambda p: p.to(cfg.dtype)
+
+    def masked(h):
+        return h if mask is None else h * mask[..., None].to(h.dtype)
+
+    # --- time mix ---
+    xn = masked(layer_norm(x, bp["ln1_scale"], bp["ln1_bias"], cfg.norm_eps))
+    xx = _time_shift(xn, None if st is None else st["att_x"]) - xn
+    if resets is not None:
+        # a reset position starts a fresh segment: its token-shift prev is 0
+        xx = torch.where(resets[..., None], -xn, xx)
+    xr, xw, xk, xv, xa, xg = (xn + xx * cast(att[f"x_{s}"]) for s in "rwkvag")
+
+    r = xr @ cast(att["receptance"])
+    w_raw = -F.softplus(
+        -(cast(att["w0"]) + _lora(xw, cast(att["w1"]), cast(att["w2"]), torch.tanh))
+    ) - 0.5
+    k = xk @ cast(att["key"])
+    v = xv @ cast(att["value"])
+    if layer_idx == 0:
+        v_first = v
+    else:
+        v = v + (v_first - v) * torch.sigmoid(
+            cast(att["v0"]) + _lora(xv, cast(att["v1"]), cast(att["v2"]))
+        )
+    a = torch.sigmoid(cast(att["a0"]) + _lora(xa, cast(att["a1"]), cast(att["a2"])))
+    g = _lora(xg, cast(att["g1"]), cast(att["g2"]), torch.sigmoid)
+    v = masked(v)
+
+    heads = lambda u: u.reshape(B, T, H, N)
+    kk = l2_normalize(heads(k * cast(att["k_k"]))).reshape(B, T, C)
+    k = k * (1 + (a - 1) * cast(att["k_a"]))
+    y, wkv_state = wkv7_ops.wkv7(
+        heads(r), heads(w_raw), heads(k), heads(v), heads(-kk), heads(kk * a),
+        state=None if st is None else st["wkv"], resets=resets,
+    )
+    y = group_norm(y.reshape(B, T, C), att["ln_x_scale"], att["ln_x_bias"], H,
+                   cfg.ln_x_eps)
+    bonus = (
+        (heads(r) * heads(k) * cast(att["r_k"])).sum(-1, keepdim=True) * heads(v)
+    ).reshape(B, T, C)
+    x = x + ((y + bonus) * g) @ cast(att["output"])
+
+    # --- channel mix ---
+    xn2 = masked(layer_norm(x, bp["ln2_scale"], bp["ln2_bias"], cfg.norm_eps))
+    xx2 = _time_shift(xn2, None if st is None else st["ffn_x"]) - xn2
+    if resets is not None:
+        xx2 = torch.where(resets[..., None], -xn2, xx2)
+    kf = xn2 + xx2 * cast(ffn["x_k"])
+    kf = torch.square(torch.relu(kf @ cast(ffn["key"])))
+    x = x + kf @ cast(ffn["value"])
+
+    new_st = {"att_x": xn[:, -1], "wkv": wkv_state, "ffn_x": xn2[:, -1]}
+    return x, v_first, new_st
+
+
+def forward(
+    params: Params, cfg: RWKV7Config,
+    input_ids: Optional[torch.Tensor] = None,
+    inputs_embeds: Optional[torch.Tensor] = None,
+    attention_mask: Optional[torch.Tensor] = None,
+    resets: Optional[torch.Tensor] = None,
+    state: Optional[Params] = None,
+    return_state: bool = False,
+):
+    """Full-sequence forward. Returns hidden (B,T,C) [and the stacked
+    state]; the layers run as a Python loop over the stacked parameters."""
+    if inputs_embeds is None:
+        inputs_embeds = params["embedding"][input_ids]
+    x = inputs_embeds.to(cfg.dtype)
+    x = layer_norm(x, params["ln0_scale"], params["ln0_bias"], cfg.norm_eps)
+    if state is None:
+        state = init_model_state(cfg, x.shape[0], device=x.device)
+    v_first = torch.zeros_like(x)
+    new: Dict[str, list] = {"att_x": [], "wkv": [], "ffn_x": []}
+    for l in range(cfg.num_layers):
+        bp = tree_map(lambda a: a[l], params["blocks"])
+        st = {key: state[key][l] for key in new}
+        x, v_first, new_st = block_forward(
+            bp, cfg, x, attention_mask, resets, l, v_first, st
+        )
+        for key in new:
+            new[key].append(new_st[key])
+    x = layer_norm(x, params["ln_out_scale"], params["ln_out_bias"], cfg.norm_eps)
+    if return_state:
+        return x, {key: torch.stack(vals) for key, vals in new.items()}
+    return x
+
+
+# ---------------------------------------------------------------------------
+# int8 weights
+# ---------------------------------------------------------------------------
+
+
+def q8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric int8 of w (..., in, out): returns
+    (q int8, scale f32 (..., 1, out)), scale = max(amax, 1e-8) / 127 —
+    bit for bit rwkvtts_tpu/ops/decode_mega.py::_q8_np."""
+    wf = w.float()
+    amax = wf.abs().amax(-2, keepdim=True)
+    scale = torch.clamp_min(amax, 1e-8) / 127.0
+    q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _quantize_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The JAX package's _quantize_int8: q int8 and bf16 scales."""
+    q, scale = q8(w)
+    return {"q": q, "s": scale.to(torch.bfloat16)}

@@ -1,0 +1,85 @@
+"""Sampling: temperature / top-k / top-p (counterpart of
+rwkvtts_tpu/ops/sampling.py).
+
+JAX's ``jax.random.categorical(key, logits)`` is ``argmax(logits + g)``
+with ``g`` Gumbel noise of the logits' shape. The port makes the noise an
+explicit input: ``sample`` takes either ``noise`` (for the fused top-k +
+nucleus branch, the shape of the k candidates; otherwise the shape of the
+logits) or a ``torch.Generator`` from which it draws ``-log(-log(u))``.
+Fed the same noise, port and JAX pick the same tokens.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def apply_temperature(logits: torch.Tensor, temperature) -> torch.Tensor:
+    return logits.float() / max(float(temperature), 1e-6)
+
+
+def top_k_mask(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Keep the k largest logits per row; mask the rest."""
+    if k <= 0 or k >= logits.shape[-1]:
+        return logits
+    kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return torch.where(logits < kth, NEG_INF, logits)
+
+
+def top_p_mask(logits: torch.Tensor, p: float) -> torch.Tensor:
+    """Nucleus filtering: keep the smallest prefix of the sorted
+    distribution whose mass reaches p (crossing token included; the argmax
+    always survives)."""
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, -1)
+    cum = torch.cumsum(probs, -1)
+    keep = cum - probs < p
+    keep[..., 0] = True
+    kth = torch.where(keep, sorted_logits, torch.inf).amin(-1, keepdim=True)
+    return torch.where(logits < kth, NEG_INF, logits)
+
+
+def gumbel(shape, generator: torch.Generator, device=None) -> torch.Tensor:
+    """Standard Gumbel noise -log(-log(u)), u uniform in (0, 1)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def _categorical(logits, noise, generator):
+    if noise is None:
+        if generator is None:
+            raise ValueError("sample: pass `noise` or a `generator`")
+        noise = gumbel(logits.shape, generator, logits.device)
+    elif noise.shape != logits.shape:
+        raise ValueError(f"sample: noise {tuple(noise.shape)} for candidates "
+                         f"{tuple(logits.shape)}")
+    return torch.argmax(logits + noise, -1)
+
+
+def sample(
+    logits: torch.Tensor, *, temperature=1.0, top_k: int = 0, top_p: float = 1.0,
+    noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Token ids (...,) from logits (..., V)."""
+    x = apply_temperature(logits, temperature)
+    if top_k and 0 < top_k < x.shape[-1] and top_p < 1.0:
+        # fused top-k + nucleus: topk returns values sorted descending, so
+        # the nucleus mask is a cumsum over k values (no full-vocab sort)
+        vals, idx = torch.topk(x, top_k, dim=-1)
+        probs = torch.softmax(vals, -1)
+        cum = torch.cumsum(probs, -1)
+        keep = cum - probs < top_p
+        keep[..., 0] = True  # the argmax always survives
+        vals = torch.where(keep, vals, NEG_INF)
+        choice = _categorical(vals, noise, generator)
+        return torch.gather(idx, -1, choice[..., None])[..., 0]
+    if top_k:
+        x = top_k_mask(x, top_k)
+    if top_p < 1.0:
+        x = top_p_mask(x, top_p)
+    return _categorical(x, noise, generator)
