@@ -1,11 +1,14 @@
 """Smoke run of the PyTorch + CUDA port (``rwkvtts_torch``) on one NVIDIA GPU.
 
-It builds the port's two hand-written CUDA kernels from ``rwkvtts_torch/csrc``,
+It builds the port's hand-written CUDA kernels from ``rwkvtts_torch/csrc``,
 holds each against its plain PyTorch version on the card, checks a small
-generation against the plain path on the CPU, then drives the main path once:
-Spark speech-LM batched generation at 1024 hidden x 24 layers (random weights
-from a seed), B = 64, a 128-token prompt and 256 new tokens at top-k 50 /
-top-p 0.95, the configuration of ``bench.py``.
+generation and a small train step against the plain path on the CPU, then
+drives the two main paths once: Spark speech-LM batched generation at 1024
+hidden x 24 layers (random weights from a seed), B = 64, a 128-token prompt
+and 256 new tokens at top-k 50 / top-p 0.95, the configuration of
+``bench.py``; and Spark training at 1024 x 24 through the train CLI, B = 8 x
+2048 tokens of synthetic rows, bf16 over f32 master weights, per-block
+remat, the fused-prep WKV7 kernel pair.
 
 Phases, each printing its own lines; any failure raises, so the run exits
 non-zero and prints no result:
@@ -17,6 +20,16 @@ non-zero and prints no result:
   5. small   greedy generation at hidden 256 x 2 layers: kernels on the card
              vs plain versions on the CPU
   6. main    the full-size generation, launch counts, audio tok/s
+  7. wkv7 train  autograd through WKV7 (wkv7_fwd + wkv7_bwd kernels) vs
+             autograd through wkv7_scan: outputs and every gradient
+  8. wkv7 fused  the same for WKV7Fused vs wkv7_fused_plain, the five
+             per-head gradients included
+  9. train small one train step of a hidden 256 x 2 layer Spark on the card
+             vs the same step on the CPU's plain path: loss and grad norm
+ 10. train main  Spark 1024 x 24 training through rwkvtts_torch.train.cli:
+             finite losses near ln 8193, launch counts, ms a step, tokens/s,
+             peak memory, the WKV kernels' share of device time
+             (torch.profiler); then the unfused path at fewer layers
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -26,7 +39,10 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import json
+import math
+import os
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -36,9 +52,33 @@ WKV7_SOURCE = "rwkvtts_torch/csrc/wkv7_fwd.cu"
 WKV7_REPLACES = "rwkvtts_tpu/ops/wkv7_pallas.py:269"
 DECODE_SOURCE = "rwkvtts_torch/csrc/decode_b64.cu"
 DECODE_REPLACES = "rwkvtts_tpu/ops/decode_mega_b64.py:289"
+WKV7_BWD_SOURCE = "rwkvtts_torch/csrc/wkv7_bwd.cu"
+WKV7_BWD_REPLACES = "rwkvtts_tpu/ops/wkv7_pallas.py:308"
+FUSED_SOURCE = "rwkvtts_torch/csrc/wkv7_fused.cu"
+FUSED_FWD_REPLACES = "rwkvtts_tpu/ops/wkv7_pallas.py:752"
+FUSED_BWD_REPLACES = "rwkvtts_tpu/ops/wkv7_pallas.py:796"
 
 B = 64
 PROMPT, NEW_TOKENS = 128, 256
+# the training main path: batch x tokens, full Spark 0.4B width and depth
+TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_LAYERS = 8, 2048, 16, 24
+TRAIN_WARM, TRAIN_TIMED = 2, 6
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FMA and bf16
+# tensor-core FLOP/s; the bound of a kernel is the larger of its bytes over
+# the first and its operations over the peak for their type
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
+
+
+def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / peak_flops
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 def rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -117,11 +157,15 @@ def phase_wkv7(dev) -> dict:
     check(ey <= 2e-2 and es <= 2e-2, "wkv7 kernel disagrees at the main path's shape")
     ms = cuda_ms(lambda: wkv7_cuda.wkv7_fwd(*ins, state, None), 20)
     plain_ms = cuda_ms(lambda: wkv7_scan(*ins, state, None), 2)
+    # each (b, t, h): sa (1 FMA), the update (2 FMA + 1 mul), y (1 FMA) on
+    # 64 x 64 elements, f32 on the CUDA cores
+    bms, by = bound_ms(nbytes(*ins, state, y_k, s_k), 9 * 4096 * B * PROMPT * 16, F32_FLOPS)
     print(f"wkv7: bf16 B={B} T={PROMPT} H=16 (main path): y rel {ey:.3e}, state rel "
-          f"{es:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+          f"{es:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
     return {"name": "wkv7_fwd", "route": "cuda", "source": WKV7_SOURCE,
             "replaces": WKV7_REPLACES, "max_abs_err": max_abs(y_k, y_p),
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -173,11 +217,30 @@ def phase_decode(dev) -> tuple[dict, dict]:
     per_step = dict(dmb.kernel_launches)
     ms = cuda_ms(lambda: dmb.decode_step_mega_b64(mega, cfg, x, st_k), 20)
     plain_ms = cuda_ms(lambda: dmb.decode_step_plain(mega, cfg, x, st_p), 3)
+    # bytes: every packed weight once, the state read and written, x and h;
+    # operations: the int8 products on the bf16 tensor cores, 2 x 64 FLOP a weight
+    leaves = [t for t in _leaves(mega) if torch.is_tensor(t)]
+    weights = nbytes(*leaves)
+    q8 = sum(t.numel() for t in leaves if t.dtype == torch.int8)
+    bms, by = bound_ms(weights + 2 * nbytes(*st_k.values()) + 2 * nbytes(x),
+                       2 * B * q8, BF16_TC_FLOPS)
     print(f"decode: C={C} L={L} B={B}: {per_step} launches a step; kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms a step")
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms a step, bound {bms:.4f} ms ({by})")
     return ({"name": "decode_b64_step", "route": "cuda", "source": DECODE_SOURCE,
              "replaces": DECODE_REPLACES, "max_abs_err": err, "ms": ms,
-             "plain_ms": plain_ms}, per_step)
+             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+             "library_ms": None}, per_step)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +332,7 @@ def phase_main(dev, card: str, per_step: dict) -> dict:
     toks, lengths = run(2)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"wkv7_fwd": wkv7_cuda.launches, "decode_b64_step": dmb.launches}
+    launches = {"wkv7_fwd": wkv7_cuda.launches["wkv7_fwd"], "decode_b64_step": dmb.launches}
     by_kernel = dict(dmb.kernel_launches)
 
     check(toks.shape == (B, NEW_TOKENS) and lengths.shape == (B,), "output shapes")
@@ -288,7 +351,344 @@ def phase_main(dev, card: str, per_step: dict) -> dict:
     return {"launches": launches, "by_kernel": by_kernel}
 
 
+# ---------------------------------------------------------------------------
+# 7-8. WKV7 training kernels: forward + backward against autograd through the
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def fused_inputs(g: torch.Generator, Bn: int, T: int, H: int, dtype):
+    """r, w_raw, k_raw, v, a in the model's ranges (w_raw <= -0.5, a in (0, 1))
+    and the five per-head parameters near their init values."""
+    dev = g.device
+    f = lambda *s: torch.randn(*s, generator=g, device=dev)
+    r, k_raw, v = 0.4 * f(Bn, T, H, 64), 0.4 * f(Bn, T, H, 64), 0.4 * f(Bn, T, H, 64)
+    w_raw = -0.5 - torch.nn.functional.softplus(f(Bn, T, H, 64))
+    a = torch.sigmoid(f(Bn, T, H, 64))
+    seq = [x.to(dtype).contiguous() for x in (r, w_raw, k_raw, v, a)]
+    prm = [0.7 + 0.1 * f(H, 64), 1.0 + 0.05 * f(H, 64), -0.04 + 0.1 * f(H, 64),
+           1.0 + 0.1 * f(H, 64), 0.05 * f(H, 64)]
+    state = 0.3 * f(Bn, H, 64, 64)
+    resets = torch.rand(Bn, T, generator=g, device=dev) < 0.05
+    resets[0, 16] = resets[0, 37] = resets[0, 38] = True  # at a chunk boundary, mid-chunk, twice
+    return seq, prm, state, resets
+
+
+def grad_check(fn, plain, diff, rest, g: torch.Generator, tol: float,
+               what: str) -> tuple[float, float]:
+    """Run fn and plain (plain on f32 copies) on the same inputs and upstream
+    gradients; every output and every gradient within tol of max |plain|.
+    Returns the largest absolute error of the outputs and of the gradients."""
+    ins_k = [x.detach().clone().requires_grad_() for x in diff]
+    ins_p = [x.detach().float().clone().requires_grad_() for x in diff]
+    y_k, s_k = fn(*ins_k, *rest)
+    y_p, s_p = plain(*ins_p, *rest)
+    dy = torch.randn(y_p.shape, generator=g, device=y_p.device).to(y_k.dtype)
+    ds = 0.1 * torch.randn(s_p.shape, generator=g, device=s_p.device)
+    gk = torch.autograd.grad((y_k, s_k), ins_k, (dy, ds))
+    gp = torch.autograd.grad((y_p, s_p), ins_p, (dy.float(), ds))
+    check(s_k.dtype == torch.float32 and all(a.dtype == x.dtype for a, x in zip(gk, ins_k)),
+          f"{what}: the final state is not f32 or a gradient not in its input's dtype")
+    worst, err = 0.0, {"out": 0.0, "grad": 0.0}
+    for name, a, b in [("y", y_k, y_p), ("state", s_k, s_p)] + [
+            (f"d{i}", a, b) for i, (a, b) in enumerate(zip(gk, gp))]:
+        e = rel(a, b)
+        worst = max(worst, e)
+        kind = "grad" if name.startswith("d") else "out"
+        err[kind] = max(err[kind], max_abs(a, b))
+        check(e <= tol, f"{what}: {name} rel {e:.3e} > {tol:g}")
+    print(f"{what}: outputs and {len(gk)} gradients, worst rel {worst:.3e} (limit {tol:g})")
+    return err["out"], err["grad"]
+
+
+def time_fwd_bwd(fn, diff, rest, reps: int):
+    """(forward ms with the training save, backward ms) of fn on CUDA events:
+    the backward is autograd.grad over a retained graph."""
+    ins = [x.detach().clone().requires_grad_() for x in diff]
+    fwd = cuda_ms(lambda: fn(*ins, *rest), reps)
+    y, s = fn(*ins, *rest)
+    dy, ds = torch.ones_like(y), torch.zeros_like(s)
+    bwd = cuda_ms(lambda: torch.autograd.grad((y, s), ins, (dy, ds), retain_graph=True), reps)
+    return fwd, bwd
+
+
+def train_shape_bytes(seq, extra_seq: int, saved_f32: int, T: int) -> int:
+    """Bytes one training-shape WKV7 call must move: the sequence tensors
+    (inputs and outputs), the f32 vectors saved a step, and the anchors."""
+    one = seq[0].numel() * seq[0].element_size()
+    anchors = TRAIN_B * TRAIN_H * -(-T // 16) * 4096 * 4
+    return (len(seq) + extra_seq) * one + saved_f32 * seq[0].numel() * 4 + anchors
+
+
+def phase_wkv7_train(dev) -> tuple[dict, dict]:
+    from rwkvtts_torch.ops import wkv7_cuda
+    from rwkvtts_torch.ops.wkv7 import wkv7_scan
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        ins, state, resets = wkv_inputs(g, 2, 200, 4, dtype)
+        resets[0, 16] = resets[0, 37] = resets[0, 38] = True
+        grad_check(wkv7_cuda.wkv7, wkv7_scan, ins + [state], [resets], g, tol,
+                   f"wkv7 train: {str(dtype)[6:]} B=2 T=200 H=4 state+resets")
+
+    # the training shape, bf16, no state, no resets (padded batches)
+    ins, _, _ = wkv_inputs(g, TRAIN_B, TRAIN_T, TRAIN_H, torch.bfloat16)
+    _, err = grad_check(wkv7_cuda.wkv7, wkv7_scan, ins, [], g, 2e-2,
+                     f"wkv7 train: bf16 B={TRAIN_B} T={TRAIN_T} H={TRAIN_H}")
+    fwd, bwd = time_fwd_bwd(wkv7_cuda.wkv7, ins, [], 5)
+    p_fwd, p_bwd = time_fwd_bwd(wkv7_scan, [x.float() for x in ins], [], 1)
+    steps = TRAIN_B * TRAIN_T * TRAIN_H
+    # forward as wkv7_fwd (9 FLOP an element), plus sa written; backward:
+    # 7 FMA + the step back (3) + dw, dz (2 FMA) + the two decays (4), ~22
+    # FLOP an element, reading 7 sequences, sa and the anchors, writing 6
+    f_bound = bound_ms(train_shape_bytes(ins, 1, 1, TRAIN_T), 9 * 4096 * steps, F32_FLOPS)
+    b_bound = bound_ms(train_shape_bytes(ins, 7, 1, TRAIN_T), 22 * 4096 * steps, F32_FLOPS)
+    print(f"wkv7 train: bf16 ({TRAIN_B}, {TRAIN_T}, {TRAIN_H}): forward {fwd:.4f} ms, "
+          f"backward {bwd:.4f} ms; plain {p_fwd:.4f} / {p_bwd:.4f} ms; bounds "
+          f"{f_bound[0]:.4f} ({f_bound[1]}) / {b_bound[0]:.4f} ms ({b_bound[1]})")
+    row = {"name": "wkv7_bwd", "route": "cuda", "source": WKV7_BWD_SOURCE,
+           "replaces": WKV7_BWD_REPLACES, "max_abs_err": err, "ms": bwd,
+           "plain_ms": p_bwd, "bound_ms": b_bound[0], "bound_by": b_bound[1],
+           "library_ms": None}
+    return row, {"train_fwd_ms": fwd, "train_fwd_plain_ms": p_fwd,
+                 "train_fwd_bound_ms": f_bound[0]}
+
+
+def phase_wkv7_fused(dev) -> tuple[dict, dict]:
+    from rwkvtts_torch.ops import wkv7_cuda
+    from rwkvtts_torch.ops.wkv7 import wkv7_fused_plain
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        seq, prm, state, resets = fused_inputs(g, 2, 200, 4, dtype)
+        grad_check(wkv7_cuda.wkv7_fused, wkv7_fused_plain, seq + prm + [state], [resets],
+                   g, tol, f"wkv7 fused: {str(dtype)[6:]} B=2 T=200 H=4 state+resets")
+
+    seq, prm, _, _ = fused_inputs(g, TRAIN_B, TRAIN_T, TRAIN_H, torch.bfloat16)
+    out_err, grad_err = grad_check(wkv7_cuda.wkv7_fused, wkv7_fused_plain, seq + prm, [], g,
+                                   2e-2, f"wkv7 fused: bf16 B={TRAIN_B} T={TRAIN_T} H={TRAIN_H}")
+    fwd, bwd = time_fwd_bwd(wkv7_cuda.wkv7_fused, seq + prm, [], 5)
+    p_fwd, p_bwd = time_fwd_bwd(wkv7_fused_plain, [x.float() for x in seq + prm], [], 1)
+    steps = TRAIN_B * TRAIN_T * TRAIN_H
+    # forward: the recurrence (9 FLOP an element) and a prologue / epilogue
+    # of O(64) a step; writes y, sa, xhat and the anchors. Backward: ~22
+    # FLOP an element; reads 6 sequences, sa, xhat and the anchors, writes 5
+    f_bound = bound_ms(train_shape_bytes(seq, 1, 2, TRAIN_T), 9 * 4096 * steps, F32_FLOPS)
+    b_bound = bound_ms(train_shape_bytes(seq, 6, 2, TRAIN_T), 22 * 4096 * steps, F32_FLOPS)
+    print(f"wkv7 fused: bf16 ({TRAIN_B}, {TRAIN_T}, {TRAIN_H}): forward {fwd:.4f} ms, "
+          f"backward {bwd:.4f} ms; plain {p_fwd:.4f} / {p_bwd:.4f} ms; bounds "
+          f"{f_bound[0]:.4f} ({f_bound[1]}) / {b_bound[0]:.4f} ms ({b_bound[1]})")
+    common = {"route": "cuda", "source": FUSED_SOURCE, "library_ms": None}
+    return ({"name": "wkv7_fused_fwd", "replaces": FUSED_FWD_REPLACES, "max_abs_err": out_err,
+             "ms": fwd, "plain_ms": p_fwd, "bound_ms": f_bound[0], "bound_by": f_bound[1],
+             **common},
+            {"name": "wkv7_fused_bwd", "replaces": FUSED_BWD_REPLACES, "max_abs_err": grad_err,
+             "ms": bwd, "plain_ms": p_bwd, "bound_ms": b_bound[0], "bound_by": b_bound[1],
+             **common})
+
+
+# ---------------------------------------------------------------------------
+# 9. One small train step: kernels on the card vs plain versions on the CPU
+# ---------------------------------------------------------------------------
+
+
+def synthetic_rows(seed: int, n: int, T: int):
+    """n rows {text, global_tokens, semantic_tokens} whose Spark layout
+    fills exactly T positions: random text, 32 global tokens in [0, 4096),
+    semantic tokens in [0, 8192)."""
+    import numpy as np
+
+    from rwkvtts_torch.utils.tokenizer import get_world_tokenizer
+
+    tok = get_world_tokenizer()
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    rows = []
+    for _ in range(n):
+        n_words = rng.integers(2, max(3, min(40, T // 8)))  # at most ~T/2 text tokens
+        words = ["".join(rng.choice(letters, rng.integers(2, 9))) for _ in range(n_words)]
+        text = " ".join(words)
+        n_sem = T - 36 - len(tok.encode(text))  # 3 tags, 32 globals, EOS
+        rows.append({"text": text, "global_tokens": rng.integers(0, 4096, 32).tolist(),
+                     "semantic_tokens": rng.integers(0, 8192, n_sem).tolist()})
+    return rows
+
+
+def phase_train_small(dev) -> None:
+    import functools
+
+    from rwkvtts_torch.data import spark_collator as sc
+    from rwkvtts_torch.models import rwkv7, spark
+    from rwkvtts_torch.parallel import train_step as ts
+    from rwkvtts_torch.train import optimizer as opt_lib
+    from rwkvtts_torch.utils.tokenizer import get_world_tokenizer
+
+    collate = functools.partial(sc.collate_plain, tokenizer=get_world_tokenizer(),
+                                eos_id=8192, pad_to=256)
+    for fuse in (True, False):
+        for packed in (False, True):
+            cfg = spark.default_config(hidden_size=256, num_layers=2, dtype=torch.float32,
+                                       wkv_fuse_prep=fuse)
+            params = spark.init_params(torch.Generator().manual_seed(9), cfg)
+            randomize(params, torch.Generator().manual_seed(10))
+            rows = synthetic_rows(11, 2, 120)
+            batch = {k: torch.as_tensor(v) for k, v in collate(rows, packed=packed).items()}
+            out = {}
+            for where in ("cpu", dev):
+                p = rwkv7.tree_map(lambda t: t.to(where).clone(), params)
+                opt = opt_lib.AdamW(p, warmup_steps=0)
+                step = ts.make_train_step(cfg, opt)
+                _, m = step(ts.init_train_state(p, opt),
+                            {k: v.to(where) for k, v in batch.items()}, None)
+                out[str(where)] = (m["loss"].item(), m["grad_norm"].item())
+            (lc, gc), (lg, gg) = out["cpu"], out[str(dev)]
+            el, eg = abs(lg - lc) / abs(lc), abs(gg - gc) / abs(gc)
+            print(f"train small: hidden 256 x 2, f32, fuse_prep={fuse}, packed={packed}: "
+                  f"loss {lg:.6f} vs {lc:.6f} (rel {el:.2e}, limit 1e-4), grad norm "
+                  f"{gg:.6f} vs {gc:.6f} (rel {eg:.2e}, limit 1e-3)")
+            check(el <= 1e-4 and eg <= 1e-3, "small train step disagrees with the CPU")
+
+
+# ---------------------------------------------------------------------------
+# 10. Training main path, through the train CLI
+# ---------------------------------------------------------------------------
+
+
+def _cli_args(dev, data: str, run_dir: str, layers: int, extra=()):
+    return ["--task", "spark", "--data", data, "--run-dir", run_dir, "--device", str(dev),
+            "--hidden", str(TRAIN_H * 64), "--layers", str(layers), "--batch-size",
+            str(TRAIN_B), "--pad-to", str(TRAIN_T), "--log-every", "1", "--save-steps", "0",
+            *extra]
+
+
+def phase_train_main(dev, card: str) -> dict:
+    from rwkvtts_torch.ops import wkv7_cuda
+    from rwkvtts_torch.train import cli
+
+    L = TRAIN_LAYERS
+    n_steps = TRAIN_WARM + TRAIN_TIMED
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "rows.jsonl")
+        with open(data, "w") as f:
+            for row in synthetic_rows(12, TRAIN_B * n_steps, TRAIN_T):
+                f.write(json.dumps(row) + "\n")
+        run_dir = os.path.join(tmp, "run")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wkv7_cuda.reset_launches()
+        tr = cli.main(_cli_args(dev, data, run_dir, L))
+        torch.cuda.synchronize()
+        launches = dict(wkv7_cuda.launches)
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+
+        check(len(recs) == n_steps, f"{len(recs)} logged steps, want {n_steps}")
+        losses = [r["loss"] for r in recs]
+        check(all(math.isfinite(x) for x in losses), f"non-finite loss in {losses}")
+        check(abs(losses[0] - math.log(8193)) <= 0.5,
+              f"first loss {losses[0]:.4f} not within 0.5 of ln 8193")
+        check(sum(r["skipped"] for r in recs) == 0, "a step was skipped")
+        check(launches["wkv7_fused_fwd"] == 2 * L * n_steps
+              and launches["wkv7_fused_bwd"] == L * n_steps,
+              f"fused launches {launches}, want {2 * L} and {L} a step")
+        # step k's metrics are read after step k+1 is issued, so the time
+        # stamp of log k marks the end of step k+1: the span between the logs
+        # of the warm-up's end and of the second-to-last step covers the
+        # steps in between, each issued while the device ran the one before
+        t = [r["time"] for r in recs]
+        timed = n_steps - 1 - TRAIN_WARM
+        step_s = (t[n_steps - 2] - t[TRAIN_WARM - 1]) / timed
+        tps = TRAIN_B * TRAIN_T / step_s
+        print(f"train main: Spark {TRAIN_H * 64} x {L}, B={TRAIN_B} x {TRAIN_T}, bf16, fused prep, "
+              f"remat: losses {[round(x, 4) for x in losses]}")
+        print(f"train main: {1e3 * step_s:.2f} ms a step over {timed} steps, {tps:.1f} "
+              f"tokens/s, peak memory {peak / 2**30:.2f} GiB on {card}; launches a step "
+              f"{ {k: v / n_steps for k, v in launches.items()} }")
+
+        # the WKV kernels' share of the device time of two more steps
+        batches = list(tr_batches(tr, data, 2))
+        share = profile_share(tr, batches)
+
+        # the unfused path, 1024 hidden at fewer layers
+        L_u, n_u = 4, 2
+        wkv7_cuda.reset_launches()
+        cli.main(_cli_args(dev, data, os.path.join(tmp, "run_unfused"), L_u,
+                           ("--no-wkv-fuse-prep", "--max-rows", str(TRAIN_B * n_u))))
+        torch.cuda.synchronize()
+        unfused = dict(wkv7_cuda.launches)
+        print(f"train main: unfused path, {TRAIN_H * 64} x {L_u}, {n_u} steps: launches {unfused}")
+        check(unfused["wkv7_fwd"] == 2 * L_u * n_u and unfused["wkv7_bwd"] == L_u * n_u
+              and unfused["wkv7_fused_fwd"] == 0,
+              f"unfused launches {unfused}, want {2 * L_u} and {L_u} a step")
+    return {"launches": launches, "unfused": unfused, "step_ms": 1e3 * step_s,
+            "tokens_per_s": tps, "peak_gib": peak / 2**30, **share}
+
+
+def tr_batches(tr, data: str, n: int):
+    """n collated batches of the main run's data, on the trainer's device."""
+    import functools
+
+    from rwkvtts_torch.data import jsonl_dataset, spark_collator as sc
+    from rwkvtts_torch.utils.tokenizer import get_world_tokenizer
+
+    collate = functools.partial(sc.collate_plain, tokenizer=get_world_tokenizer(),
+                                eos_id=8192, pad_to=TRAIN_T)
+    ds = jsonl_dataset.JsonlDataset(jsonl_dataset.load_jsonl_rows([data]), collate, TRAIN_B)
+    for _, batch in zip(range(n), ds.epoch(1)):
+        yield tr.to_device(batch)
+
+
+def profile_share(tr, batches) -> dict:
+    """Device time of the WKV kernels over all kernels' device time in
+    train steps under torch.profiler (None where the trace has none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state = tr.state
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            state, m = tr.step_fn(state, batch, tr.generator)
+        m["loss"].item()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    tr.state = state
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type.name != "CUDA":  # kernels, copies and fills; not the host ops
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        by_kernel[ev.key] = (by_kernel.get(ev.key, (0.0, 0))[0] + t,
+                             by_kernel.get(ev.key, (0.0, 0))[1] + ev.count)
+    total = sum(t for t, _ in by_kernel.values())
+    wkv = sum(t for k, (t, _) in by_kernel.items() if "wkv7_" in k)
+    if total <= 0:
+        print("train main: torch.profiler recorded no device time: WKV share not measured")
+        return {"wkv_share": None}
+    busy = total / 1e6 / wall
+    print(f"train main: profiled {len(batches)} steps: wall {wall:.4f} s, device busy "
+          f"{total / 1e6:.4f} s ({busy:.3f}); WKV kernels {wkv / 1e6:.4f} s = "
+          f"{wkv / total:.3f} of device time")
+    for name, (t, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"train main:   {t / 1e3 / len(batches):9.3f} ms a step, {n // len(batches):5d} "
+              f"launches  {name[:110]}")
+    return {"wkv_share": wkv / total, "busy": busy, "wall_s": wall}
+
+
+PHASES = ("wkv7", "decode", "small", "main", "wkv7_train", "wkv7_fused", "train_small",
+          "train_main")
+
+
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of rwkvtts_torch on one GPU.")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of phases 3-10 (device and build always "
+                         "run); a subset prints no result line")
+    phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs an NVIDIA GPU")
@@ -313,15 +713,40 @@ def main() -> None:
         if "Used" in line or "Compiling entry" in line:
             print("build: " + line.strip())
 
-    wkv_row = phase_wkv7(dev)
-    decode_row, per_step = phase_decode(dev)
-    phase_small(dev)
-    main_run = phase_main(dev, card, per_step)
+    run = lambda name: name in phases
+    rows = {}
+    if run("wkv7"):
+        rows["wkv7_fwd"] = phase_wkv7(dev)
+    if run("decode") or run("main"):
+        rows["decode_b64_step"], per_step = phase_decode(dev)
+    if run("small"):
+        phase_small(dev)
+    if run("main"):
+        main_run = phase_main(dev, card, per_step)
+    if run("wkv7_train"):
+        rows["wkv7_bwd"], train_fwd = phase_wkv7_train(dev)
+    if run("wkv7_fused"):
+        rows["wkv7_fused_fwd"], rows["wkv7_fused_bwd"] = phase_wkv7_fused(dev)
+    if run("train_small"):
+        phase_train_small(dev)
+    if run("train_main"):
+        train_run = phase_train_main(dev, card)
+    if set(phases) != set(PHASES):
+        print(json.dumps({"partial": phases, "kernels": list(rows.values())}))
+        print("chip_smoke: a subset of the phases ran; no result")
+        return
 
-    wkv_row["launches"] = main_run["launches"]["wkv7_fwd"]
-    decode_row["launches"] = main_run["launches"]["decode_b64_step"]
-    decode_row["launches_by_kernel"] = main_run["by_kernel"]
-    print(json.dumps({"kernels": [wkv_row, decode_row]}))
+    rows["wkv7_fwd"]["launches"] = main_run["launches"]["wkv7_fwd"]
+    rows["wkv7_fwd"]["train_forward"] = train_fwd  # its training-shape numbers, unfused path
+    rows["decode_b64_step"]["launches"] = main_run["launches"]["decode_b64_step"]
+    rows["decode_b64_step"]["launches_by_kernel"] = main_run["by_kernel"]
+    rows["wkv7_bwd"]["launches"] = train_run["unfused"]["wkv7_bwd"]
+    rows["wkv7_fused_fwd"]["launches"] = train_run["launches"]["wkv7_fused_fwd"]
+    rows["wkv7_fused_bwd"]["launches"] = train_run["launches"]["wkv7_fused_bwd"]
+    print("train: " + json.dumps({k: v for k, v in train_run.items()
+                                  if k not in ("launches", "unfused")}))
+    print(json.dumps({"kernels": [rows[k] for k in ("wkv7_fwd", "decode_b64_step", "wkv7_bwd",
+                                                    "wkv7_fused_fwd", "wkv7_fused_bwd")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,12 @@
 """Build-on-demand for the package's CUDA kernels, bound through ctypes.
 
-Every ``csrc/*.cu`` file is compiled by one ``nvcc`` call into a shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds, not minutes) and loaded with ``ctypes``. The library is cached in
-``csrc/build/`` under a hash of the sources and flags, so an edited kernel
-rebuilds and an unchanged one loads at once.
+Every ``csrc/*.cu`` file is compiled to an object by its own ``nvcc``
+process, all started together, and one more ``nvcc`` call links the
+objects into a shared library with a plain C interface (no PyTorch
+headers, so the build takes seconds, not minutes), loaded with
+``ctypes``. The library is cached in ``csrc/build/`` under a hash of the
+sources and flags, so an edited kernel rebuilds and an unchanged one loads
+at once.
 
 The build is never attempted at import time: the first kernel launch asks
 for the library. Without ``nvcc`` the call raises; no caller falls back to
@@ -26,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # seconds the nvcc run of this process took (0.0 while none ran)
@@ -70,22 +72,35 @@ def build() -> Path:
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
     t0 = time.perf_counter()
-    # compile to a temporary name, then rename: a concurrent or interrupted
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = out.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
-    os.replace(tmp, out)
+    # everything goes to a private directory, then the library is renamed:
+    # a concurrent or interrupted build never leaves a half-written library
+    # under the final name
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cmds, procs = [], []
+        for src in (p for p in sources() if p.suffix == ".cu"):
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
+                   "-o", str(Path(tmp) / (src.stem + ".o"))]
+            cmds.append(cmd)
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+        objs = [c[-1] for c in cmds]
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(Path(tmp) / "lib.so"), *objs]
+        log, failed = [], []
+        for cmd, proc in zip(cmds, procs):
+            text = proc.communicate()[0]
+            log.append(" ".join(cmd) + "\n" + text)
+            if proc.returncode != 0:
+                failed.append(text)
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(proc.stderr)
+        out.with_suffix(".log").write_text("".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-4000:])
+        os.replace(Path(tmp) / "lib.so", out)
     last_build_seconds = time.perf_counter() - t0
     return out
 
@@ -96,7 +111,43 @@ _F = ctypes.c_float
 
 # C entry points and their argument types (each returns cudaError_t as int)
 _SIGNATURES = {
-    "wkv7_fwd": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "wkv7_fwd": [
+        _I, _I, _I, _I,              # dtype, B, T, H
+        _P, _P, _P, _P, _P, _P,      # r, w_raw, k, v, z, b
+        _P, _P,                      # s0, resets
+        _P, _P,                      # y, s_out
+        _P, _P,                      # anchors, sa (training; null for the primal)
+        _P,                          # stream
+    ],
+    "wkv7_bwd": [
+        _I, _I, _I, _I,              # dtype, B, T, H
+        _P, _P, _P, _P, _P, _P,      # r, w_raw, k, v, z, b
+        _P, _P, _P, _P,              # s0, resets, anchors, sa
+        _P, _P,                      # dy, dsfin
+        _P, _P, _P, _P, _P, _P,      # dr, dw_raw, dk, dv, dz, db
+        _P,                          # ds0
+        _P,                          # stream
+    ],
+    "wkv7_fused_fwd": [
+        _I, _I, _I, _I, _F,          # dtype, B, T, H, ln_eps
+        _P, _P, _P, _P, _P,          # r, w_raw, k_raw, v, a
+        _P, _P, _P, _P, _P,          # k_k, k_a, r_k, ln_w, ln_b
+        _P, _P,                      # s0, resets
+        _P, _P,                      # y, s_out
+        _P, _P, _P, _P,              # anchors, sa, xhat, stats (training)
+        _P,                          # stream
+    ],
+    "wkv7_fused_bwd": [
+        _I, _I, _I, _I,              # dtype, B, T, H
+        _P, _P, _P, _P, _P,          # r, w_raw, k_raw, v, a
+        _P, _P, _P, _P,              # k_k, k_a, r_k, ln_w
+        _P, _P,                      # s0, resets
+        _P, _P, _P, _P,              # anchors, sa, xhat, stats
+        _P, _P,                      # dy, dsfin
+        _P, _P, _P, _P, _P,          # dr, dw_raw, dk_raw, dv, da
+        _P, _P,                      # dparams, ds0
+        _P,                          # stream
+    ],
     "decode_b64_step": [
         _I, _I, _I, _F, _F,          # L, C, B, norm_eps, ln_x_eps
         _P, _P, _P, _P,              # x, h_out, ln0 (scale, bias)

@@ -1,6 +1,7 @@
-"""Bridge from the JAX package's arrays to the port's tensors, in numpy
-(no JAX import): parameters name for name, and the B=64 decode state
-between the TPU kernel's transposed layout and the port's natural one.
+"""Bridge between the JAX package's arrays and the port's tensors, in numpy
+(no JAX import): parameters name for name (both ways), the default
+optimizer's Adam moments, and the B=64 decode state between the TPU
+kernel's transposed layout and the port's natural one.
 
 Parameter trees have the same names and shapes in both packages, so
 ``params_from_numpy`` copies leaf by leaf. The JAX decode-step state
@@ -41,6 +42,48 @@ def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return to_tensor(tree, device)
+
+
+def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's parameter tree -> numpy leaves (bf16 as exact f32): the
+    inverse of ``params_from_numpy``."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return to_numpy(tree)
+
+
+def _array_leaves(tree, prefix: str = ""):
+    """(path, array) over a tree of dicts, skipping leaves without a shape
+    (optax's MaskedNode marks a leaf outside a transform's group)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _array_leaves(v, f"{prefix}{k}/")
+    elif hasattr(tree, "shape"):
+        yield prefix[:-1], tree
+
+
+def adam_state_from_optax(opt_state, device=None) -> Dict[str, Any]:
+    """The optax state of the JAX package's default optimizer
+    (rwkvtts_tpu/train/optimizer.py::build_optimizer with grad_clip: the
+    clip, then a multi_transform of the decay / nodecay / lr2x AdamW
+    chains) -> the port's AdamW state {"mu", "nu", "count"}
+    (rwkvtts_torch/train/optimizer.py), so a run moves between packages.
+    The groups share one step count."""
+    _, multi = opt_state
+    mu: Dict[str, torch.Tensor] = {}
+    nu: Dict[str, torch.Tensor] = {}
+    counts = set()
+    for masked in multi.inner_states.values():
+        adam = masked.inner_state[0]  # ScaleByAdamState(count, mu, nu)
+        for path, leaf in _array_leaves(adam.mu):
+            mu[path] = to_tensor(leaf, device).float()
+        for path, leaf in _array_leaves(adam.nu):
+            nu[path] = to_tensor(leaf, device).float()
+        counts.add(int(np.asarray(adam.count)))
+    if len(counts) != 1:
+        raise ValueError(f"optax groups disagree on the step count: {sorted(counts)}")
+    return {"mu": mu, "nu": nu,
+            "count": torch.tensor(counts.pop(), dtype=torch.int32, device=device)}
 
 
 def wkv_from_mega(wkv: np.ndarray, num_heads: int) -> np.ndarray:

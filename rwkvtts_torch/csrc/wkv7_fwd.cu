@@ -1,17 +1,13 @@
-// WKV7 forward over a whole sequence (the prompt prefill).
+// WKV7 forward over a whole sequence: the prompt prefill, and the forward of
+// training (ops/wkv7_cuda.py::WKV7).
 //
 // Replaces: rwkvtts_tpu/ops/wkv7_pallas.py::_fwd_kernel (reached through
-// _fwd_call / wkv7_pallas), on its primal path: y and the final state; the
-// chunk-entry states and the saved inverse serve only training and are not
-// written.
-//
-// Recurrence, per (batch b, head h), state S (64 x 64) f32, rows i = value
-// dim, columns j = key dim (ops/wkv7.py:3-14):
-//     w_t = exp(-exp(w_raw_t))
-//     sa_i = sum_j S_ij z_j
-//     S_ij = S_ij w_j + sa_i b_j + v_i k_j
-//     y_i  = sum_j S_ij r_j
-// and S = 0 before a position whose reset flag is set.
+// _fwd_call / wkv7_pallas). It writes y and the final state; for training
+// it also writes what the backward (wkv7_bwd.cu) needs: the state at every
+// chunk boundary (the TPU kernel's chunk-entry states, one chunk later) and
+// sa = S z at every step. The TPU kernel's saved inverse has no
+// counterpart: the recurrence here is the per-step one. The recurrence and
+// its layout are in wkv7_core.cuh.
 //
 // What bounds it on this card, reckoned from the prefill shape (B=64,
 // T=128, H=16, bf16): the six inputs and y are 7 x 16.8 MB and the f32
@@ -23,25 +19,27 @@
 //
 // Design: one CTA of 64 threads per (b,h); thread i keeps state row i in 64
 // f32 registers for the whole sequence, so the state touches device memory
-// only at entry and exit. Step t's six input vectors are staged in shared
-// memory (double-buffered, one barrier per step), and step t+1's values
-// are loaded into registers before step t computes, which hides the global
-// load latency behind the step's arithmetic. The chunked tensor-core form
-// (the TPU kernel's reformulation) is later work.
-#include "common.cuh"
+// only at entry and exit (and at the chunk boundaries when training). Step
+// t's six input vectors are staged in shared memory (double-buffered, one
+// barrier per step), and step t+1's values are loaded into registers before
+// step t computes, which hides the global load latency behind the step's
+// arithmetic. The chunked tensor-core form (the TPU kernel's
+// reformulation) is later work.
+#include "wkv7_core.cuh"
 
 namespace {
 
-constexpr int N = 64;
+using wkv7::N;
 
-template <typename T>
+template <typename T, bool SAVE>
 __global__ void __launch_bounds__(N) wkv7_fwd_kernel(
     int T_len, int H,
     const T* __restrict__ r, const T* __restrict__ w_raw,
     const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ z, const T* __restrict__ b,
     const float* __restrict__ s0, const uint8_t* __restrict__ resets,
-    T* __restrict__ y, float* __restrict__ s_out) {
+    T* __restrict__ y, float* __restrict__ s_out,
+    float* __restrict__ anchors, float* __restrict__ sa_out) {
     const int bh = blockIdx.x;  // b * H + h
     const int bi = bh / H;
     const int h = bh - bi * H;
@@ -64,7 +62,7 @@ __global__ void __launch_bounds__(N) wkv7_fwd_kernel(
         const int64_t o = base + t * step;
 #pragma unroll
         for (int q = 0; q < 6; ++q) nxt[q] = to_f32(src[q][o]);
-        nxt[1] = expf(-expf(nxt[1]));  // decay from its raw form
+        nxt[1] = wkv7::decay(nxt[1]);
     };
     if (T_len > 0) {
         load(0);
@@ -80,17 +78,18 @@ __global__ void __launch_bounds__(N) wkv7_fwd_kernel(
 #pragma unroll
             for (int j = 0; j < N; ++j) S[j] = 0.f;
         }
-        float sa = 0.f;
-#pragma unroll
-        for (int j = 0; j < N; ++j) sa = fmaf(S[j], cur[4][j], sa);
-        const float vi = cur[3][i];
-        float yi = 0.f;
-#pragma unroll
-        for (int j = 0; j < N; ++j) {
-            S[j] = fmaf(S[j], cur[1][j], fmaf(sa, cur[5][j], vi * cur[2][j]));
-            yi = fmaf(S[j], cur[0][j], yi);
-        }
+        float sa, yi;
+        wkv7::fwd_row_step(S, cur[3][i], cur[0], cur[1], cur[2], cur[4], cur[5], sa, yi);
         y[base + t * step] = from_f32<T>(yi);
+        if constexpr (SAVE) {
+            sa_out[base + t * step] = sa;
+            if ((t + 1) % wkv7::CHUNK == 0 || t + 1 == T_len) {
+                float* a = anchors + (((int64_t)bh * wkv7::n_chunks(T_len) + t / wkv7::CHUNK) * N + i) * N;
+#pragma unroll
+                for (int j = 0; j < N; j += 4)
+                    *reinterpret_cast<float4*>(a + j) = make_float4(S[j], S[j + 1], S[j + 2], S[j + 3]);
+            }
+        }
         if (t + 1 < T_len) {
 #pragma unroll
             for (int q = 0; q < 6; ++q) stage[(t + 1) & 1][q][i] = nxt[q];
@@ -101,13 +100,19 @@ __global__ void __launch_bounds__(N) wkv7_fwd_kernel(
 }
 
 template <typename T>
-int launch(int B, int T_len, int H, void* r, void* w, void* k, void* v,
-           void* z, void* b, void* s0, void* resets, void* y, void* s_out,
-           cudaStream_t stream) {
-    RWKV_TRY(wkv7_fwd_kernel<T><<<B * H, N, 0, stream>>>(
-        T_len, H, (const T*)r, (const T*)w, (const T*)k, (const T*)v,
-        (const T*)z, (const T*)b, (const float*)s0, (const uint8_t*)resets,
-        (T*)y, (float*)s_out));
+int launch(int B, int T_len, int H, void* r, void* w, void* k, void* v, void* z,
+           void* b, void* s0, void* resets, void* y, void* s_out, void* anchors,
+           void* sa, cudaStream_t stream) {
+    if (anchors)
+        RWKV_TRY(wkv7_fwd_kernel<T, true><<<B * H, N, 0, stream>>>(
+            T_len, H, (const T*)r, (const T*)w, (const T*)k, (const T*)v,
+            (const T*)z, (const T*)b, (const float*)s0, (const uint8_t*)resets,
+            (T*)y, (float*)s_out, (float*)anchors, (float*)sa));
+    else
+        RWKV_TRY(wkv7_fwd_kernel<T, false><<<B * H, N, 0, stream>>>(
+            T_len, H, (const T*)r, (const T*)w, (const T*)k, (const T*)v,
+            (const T*)z, (const T*)b, (const float*)s0, (const uint8_t*)resets,
+            (T*)y, (float*)s_out, nullptr, nullptr));
     return 0;
 }
 
@@ -115,15 +120,21 @@ int launch(int B, int T_len, int H, void* r, void* w, void* k, void* v,
 
 // r..b: (B, T, H, 64) of `dtype`; s0: (B, H, 64, 64) f32 or null; resets:
 // (B, T) bool or null; y: (B, T, H, 64) of `dtype`; s_out: (B, H, 64, 64)
-// f32. Returns the CUDA error of the launch (0 on success).
+// f32. For training, anchors: (B, H, ceil(T / 16), 64, 64) f32, the state
+// after steps 15, 31, ... and T - 1; sa: (B, T, H, 64) f32. Both null for
+// the primal alone. Returns the CUDA error of the launch (0 on success).
 extern "C" int wkv7_fwd(int dtype, int B, int T_len, int H, void* r, void* w,
                         void* k, void* v, void* z, void* b, void* s0,
-                        void* resets, void* y, void* s_out, void* stream) {
+                        void* resets, void* y, void* s_out, void* anchors,
+                        void* sa, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
+    if ((anchors == nullptr) != (sa == nullptr)) return (int)cudaErrorInvalidValue;
     if (dtype == DT_F32)
-        return launch<float>(B, T_len, H, r, w, k, v, z, b, s0, resets, y, s_out, st);
+        return launch<float>(B, T_len, H, r, w, k, v, z, b, s0, resets, y, s_out,
+                             anchors, sa, st);
     if (dtype == DT_BF16)
-        return launch<bf16>(B, T_len, H, r, w, k, v, z, b, s0, resets, y, s_out, st);
+        return launch<bf16>(B, T_len, H, r, w, k, v, z, b, s0, resets, y, s_out,
+                            anchors, sa, st);
     return (int)cudaErrorInvalidValue;
 }
 

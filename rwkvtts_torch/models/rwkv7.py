@@ -9,8 +9,10 @@ that apply it. The names and shapes are the JAX tree's, so the bridge
 Ported here: the config, ``init_params`` (same tree, shapes and init
 distributions; values from a ``torch.Generator``, so they differ from
 JAX's), ``init_model_state``, the full-sequence ``block_forward`` and
-``forward`` (the prefill), and the int8 weight quantizer. The WKV
-recurrence goes through ``ops/wkv7.wkv7`` (the CUDA kernel on a card).
+``forward`` (the prefill, and the training forward, differentiable, with
+per-block rematerialisation), and the int8 weight quantizer. The WKV
+recurrence goes through ``ops/wkv7.wkv7`` (the CUDA kernels on a card), or
+with ``wkv_fuse_prep`` through ``ops/wkv7_cuda.wkv7_fused``.
 """
 from __future__ import annotations
 
@@ -20,8 +22,10 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from rwkvtts_torch.ops import wkv7 as wkv7_ops
+from rwkvtts_torch.ops import wkv7_cuda
 from rwkvtts_torch.ops.norm import group_norm, l2_normalize, layer_norm
 
 Params = Dict[str, Any]
@@ -42,6 +46,20 @@ class RWKV7Config:
     # GroupNorm eps = 1e-5 * head_size_divisor**2 with divisor 8
     ln_x_eps: float = 64e-5
     dtype: torch.dtype = torch.bfloat16
+    # per-block gradient checkpointing in a differentiable forward
+    remat: bool = True
+    # what the replay may skip: None = full per-block replay (the only
+    # policy ported; the JAX package's 'wkv', 'dots' and 'dots_no_batch'
+    # come later)
+    remat_policy: Optional[str] = None
+    # run kk normalize, k_a mix, ln_x GroupNorm and the bonus inside the
+    # fused WKV kernel pair (ops/wkv7_cuda.wkv7_fused); same function
+    wkv_fuse_prep: bool = False
+
+    def __post_init__(self):
+        if self.remat_policy is not None:
+            raise ValueError(f"remat_policy {self.remat_policy!r}: only None "
+                             "(full per-block replay) is ported")
 
     @property
     def num_heads(self) -> int:
@@ -149,6 +167,14 @@ def init_block_params(g: torch.Generator, cfg: RWKV7Config, layer_id: int) -> Pa
     }
 
 
+def _unbind(tree, n: int) -> list:
+    """A tree of stacked (n, ...) leaves -> n trees of per-layer views."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][l] for k in tree} for l in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
@@ -248,18 +274,30 @@ def block_forward(
     v = masked(v)
 
     heads = lambda u: u.reshape(B, T, H, N)
-    kk = l2_normalize(heads(k * cast(att["k_k"]))).reshape(B, T, C)
-    k = k * (1 + (a - 1) * cast(att["k_a"]))
-    y, wkv_state = wkv7_ops.wkv7(
-        heads(r), heads(w_raw), heads(k), heads(v), heads(-kk), heads(kk * a),
-        state=None if st is None else st["wkv"], resets=resets,
-    )
-    y = group_norm(y.reshape(B, T, C), att["ln_x_scale"], att["ln_x_bias"], H,
-                   cfg.ln_x_eps)
-    bonus = (
-        (heads(r) * heads(k) * cast(att["r_k"])).sum(-1, keepdim=True) * heads(v)
-    ).reshape(B, T, C)
-    x = x + ((y + bonus) * g) @ cast(att["output"])
+    wkv_in = None if st is None else st["wkv"]
+    if cfg.wkv_fuse_prep:
+        hn = lambda p: p.float().reshape(H, N)
+        y, wkv_state = wkv7_cuda.wkv7_fused(
+            heads(r), heads(w_raw), heads(k), heads(v), heads(a),
+            hn(att["k_k"]), hn(att["k_a"]), hn(att["r_k"]),
+            hn(att["ln_x_scale"]), hn(att["ln_x_bias"]),
+            state=wkv_in, resets=resets, ln_eps=cfg.ln_x_eps,
+        )
+        y = y.reshape(B, T, C)
+    else:
+        kk = l2_normalize(heads(k * cast(att["k_k"]))).reshape(B, T, C)
+        k = k * (1 + (a - 1) * cast(att["k_a"]))
+        y, wkv_state = wkv7_ops.wkv7(
+            heads(r), heads(w_raw), heads(k), heads(v), heads(-kk), heads(kk * a),
+            state=wkv_in, resets=resets,
+        )
+        y = group_norm(y.reshape(B, T, C), att["ln_x_scale"], att["ln_x_bias"], H,
+                       cfg.ln_x_eps)
+        bonus = (
+            (heads(r) * heads(k) * cast(att["r_k"])).sum(-1, keepdim=True) * heads(v)
+        ).reshape(B, T, C)
+        y = y + bonus
+    x = x + (y * g) @ cast(att["output"])
 
     # --- channel mix ---
     xn2 = masked(layer_norm(x, bp["ln2_scale"], bp["ln2_bias"], cfg.norm_eps))
@@ -284,21 +322,26 @@ def forward(
     return_state: bool = False,
 ):
     """Full-sequence forward. Returns hidden (B,T,C) [and the stacked
-    state]; the layers run as a Python loop over the stacked parameters."""
+    state]; the layers run as a Python loop over the stacked parameters.
+    No state means a zero one. With ``cfg.remat`` and grad mode on, each
+    block runs under ``torch.utils.checkpoint``: the backward replays it
+    instead of keeping its activations."""
     if inputs_embeds is None:
         inputs_embeds = params["embedding"][input_ids]
     x = inputs_embeds.to(cfg.dtype)
     x = layer_norm(x, params["ln0_scale"], params["ln0_bias"], cfg.norm_eps)
-    if state is None:
-        state = init_model_state(cfg, x.shape[0], device=x.device)
     v_first = torch.zeros_like(x)
     new: Dict[str, list] = {"att_x": [], "wkv": [], "ffn_x": []}
-    for l in range(cfg.num_layers):
-        bp = tree_map(lambda a: a[l], params["blocks"])
-        st = {key: state[key][l] for key in new}
-        x, v_first, new_st = block_forward(
-            bp, cfg, x, attention_mask, resets, l, v_first, st
-        )
+    # unbind: one view a layer whose backward stacks the layer gradients once
+    layers = _unbind(params["blocks"], cfg.num_layers)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for l, bp in enumerate(layers):
+        st = None if state is None else {key: state[key][l] for key in new}
+        args = (bp, cfg, x, attention_mask, resets, l, v_first, st)
+        if remat:
+            x, v_first, new_st = checkpoint(block_forward, *args, use_reentrant=False)
+        else:
+            x, v_first, new_st = block_forward(*args)
         for key in new:
             new[key].append(new_st[key])
     x = layer_norm(x, params["ln_out_scale"], params["ln_out_bias"], cfg.norm_eps)

@@ -1,6 +1,7 @@
 """Spark-TTS RWKV-7 speech LM in PyTorch (counterpart of
 rwkvtts_tpu/models/spark.py): config, parameters, the modality embedding
-layout, the prompt prefill and the per-step embedding of generation."""
+layout, the training forward (loss), the prompt prefill and the per-step
+embedding of generation."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,6 +10,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from rwkvtts_torch.models import rwkv7
+from rwkvtts_torch.ops import loss as loss_ops
 
 # modality codes used by collators and embed_layout
 MOD_PAD = 0
@@ -28,6 +30,7 @@ class SparkTTSConfig:
     backbone: rwkv7.RWKV7Config
     text_vocab_size: int = 65536
     audio_global_vocab_size: int = 4096
+    dropout: float = 0.02  # on the input embeddings, in training
 
     @property
     def semantic_vocab_size(self) -> int:  # incl. EOS
@@ -39,10 +42,10 @@ class SparkTTSConfig:
 
 
 def default_config(hidden_size=768, num_layers=12, dtype=torch.bfloat16,
-                   **kw) -> SparkTTSConfig:
+                   dropout=0.02, **kw) -> SparkTTSConfig:
     bb = rwkv7.RWKV7Config(vocab_size=8193, hidden_size=hidden_size,
                            num_layers=num_layers, dtype=dtype, **kw)
-    return SparkTTSConfig(backbone=bb)
+    return SparkTTSConfig(backbone=bb, dropout=dropout)
 
 
 def init_params(g: torch.Generator, cfg: SparkTTSConfig) -> Dict[str, Any]:
@@ -73,6 +76,31 @@ def embed_layout(params, cfg: SparkTTSConfig, tokens: torch.Tensor,
     out = torch.where(m == MOD_TAG, clip("tts_tag_embedder", 3), out)
     out = torch.where(m == MOD_SEMANTIC, clip("embedding", cfg.semantic_vocab_size), out)
     return out.to(dt)
+
+
+def forward(
+    params, cfg: SparkTTSConfig, tokens: torch.Tensor, modality: torch.Tensor,
+    labels: Optional[torch.Tensor] = None,
+    attention_mask: Optional[torch.Tensor] = None,
+    resets: Optional[torch.Tensor] = None,
+    dropout_generator: Optional[torch.Generator] = None,
+    l2_wrap: float = 0.0,
+):
+    """Training / eval forward. With labels -> (loss, n_valid), the fused
+    linear CE with the internal label shift; without -> hidden (B, T, C).
+    Input dropout (cfg.dropout) draws from `dropout_generator` (on the
+    tokens' device) and is off without one."""
+    x = embed_layout(params, cfg, tokens, modality)
+    if dropout_generator is not None and cfg.dropout > 0:
+        keep = torch.rand(x.shape, generator=dropout_generator,
+                          device=x.device) >= cfg.dropout
+        x = torch.where(keep, x / (1 - cfg.dropout), 0.0).to(x.dtype)
+    h = rwkv7.forward(params, cfg.backbone, inputs_embeds=x,
+                      attention_mask=attention_mask, resets=resets)
+    if labels is None:
+        return h
+    return loss_ops.fused_linear_cross_entropy(h, params["head"], labels, shift=True,
+                                               l2_wrap=l2_wrap)
 
 
 def prefill(params, cfg: SparkTTSConfig, tokens, modality,

@@ -8,17 +8,20 @@ Per 64-dim head and step, state S (N_v x N_k) f32, rows the value dim:
     S_t  = S_{t-1} * w_t[None, :] + sa_t[:, None] * b_t[None, :] + v_t[:, None] * k_t[None, :]
     y_t  = S_t @ r_t
 
-``wkv7_scan`` is the plain version of the whole-sequence forward (the CPU
-path and the reference the CUDA kernel is held to); ``wkv7`` is what the
-model calls: it goes through ``ops/wkv7_cuda.py``, which launches the CUDA
-kernel for tensors on a CUDA device and runs ``wkv7_scan`` for tensors on
-the CPU.
+``wkv7_scan`` is the plain version of the whole-sequence forward, and
+PyTorch autograd through it the plain backward (the CPU path and the
+reference the CUDA kernels are held to); ``wkv7_fused_plain`` is the same
+for the fused-prep variant. ``wkv7`` is what the model calls: it goes
+through ``ops/wkv7_cuda.py``, which launches the CUDA kernels for tensors
+on a CUDA device and runs ``wkv7_scan`` for tensors on the CPU.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+
+from rwkvtts_torch.ops.norm import group_norm, l2_normalize
 
 
 def decay_from_raw(w_raw: torch.Tensor) -> torch.Tensor:
@@ -77,14 +80,43 @@ def wkv7_step(
     return y.to(v.dtype), s.to(state.dtype)
 
 
+def wkv7_fused_plain(
+    r: torch.Tensor, w_raw: torch.Tensor, k_raw: torch.Tensor, v: torch.Tensor,
+    a: torch.Tensor, k_k: torch.Tensor, k_a: torch.Tensor, r_k: torch.Tensor,
+    ln_w: torch.Tensor, ln_b: torch.Tensor,
+    state: Optional[torch.Tensor] = None,
+    resets: Optional[torch.Tensor] = None,
+    ln_eps: float = 64e-5,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """WKV7 with the time-mix elementwise band around it, composed as the
+    model's unfused path composes it (models/rwkv7.py, block_forward):
+    kk = l2_normalize(k_raw k_k), k_eff = k_raw (1 + (a - 1) k_a), the
+    recurrence on (r, w_raw, k_eff, v, -kk, kk a), the ln_x GroupNorm and
+    the bonus (r k_eff r_k) v. Everything is computed in f32, as the fused
+    kernels (and rwkvtts_tpu's wkv7_pallas_fused) do.
+
+    r..a: (B, T, H, N); k_k..ln_b: (H, N); state (B, H, N, N) f32. Returns
+    (y in v's dtype, final state f32)."""
+    B, T, H, N = r.shape
+    r, w_raw, k_raw, vf, a = (x.float() for x in (r, w_raw, k_raw, v, a))
+    k_k, k_a, r_k = (p.float() for p in (k_k, k_a, r_k))
+    kk = l2_normalize(k_raw * k_k)
+    k_eff = k_raw * (1 + (a - 1) * k_a)
+    y, s = wkv7_scan(r, w_raw, k_eff, vf, -kk, kk * a, state, resets)
+    y = group_norm(y.reshape(B, T, H * N), ln_w.reshape(-1), ln_b.reshape(-1), H, ln_eps)
+    bonus = (r * k_eff * r_k).sum(-1, keepdim=True) * vf
+    return (y.reshape(B, T, H, N) + bonus).to(v.dtype), s
+
+
 def wkv7(
     r: torch.Tensor, w_raw: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     z: torch.Tensor, b: torch.Tensor,
     state: Optional[torch.Tensor] = None,
     resets: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Whole-sequence WKV7 as the model calls it: the CUDA kernel on a CUDA
-    device, ``wkv7_scan`` on the CPU (see ops/wkv7_cuda.py)."""
+    """Whole-sequence WKV7 as the model calls it, differentiable: the CUDA
+    kernels on a CUDA device, ``wkv7_scan`` on the CPU (see
+    ops/wkv7_cuda.py)."""
     from rwkvtts_torch.ops import wkv7_cuda
 
-    return wkv7_cuda.wkv7_fwd(r, w_raw, k, v, z, b, state, resets)
+    return wkv7_cuda.wkv7(r, w_raw, k, v, z, b, state, resets)

@@ -153,7 +153,7 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 10
+    assert int(out.stdout.strip()) >= 25  # the train slice's modules included
 
 
 def test_kernel_wrappers_do_not_fall_back(monkeypatch, tmp_path):
@@ -163,16 +163,25 @@ def test_kernel_wrappers_do_not_fall_back(monkeypatch, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the kernels can build here")
     ins = [torch.empty(1, 4, 1, 64, device="meta") for _ in range(6)]
-    with pytest.raises(ValueError, match="no implementation"):
-        wkv7_cuda.wkv7_fwd(*ins)
+    prm = [torch.empty(1, 64, device="meta") for _ in range(5)]
+    for call in (lambda: wkv7_cuda.wkv7_fwd(*ins), lambda: wkv7_cuda.wkv7(*ins),
+                 lambda: wkv7_cuda.wkv7_fused(*ins[:5], *prm)):
+        with pytest.raises(ValueError, match="no implementation"):
+            call()
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "library_path", lambda: tmp_path / "absent.so")
     _build.library.cache_clear()
+    seq = [torch.zeros(1, 4, 1, 64) for _ in range(6)]
+    params = [torch.zeros(1, 64) for _ in range(5)]
     try:
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.library()
-        with pytest.raises(RuntimeError, match="nvcc not found"):
-            wkv7_cuda._launch(*(torch.zeros(1, 4, 1, 64) for _ in range(6)), None, None)
+        for save in (False, True):
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                wkv7_cuda._fwd(*seq, None, None, save=save)
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                wkv7_cuda._fused_fwd(*seq[:5], params, None, None, 64e-5, save=save)
     finally:
         _build.library.cache_clear()
+    assert all(n == 0 for n in wkv7_cuda.launches.values())
