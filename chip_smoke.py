@@ -412,12 +412,14 @@ def time_fwd_bwd(fn, diff, rest, reps: int):
     return fwd, bwd
 
 
-def train_shape_bytes(seq, extra_seq: int, saved_f32: int, T: int) -> int:
-    """Bytes one training-shape WKV7 call must move: the sequence tensors
-    (inputs and outputs), the f32 vectors saved a step, and the anchors."""
-    one = seq[0].numel() * seq[0].element_size()
-    anchors = TRAIN_B * TRAIN_H * -(-T // 16) * 4096 * 4
-    return (len(seq) + extra_seq) * one + saved_f32 * seq[0].numel() * 4 + anchors
+def train_shape_bytes(seq, n_seq: int, T: int) -> int:
+    """Bytes one training-shape WKV7 call must move: n_seq sequence tensors
+    like seq[0] (inputs, outputs, upstream gradients), the f32 chunk-entry
+    states every 16 steps, and the initial or final state. The port's own
+    per-step saves (sa, xhat, stats) are not counted: the function does not
+    need them."""
+    entry = TRAIN_B * TRAIN_H * 4096 * 4
+    return n_seq * seq[0].numel() * seq[0].element_size() + (-(-T // 16) + 1) * entry
 
 
 def phase_wkv7_train(dev) -> tuple[dict, dict]:
@@ -438,11 +440,12 @@ def phase_wkv7_train(dev) -> tuple[dict, dict]:
     fwd, bwd = time_fwd_bwd(wkv7_cuda.wkv7, ins, [], 5)
     p_fwd, p_bwd = time_fwd_bwd(wkv7_scan, [x.float() for x in ins], [], 1)
     steps = TRAIN_B * TRAIN_T * TRAIN_H
-    # forward as wkv7_fwd (9 FLOP an element), plus sa written; backward:
-    # 7 FMA + the step back (3) + dw, dz (2 FMA) + the two decays (4), ~22
-    # FLOP an element, reading 7 sequences, sa and the anchors, writing 6
-    f_bound = bound_ms(train_shape_bytes(ins, 1, 1, TRAIN_T), 9 * 4096 * steps, F32_FLOPS)
-    b_bound = bound_ms(train_shape_bytes(ins, 7, 1, TRAIN_T), 22 * 4096 * steps, F32_FLOPS)
+    # forward as wkv7_fwd (9 FLOP an element), reading 6 sequences and
+    # writing y and the entry states; backward: 7 FMA + the step back (3) +
+    # dw, dz (2 FMA) + the two decays (4), ~22 FLOP an element, reading 6
+    # sequences, dy and the entry states, writing 6 gradients
+    f_bound = bound_ms(train_shape_bytes(ins, 7, TRAIN_T), 9 * 4096 * steps, F32_FLOPS)
+    b_bound = bound_ms(train_shape_bytes(ins, 13, TRAIN_T), 22 * 4096 * steps, F32_FLOPS)
     print(f"wkv7 train: bf16 ({TRAIN_B}, {TRAIN_T}, {TRAIN_H}): forward {fwd:.4f} ms, "
           f"backward {bwd:.4f} ms; plain {p_fwd:.4f} / {p_bwd:.4f} ms; bounds "
           f"{f_bound[0]:.4f} ({f_bound[1]}) / {b_bound[0]:.4f} ms ({b_bound[1]})")
@@ -471,10 +474,11 @@ def phase_wkv7_fused(dev) -> tuple[dict, dict]:
     p_fwd, p_bwd = time_fwd_bwd(wkv7_fused_plain, [x.float() for x in seq + prm], [], 1)
     steps = TRAIN_B * TRAIN_T * TRAIN_H
     # forward: the recurrence (9 FLOP an element) and a prologue / epilogue
-    # of O(64) a step; writes y, sa, xhat and the anchors. Backward: ~22
-    # FLOP an element; reads 6 sequences, sa, xhat and the anchors, writes 5
-    f_bound = bound_ms(train_shape_bytes(seq, 1, 2, TRAIN_T), 9 * 4096 * steps, F32_FLOPS)
-    b_bound = bound_ms(train_shape_bytes(seq, 6, 2, TRAIN_T), 22 * 4096 * steps, F32_FLOPS)
+    # of O(64) a step; reads 5 sequences, writes y and the entry states.
+    # Backward: ~22 FLOP an element; reads 5 sequences, dy and the entry
+    # states, writes 5 gradients
+    f_bound = bound_ms(train_shape_bytes(seq, 6, TRAIN_T), 9 * 4096 * steps, F32_FLOPS)
+    b_bound = bound_ms(train_shape_bytes(seq, 11, TRAIN_T), 22 * 4096 * steps, F32_FLOPS)
     print(f"wkv7 fused: bf16 ({TRAIN_B}, {TRAIN_T}, {TRAIN_H}): forward {fwd:.4f} ms, "
           f"backward {bwd:.4f} ms; plain {p_fwd:.4f} / {p_bwd:.4f} ms; bounds "
           f"{f_bound[0]:.4f} ({f_bound[1]}) / {b_bound[0]:.4f} ms ({b_bound[1]})")
@@ -677,18 +681,7 @@ def profile_share(tr, batches) -> dict:
     return {"wkv_share": wkv / total, "busy": busy, "wall_s": wall}
 
 
-PHASES = ("wkv7", "decode", "small", "main", "wkv7_train", "wkv7_fused", "train_small",
-          "train_main")
-
-
 def main() -> None:
-    import argparse
-
-    ap = argparse.ArgumentParser(description="Smoke run of rwkvtts_torch on one GPU.")
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of phases 3-10 (device and build always "
-                         "run); a subset prints no result line")
-    phases = ap.parse_args().phases.split(",")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs an NVIDIA GPU")
@@ -713,28 +706,14 @@ def main() -> None:
         if "Used" in line or "Compiling entry" in line:
             print("build: " + line.strip())
 
-    run = lambda name: name in phases
-    rows = {}
-    if run("wkv7"):
-        rows["wkv7_fwd"] = phase_wkv7(dev)
-    if run("decode") or run("main"):
-        rows["decode_b64_step"], per_step = phase_decode(dev)
-    if run("small"):
-        phase_small(dev)
-    if run("main"):
-        main_run = phase_main(dev, card, per_step)
-    if run("wkv7_train"):
-        rows["wkv7_bwd"], train_fwd = phase_wkv7_train(dev)
-    if run("wkv7_fused"):
-        rows["wkv7_fused_fwd"], rows["wkv7_fused_bwd"] = phase_wkv7_fused(dev)
-    if run("train_small"):
-        phase_train_small(dev)
-    if run("train_main"):
-        train_run = phase_train_main(dev, card)
-    if set(phases) != set(PHASES):
-        print(json.dumps({"partial": phases, "kernels": list(rows.values())}))
-        print("chip_smoke: a subset of the phases ran; no result")
-        return
+    rows = {"wkv7_fwd": phase_wkv7(dev)}
+    rows["decode_b64_step"], per_step = phase_decode(dev)
+    phase_small(dev)
+    main_run = phase_main(dev, card, per_step)
+    rows["wkv7_bwd"], train_fwd = phase_wkv7_train(dev)
+    rows["wkv7_fused_fwd"], rows["wkv7_fused_bwd"] = phase_wkv7_fused(dev)
+    phase_train_small(dev)
+    train_run = phase_train_main(dev, card)
 
     rows["wkv7_fwd"]["launches"] = main_run["launches"]["wkv7_fwd"]
     rows["wkv7_fwd"]["train_forward"] = train_fwd  # its training-shape numbers, unfused path

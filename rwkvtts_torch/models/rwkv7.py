@@ -46,20 +46,9 @@ class RWKV7Config:
     # GroupNorm eps = 1e-5 * head_size_divisor**2 with divisor 8
     ln_x_eps: float = 64e-5
     dtype: torch.dtype = torch.bfloat16
-    # per-block gradient checkpointing in a differentiable forward
-    remat: bool = True
-    # what the replay may skip: None = full per-block replay (the only
-    # policy ported; the JAX package's 'wkv', 'dots' and 'dots_no_batch'
-    # come later)
-    remat_policy: Optional[str] = None
     # run kk normalize, k_a mix, ln_x GroupNorm and the bonus inside the
     # fused WKV kernel pair (ops/wkv7_cuda.wkv7_fused); same function
     wkv_fuse_prep: bool = False
-
-    def __post_init__(self):
-        if self.remat_policy is not None:
-            raise ValueError(f"remat_policy {self.remat_policy!r}: only None "
-                             "(full per-block replay) is ported")
 
     @property
     def num_heads(self) -> int:
@@ -323,9 +312,9 @@ def forward(
 ):
     """Full-sequence forward. Returns hidden (B,T,C) [and the stacked
     state]; the layers run as a Python loop over the stacked parameters.
-    No state means a zero one. With ``cfg.remat`` and grad mode on, each
-    block runs under ``torch.utils.checkpoint``: the backward replays it
-    instead of keeping its activations."""
+    No state means a zero one. In grad mode each block runs under
+    ``torch.utils.checkpoint`` (the JAX package's default full per-block
+    remat): the backward replays it instead of keeping its activations."""
     if inputs_embeds is None:
         inputs_embeds = params["embedding"][input_ids]
     x = inputs_embeds.to(cfg.dtype)
@@ -334,11 +323,10 @@ def forward(
     new: Dict[str, list] = {"att_x": [], "wkv": [], "ffn_x": []}
     # unbind: one view a layer whose backward stacks the layer gradients once
     layers = _unbind(params["blocks"], cfg.num_layers)
-    remat = cfg.remat and torch.is_grad_enabled()
     for l, bp in enumerate(layers):
         st = None if state is None else {key: state[key][l] for key in new}
         args = (bp, cfg, x, attention_mask, resets, l, v_first, st)
-        if remat:
+        if torch.is_grad_enabled():
             x, v_first, new_st = checkpoint(block_forward, *args, use_reentrant=False)
         else:
             x, v_first, new_st = block_forward(*args)

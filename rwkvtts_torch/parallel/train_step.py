@@ -77,7 +77,7 @@ def make_train_step(cfg, optimizer: opt_lib.AdamW, loss_fn: Callable = spark_los
         loss = loss.detach()
         gnorm = opt_lib.global_norm(grads.values())
         finite = torch.isfinite(loss) & torch.isfinite(gnorm)
-        optimizer.step(state.params, grads, state.opt_state, finite)
+        optimizer.step(state.params, grads, state.opt_state, finite, gnorm)
         metrics = {"loss": loss, "tokens": n_valid, "grad_norm": gnorm,
                    "skipped": (~finite).to(torch.int32)}
         return TrainState(state.params, state.opt_state, state.step + 1), metrics

@@ -114,13 +114,13 @@ class AdamW:
 
     @torch.no_grad()
     def step(self, params, grads: Dict[str, torch.Tensor], state: Dict[str, Any],
-             apply: torch.Tensor) -> None:
+             apply: torch.Tensor, norm: torch.Tensor) -> None:
         """One update of `params` (a tree) and `state`, in place, from
-        `grads` ({path: f32}), where the boolean scalar tensor `apply` is
-        true; where it is false nothing changes, the count included."""
+        `grads` ({path: f32}) and their global norm `norm`, where the
+        boolean scalar tensor `apply` is true; where it is false nothing
+        changes, the count included."""
         flat = flatten(params)
         if self.grad_clip:
-            norm = global_norm(grads.values())
             clip = norm >= self.grad_clip
             max_norm = self.grad_clip
         count = state["count"]

@@ -131,8 +131,8 @@ def test_adamw_matches_optax_over_three_steps():
                              params)
         upd, js = tx.update(jax.tree.map(jnp.asarray, grads), js, jp)
         jp = optax.apply_updates(jp, upd)
-        opt.step(tp, {p: torch.from_numpy(g) for p, g in _flat(grads).items()}, ts_,
-                 torch.tensor(True))
+        tg = {p: torch.from_numpy(g) for p, g in _flat(grads).items()}
+        opt.step(tp, tg, ts_, torch.tensor(True), topt.global_norm(tg.values()))
         want, got = _flat(jax.tree.map(np.asarray, jp)), _flat(tp)
         for path in want:
             np.testing.assert_allclose(got[path], want[path], rtol=1e-6, atol=1e-7,
