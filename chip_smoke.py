@@ -2,13 +2,16 @@
 
 It builds the port's hand-written CUDA kernels from ``rwkvtts_torch/csrc``,
 holds each against its plain PyTorch version on the card, checks a small
-generation and a small train step against the plain path on the CPU, then
-drives the two main paths once: Spark speech-LM batched generation at 1024
-hidden x 24 layers (random weights from a seed), B = 64, a 128-token prompt
-and 256 new tokens at top-k 50 / top-p 0.95, the configuration of
-``bench.py``; and Spark training at 1024 x 24 through the train CLI, B = 8 x
-2048 tokens of synthetic rows, bf16 over f32 master weights, per-block
-remat, the fused-prep WKV7 kernel pair.
+generation, a small train step and a small stream against the plain path
+on the CPU, then drives the three main paths once: Spark speech-LM batched
+generation at 1024 hidden x 24 layers (random weights from a seed), B = 64,
+a 128-token prompt and 256 new tokens at top-k 50 / top-p 0.95, the
+configuration of ``bench.py``; Spark training at 1024 x 24 through the
+train CLI, B = 8 x 2048 tokens of synthetic rows, bf16 over f32 master
+weights, per-block remat, the fused-prep WKV7 kernel pair; and CosyVoice
+streaming TTS at the deployed 1.5B pairing (RWKV-7 2048 x 24 LM, B = 1
+decode, CosyVoice2 flow + HiFT), the configuration of
+``benchmarks/bench_streaming_latency.py``.
 
 Phases, each printing its own lines; any failure raises, so the run exits
 non-zero and prints no result:
@@ -30,6 +33,16 @@ non-zero and prints no result:
              finite losses near ln 8193, launch counts, ms a step, tokens/s,
              peak memory, the WKV kernels' share of device time
              (torch.profiler); then the unfused path at fewer layers
+ 11. decode b1  the B=1 decode step (the Cosy LM step) vs decode_step_plain
+             at 2048 x 24, bf16 and f32 WKV carry, 4 chained steps; ms a
+             step, the bound from the packed bytes, launches by kernel
+ 12. cosy small greedy streaming at LM 256 x 2 bf16 with a tiny flow / HiFT:
+             kernels on the card vs plain versions on the CPU, same tokens
+ 13. cosy main  the Cosy streaming path at the 1.5B pairing (RWKV-7 2048 x
+             24 + CosyVoice2 flow + HiFT defaults, StreamConfig defaults):
+             3 utterances of 200 characters, 75 prompt tokens, 400 new
+             tokens (1 warm-up, 2 timed): TTFA, RTF, LM ms a token, flow and
+             HiFT ms a hop, decode launches a token, peak memory
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -57,12 +70,18 @@ WKV7_BWD_REPLACES = "rwkvtts_tpu/ops/wkv7_pallas.py:308"
 FUSED_SOURCE = "rwkvtts_torch/csrc/wkv7_fused.cu"
 FUSED_FWD_REPLACES = "rwkvtts_tpu/ops/wkv7_pallas.py:752"
 FUSED_BWD_REPLACES = "rwkvtts_tpu/ops/wkv7_pallas.py:796"
+DECODE_B1_SOURCE = "rwkvtts_torch/csrc/decode_b1.cu"
+DECODE_B1_REPLACES = "rwkvtts_tpu/ops/decode_mega.py:330"
 
 B = 64
 PROMPT, NEW_TOKENS = 128, 256
 # the training main path: batch x tokens, full Spark 0.4B width and depth
 TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_LAYERS = 8, 2048, 16, 24
 TRAIN_WARM, TRAIN_TIMED = 2, 6
+# the Cosy streaming main path: RWKV-7 1.5B LM (2048 x 24) + CosyVoice2 flow
+# + HiFT, 200-character texts, 75 prompt tokens, 400 new tokens each
+COSY_C, COSY_L = 2048, 24
+COSY_TEXT, COSY_PROMPT, COSY_NEW = 200, 75, 400
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FMA and bf16
 # tensor-core FLOP/s; the bound of a kernel is the larger of its bytes over
@@ -657,15 +676,7 @@ def profile_share(tr, batches) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     tr.state = state
-    by_kernel = {}
-    for ev in prof.key_averages():
-        if ev.device_type.name != "CUDA":  # kernels, copies and fills; not the host ops
-            continue
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = getattr(ev, "self_cuda_time_total", 0.0)
-        by_kernel[ev.key] = (by_kernel.get(ev.key, (0.0, 0))[0] + t,
-                             by_kernel.get(ev.key, (0.0, 0))[1] + ev.count)
+    by_kernel = kernel_totals(prof)
     total = sum(t for t, _ in by_kernel.values())
     wkv = sum(t for k, (t, _) in by_kernel.items() if "wkv7_" in k)
     if total <= 0:
@@ -679,6 +690,317 @@ def profile_share(tr, batches) -> dict:
         print(f"train main:   {t / 1e3 / len(batches):9.3f} ms a step, {n // len(batches):5d} "
               f"launches  {name[:110]}")
     return {"wkv_share": wkv / total, "busy": busy, "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
+# 11. B=1 decode step (the Cosy streaming LM step)
+# ---------------------------------------------------------------------------
+
+
+def phase_decode_b1(dev) -> tuple[dict, dict, float]:
+    from rwkvtts_torch.models import rwkv7
+    from rwkvtts_torch.ops import decode_mega as dm
+
+    cfg = rwkv7.RWKV7Config(vocab_size=0, hidden_size=COSY_C, num_layers=COSY_L)
+    L, C, H = cfg.num_layers, cfg.hidden_size, cfg.num_heads
+    g = torch.Generator(device=dev).manual_seed(13)
+    params = rwkv7.init_params(g, cfg)
+    randomize(params, g)
+    mega = dm.pack_mega(params, cfg)
+    del params
+    f = lambda *shape, s: s * torch.randn(*shape, generator=g, device=dev)
+    err = 0.0
+    for carry in (torch.bfloat16, torch.float32):
+        st_k = {"att_x": f(L, 1, C, s=0.5), "wkv": f(L, 1, H, 64, 64, s=0.1).to(carry),
+                "ffn_x": f(L, 1, C, s=0.5)}
+        st_p = {k: v.clone() for k, v in st_k.items()}
+        for i in range(4):
+            x = f(1, C, s=1.0)
+            h_k, _ = dm.decode_step_mega(mega, cfg, x, st_k)
+            h_p, _ = dm.decode_step_plain(mega, cfg, x, st_p)
+            eh = rel(h_k, h_p)
+            err = max(err, max_abs(h_k, h_p))
+            check(bool(torch.isfinite(h_k).all()), "decode b1 hidden is not finite")
+            check(eh <= 2e-2, f"decode b1 kernel disagrees with decode_step_plain: {eh:.3e}")
+        leaves = {k: rel(st_k[k], st_p[k]) for k in ("att_x", "ffn_x", "wkv")}
+        print(f"decode b1: {str(carry)[6:]} carry, 4 steps: hidden rel {eh:.3e} (last), state "
+              + ", ".join(f"{k} {v:.3e}" for k, v in leaves.items()) + " (limit 2e-2)")
+        check(max(leaves.values()) <= 2e-2, f"decode b1 state disagrees: {leaves}")
+
+    st_k = {"att_x": f(L, 1, C, s=0.5), "wkv": f(L, 1, H, 64, 64, s=0.1).to(torch.bfloat16),
+            "ffn_x": f(L, 1, C, s=0.5)}
+    st_p = {k: v.clone() for k, v in st_k.items()}
+    dm.reset_launches()
+    dm.decode_step_mega(mega, cfg, x, st_k)
+    per_step = dict(dm.kernel_launches)
+    ms = cuda_ms(lambda: dm.decode_step_mega(mega, cfg, x, st_k), 20)
+    plain_ms = cuda_ms(lambda: dm.decode_step_plain(mega, cfg, x, st_p), 3)
+    # bytes: every packed tensor once, the state read and written, x and h;
+    # operations: 2 FLOP a weight on the CUDA cores (f32 FMA)
+    weights = [t for t in mega.values() if torch.is_tensor(t)]
+    n_w = sum(t.numel() for t in weights if t.dtype in (torch.int8, torch.bfloat16))
+    bms, by = bound_ms(nbytes(*weights) + 2 * nbytes(*st_k.values()) + 2 * nbytes(x),
+                       2 * n_w, F32_FLOPS)
+    print(f"decode b1: C={C} L={L}, bf16 carry: {per_step} launches a step; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms a step, bound {bms:.4f} ms ({by}), "
+          f"{nbytes(*weights) / 1e9:.4f} GB of packed weights")
+    # where a step's time goes: device time by kernel over 10 steps
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            dm.decode_step_mega(mega, cfg, x, st_k)
+        torch.cuda.synchronize()
+    by_kernel = kernel_totals(prof)
+    busy = sum(t for t, _ in by_kernel.values()) / 10 / 1e3
+    print(f"decode b1: profiled 10 steps: device busy {busy:.4f} ms a step of {ms:.4f}")
+    for name, (t, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"decode b1:   {t / 10 / 1e3:8.4f} ms a step, {n // 10:4d} launches  {name[:100]}")
+    return ({"name": "decode_b1_step", "route": "cuda", "source": DECODE_B1_SOURCE,
+             "replaces": DECODE_B1_REPLACES, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None},
+            per_step, ms)
+
+
+# ---------------------------------------------------------------------------
+# 12-13. Cosy streaming: small on card vs CPU, then the main path
+# ---------------------------------------------------------------------------
+
+
+class CharTok:
+    """The streaming bench's character tokenizer
+    (benchmarks/bench_streaming_latency.py:27-28)."""
+
+    def encode(self, text):
+        return [ord(c) % 6000 + 10 for c in text]
+
+
+class _Tap:
+    """Wraps module.name so every call's result goes to on_result(result,
+    start, end), with CUDA events recorded around the call (no host
+    synchronisation), and its arguments to .last; restores it on exit."""
+
+    def __init__(self, module, name, on_result):
+        self.module, self.name, self.on_result = module, name, on_result
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.module, self.name)
+
+        def wrapped(*a, **kw):
+            self.last = (a, kw)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            self.on_result(out, start, end)
+            return out
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def tiny_codecs():
+    from rwkvtts_torch.codecs import conformer, flow, hift
+
+    fcfg = flow.FlowConfig(
+        input_size=24, output_size=16, spk_embed_dim=12, vocab_size=6562, n_timesteps=2,
+        encoder=conformer.UpsampleConformerConfig(input_size=24, output_size=24,
+                                                  attention_heads=2, linear_units=48,
+                                                  num_blocks=1, num_up_blocks=1),
+        estimator=flow.EstimatorConfig(in_channels=64, out_channels=16, channels=(16,),
+                                       n_blocks=1, num_mid_blocks=1, num_heads=2,
+                                       attention_head_dim=8, static_chunk_size=2))
+    hcfg = hift.HiFTConfig(in_channels=16, base_channels=32, nb_harmonics=2,
+                           upsample_rates=(4, 3), upsample_kernel_sizes=(8, 7), istft_n_fft=16,
+                           istft_hop_len=4, resblock_kernel_sizes=(3,),
+                           resblock_dilation_sizes=((1, 2),), source_resblock_kernel_sizes=(7, 7),
+                           source_resblock_dilation_sizes=((1, 2), (1, 2)), f0_cond_channels=16)
+    return (fcfg, flow.init_params(torch.Generator().manual_seed(21), fcfg),
+            hcfg, hift.init_params(torch.Generator().manual_seed(22), hcfg))
+
+
+def phase_cosy_small(dev) -> None:
+    from rwkvtts_torch.infer import generate as gen
+    from rwkvtts_torch.infer import streaming
+    from rwkvtts_torch.infer.cosy_pipeline import CosyPipeline
+    from rwkvtts_torch.models import cosy
+
+    cfg = cosy.default_config(hidden_size=256, num_layers=2)
+    g = torch.Generator().manual_seed(23)
+    params = cosy.init_params(g, cfg)
+    randomize(params, g)
+    params["head"] = 10.0 * params["head"]  # greedy gaps far above rounding noise
+    fcfg, fparams, hcfg, hparams = tiny_codecs()
+    scfg = streaming.StreamConfig(token_hop_len=4, ctx_tokens=4, mel_cache_len=2, n_timesteps=2,
+                                  lm_chunk=4)
+    out = {}
+    for where in ("cpu", dev):
+        pipe = CosyPipeline(cfg, params, CharTok(), fcfg, fparams, hcfg, hparams, device=where)
+        toks = []
+        with _Tap(gen, "cosy_decode_chunk", lambda o, *_: toks.append(o[1].cpu())):
+            wav = list(streaming.stream_synthesize(pipe, "hello streaming", stream_cfg=scfg,
+                                                   seed=3, max_new_tokens=24, top_k=1))
+        out[str(where)] = (torch.cat(toks, 1), wav)
+    (t_cpu, w_cpu), (t_gpu, w_gpu) = out["cpu"], out[str(dev)]
+    same = t_cpu.shape == t_gpu.shape and bool((t_cpu == t_gpu).all())
+    n_cpu, n_gpu = sum(len(c) for c in w_cpu), sum(len(c) for c in w_gpu)
+    finite = all(math.isfinite(float(abs(c).sum())) for c in w_gpu)
+    print(f"cosy small: LM 256 x 2 bf16, tiny flow / HiFT, greedy, {t_gpu.shape[1]} tokens: "
+          f"card vs CPU tokens identical {same}; {len(w_gpu)} / {len(w_cpu)} chunks, "
+          f"{n_gpu} / {n_cpu} samples, finite {finite}")
+    check(same, f"cosy small tokens differ: card {t_gpu.tolist()} cpu {t_cpu.tolist()}")
+    check(finite and n_gpu == n_cpu and len(w_gpu) == len(w_cpu),
+          "cosy small audio not finite or of another length")
+
+
+def phase_cosy_main(dev, card: str, kernel_ms: float) -> dict:
+    import numpy as np
+
+    from rwkvtts_torch.codecs import flow, hift
+    from rwkvtts_torch.infer import generate as gen
+    from rwkvtts_torch.infer import streaming
+    from rwkvtts_torch.infer.cosy_pipeline import CosyPipeline
+    from rwkvtts_torch.models import cosy, rwkv7
+    from rwkvtts_torch.ops import decode_mega as dm
+    from rwkvtts_torch.ops import wkv7_cuda
+
+    t0 = time.perf_counter()
+    cfg = cosy.default_config(hidden_size=COSY_C, num_layers=COSY_L)
+    params = cosy.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    params = rwkv7.tree_map(lambda t: t.to(torch.bfloat16) if t.ndim >= 2 else t, params)
+    fcfg, hcfg = flow.FlowConfig(), hift.HiFTConfig()
+    pipe = CosyPipeline(cfg, params, CharTok(), fcfg,
+                        flow.init_params(torch.Generator(device=dev).manual_seed(1), fcfg), hcfg,
+                        hift.init_params(torch.Generator(device=dev).manual_seed(2), hcfg),
+                        device=dev)
+    del params
+    torch.cuda.synchronize()
+    print(f"cosy main: LM {COSY_C} x {COSY_L} bf16 + flow + HiFT (defaults) built and packed in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(0)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+    requests = [dict(text="".join(rng.choice(letters, COSY_TEXT)),
+                     prompt_speech_tokens=rng.integers(0, 6561, COSY_PROMPT).tolist(),
+                     prompt_mel=rng.standard_normal((2 * COSY_PROMPT, 80)).astype(np.float32),
+                     spk_embedding=rng.standard_normal(192).astype(np.float32))
+                for _ in range(3)]
+    up = hcfg.total_upsample
+    want = COSY_NEW * fcfg.token_mel_ratio * up
+    runs = []
+    for i, req in enumerate(requests):
+        stages = {"lm": [], "flow": [], "hift": []}
+        n_tok = [0]
+
+        def lm_done(out, start, end):
+            stages["lm"].append((start, end))
+            n_tok[0] += out[1].shape[1]
+
+        if i == 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            dm.reset_launches()
+            wkv7_cuda.reset_launches()
+        with _Tap(gen, "cosy_decode_chunk", lm_done), \
+                _Tap(streaming, "_flow_hop", lambda o, s, e: stages["flow"].append((s, e))) \
+                as flow_tap, \
+                _Tap(streaming, "_hift_hop", lambda o, s, e: stages["hift"].append((s, e))) \
+                as hift_tap:
+            t0 = time.perf_counter()
+            ttfa, chunks = None, []
+            for chunk in streaming.stream_synthesize(pipe, stream_cfg=streaming.StreamConfig(),
+                                                     seed=i, max_new_tokens=COSY_NEW, **req):
+                if ttfa is None:
+                    ttfa = time.perf_counter() - t0
+                chunks.append(chunk)
+            wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        ms = {k: [s.elapsed_time(e) for s, e in v] for k, v in stages.items()}
+        wav = np.concatenate(chunks)
+        audio_s = len(wav) / pipe.sample_rate
+        check(bool(np.isfinite(wav).all()), "cosy main audio is not finite")
+        check(abs(len(wav) - want) <= hcfg.total_upsample * streaming.StreamConfig().mel_cache_len,
+              f"cosy main: {len(wav)} samples, want {want} (400 tokens)")
+        run = {"ttfa_ms": 1e3 * ttfa, "rtf": wall / audio_s, "audio_s": audio_s, "wall_s": wall,
+               "chunks": len(chunks), "tokens_decoded": n_tok[0],
+               "lm_ms_per_token": sum(ms["lm"]) / n_tok[0],
+               "flow_ms_per_hop": sum(ms["flow"]) / len(ms["flow"]),
+               "hift_ms_per_hop": sum(ms["hift"]) / len(ms["hift"]),
+               "flow_hops": len(ms["flow"]), "hift_calls": len(ms["hift"])}
+        print(f"cosy main: utterance {i} ({'warm-up' if i == 0 else 'timed'}): TTFA "
+              f"{run['ttfa_ms']:.2f} ms, RTF {run['rtf']:.4f}, {audio_s:.3f} s of audio in "
+              f"{wall:.3f} s, {len(chunks)} chunks; LM {run['lm_ms_per_token']:.4f} ms a token "
+              f"({n_tok[0]} decoded), flow {run['flow_ms_per_hop']:.2f} ms a hop "
+              f"(x{run['flow_hops']}), HiFT {run['hift_ms_per_hop']:.2f} ms a hop "
+              f"(x{run['hift_calls']})")
+        if i > 0:
+            runs.append(run)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = sum(r["tokens_decoded"] for r in runs)
+    decode = {"decode_b1_step": dm.launches, "by_kernel": dict(dm.kernel_launches),
+              "wkv7_fwd": wkv7_cuda.launches["wkv7_fwd"]}
+    per_token = dm.launches / n_tok
+    check(per_token == 8 * COSY_L + 1, f"decode launches a token {per_token}, want {8 * COSY_L + 1}")
+    check(decode["wkv7_fwd"] == COSY_L * len(runs),
+          f"wkv7 prefill launches {decode['wkv7_fwd']}, want {COSY_L} an utterance")
+    lm_ms = sum(r["lm_ms_per_token"] * r["tokens_decoded"] for r in runs) / n_tok
+    summary = {
+        "ttfa_ms": [r["ttfa_ms"] for r in runs], "rtf": [r["rtf"] for r in runs],
+        "audio_s": [r["audio_s"] for r in runs], "lm_ms_per_token": lm_ms,
+        "decode_kernel_share": kernel_ms / lm_ms,
+        "flow_ms_per_hop": [r["flow_ms_per_hop"] for r in runs],
+        "hift_ms_per_hop": [r["hift_ms_per_hop"] for r in runs],
+        "decode_launches_per_token": per_token, "peak_gib": peak / 2**30, "launches": decode,
+    }
+    print(f"cosy main: decode {per_token:.0f} launches a token {decode['by_kernel']} over "
+          f"{n_tok} tokens, wkv7_fwd {decode['wkv7_fwd']}; decode step {kernel_ms:.4f} ms = "
+          f"{summary['decode_kernel_share']:.3f} of the LM's {lm_ms:.4f} ms a token; peak memory "
+          f"{peak / 2**30:.2f} GiB on {card}")
+    # where a hop's time goes: the last flow and HiFT hops again, profiled
+    for name, tap in (("flow", flow_tap), ("hift", hift_tap)):
+        summary[f"{name}_hop_busy"] = profile_call(f"cosy main: {name} hop", tap.fn, *tap.last)
+    return summary
+
+
+def profile_call(what: str, fn, args, kwargs) -> float:
+    """One call of fn under torch.profiler: wall ms, device busy share,
+    the largest kernels. Returns the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    by_kernel = kernel_totals(prof)
+    busy = sum(t for t, _ in by_kernel.values()) / 1e3
+    n = sum(c for _, c in by_kernel.values())
+    print(f"{what}: profiled: wall {wall:.2f} ms, device busy {busy:.2f} ms ({busy / wall:.3f}), "
+          f"{n} device ops")
+    for name, (t, c) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"{what}:   {t / 1e3:8.3f} ms, {c:5d} launches  {name[:100]}")
+    return busy / wall
+
+
+def kernel_totals(prof) -> dict:
+    """{kernel name: (device microseconds, launches)} of a torch.profiler
+    run: kernels, copies and fills, not the host ops."""
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type.name != "CUDA":
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        old = by_kernel.get(ev.key, (0.0, 0))
+        by_kernel[ev.key] = (old[0] + t, old[1] + ev.count)
+    return by_kernel
 
 
 def main() -> None:
@@ -714,6 +1036,9 @@ def main() -> None:
     rows["wkv7_fused_fwd"], rows["wkv7_fused_bwd"] = phase_wkv7_fused(dev)
     phase_train_small(dev)
     train_run = phase_train_main(dev, card)
+    rows["decode_b1_step"], b1_per_step, b1_ms = phase_decode_b1(dev)
+    phase_cosy_small(dev)
+    cosy_run = phase_cosy_main(dev, card, b1_ms)
 
     rows["wkv7_fwd"]["launches"] = main_run["launches"]["wkv7_fwd"]
     rows["wkv7_fwd"]["train_forward"] = train_fwd  # its training-shape numbers, unfused path
@@ -722,10 +1047,16 @@ def main() -> None:
     rows["wkv7_bwd"]["launches"] = train_run["unfused"]["wkv7_bwd"]
     rows["wkv7_fused_fwd"]["launches"] = train_run["launches"]["wkv7_fused_fwd"]
     rows["wkv7_fused_bwd"]["launches"] = train_run["launches"]["wkv7_fused_bwd"]
+    rows["wkv7_fwd"]["launches_cosy_main"] = cosy_run["launches"]["wkv7_fwd"]
+    rows["decode_b1_step"]["launches"] = cosy_run["launches"]["decode_b1_step"]
+    rows["decode_b1_step"]["launches_by_kernel"] = cosy_run["launches"]["by_kernel"]
+    rows["decode_b1_step"]["launches_per_step"] = b1_per_step
     print("train: " + json.dumps({k: v for k, v in train_run.items()
                                   if k not in ("launches", "unfused")}))
+    print("cosy: " + json.dumps({k: v for k, v in cosy_run.items() if k != "launches"}))
     print(json.dumps({"kernels": [rows[k] for k in ("wkv7_fwd", "decode_b64_step", "wkv7_bwd",
-                                                    "wkv7_fused_fwd", "wkv7_fused_bwd")]}))
+                                                    "wkv7_fused_fwd", "wkv7_fused_bwd",
+                                                    "decode_b1_step")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

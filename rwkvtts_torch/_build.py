@@ -160,6 +160,18 @@ _SIGNATURES = {
         ctypes.POINTER(_I),          # launch counts by kernel (3 ints, increased)
         _P,                          # stream
     ],
+    "decode_b1_step": [
+        _I, _I, _I, _F, _F,          # L, C, state dtype, norm_eps, ln_x_eps
+        _P, _P, _P, _P,              # x, h_out, ln0 (scale, bias)
+        _P, _P,                      # ln_out (scale, bias)
+        _P, _P, _P, _P, _P,          # rkv_q/s, li_q/s, lo (bf16)
+        _P, _P, _P, _P, _P, _P,      # out_q/s, fk_q/s, fv_q/s
+        _P,                          # smalls
+        _P, _P, _P,                  # att_x, ffn_x, wkv (updated in place)
+        _P,                          # workspace
+        ctypes.POINTER(_I),          # launch counts by kernel (3 ints, increased)
+        _P,                          # stream
+    ],
 }
 
 
@@ -172,8 +184,9 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
-    lib.decode_b64_workspace_bytes.argtypes = [ctypes.c_int]
-    lib.decode_b64_workspace_bytes.restype = ctypes.c_size_t
+    for name in ("decode_b64_workspace_bytes", "decode_b1_workspace_bytes"):
+        getattr(lib, name).argtypes = [ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_size_t
     return lib
 
 

@@ -1,7 +1,8 @@
 """Bridge between the JAX package's arrays and the port's tensors, in numpy
-(no JAX import): parameters name for name (both ways), the default
-optimizer's Adam moments, and the B=64 decode state between the TPU
-kernel's transposed layout and the port's natural one.
+(no JAX import): parameters name for name (both ways), the flow and HiFT
+trees with their convolution weights in PyTorch's layout, the default
+optimizer's Adam moments, and the decode states (B=64 and B=1) between
+the TPU kernels' layouts and the port's natural one.
 
 Parameter trees have the same names and shapes in both packages, so
 ``params_from_numpy`` copies leaf by leaf. The JAX decode-step state
@@ -41,6 +42,39 @@ def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     """A JAX parameter tree (leaves as numpy or JAX arrays) -> the port's."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return to_tensor(tree, device)
+
+
+def conv_from_jax(w) -> np.ndarray:
+    """A JAX conv1d kernel (K, in/g, out) -> PyTorch's (out, in/g, K)."""
+    return np.ascontiguousarray(np.transpose(np.asarray(w), (2, 1, 0)))
+
+
+def conv_transpose_from_jax(w) -> np.ndarray:
+    """A JAX transposed-conv kernel, stored as the forward conv over the
+    dilated input (K, in, out) with the taps flipped -> PyTorch's
+    ConvTranspose1d weight (in, out, K): w_torch[i, o, k] = w[K-1-k, i, o]
+    (groups = 1)."""
+    return np.ascontiguousarray(np.transpose(np.asarray(w)[::-1], (1, 2, 0)))
+
+
+def codec_params_from_numpy(tree, device=None, _transposed=False):
+    """A JAX flow or HiFT parameter tree (dicts and lists) -> the port's:
+    every 3-D "w" is a convolution kernel and goes to PyTorch's layout;
+    those under "ups" (HiFT's upsampling stack, the only transposed
+    convolutions of either tree) to ConvTranspose1d's. The one place where
+    codec weights change layout (rwkvtts_torch/codecs/nn.py)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            if k == "w" and np.ndim(v) == 3:
+                conv = conv_transpose_from_jax if _transposed else conv_from_jax
+                out[k] = to_tensor(conv(v), device)
+            else:
+                out[k] = codec_params_from_numpy(v, device, _transposed or k == "ups")
+        return out
+    if isinstance(tree, (list, tuple)):
+        return [codec_params_from_numpy(v, device, _transposed) for v in tree]
     return to_tensor(tree, device)
 
 
@@ -123,3 +157,41 @@ def state_to_mega(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         "wkv": wkv_to_mega(to_numpy(state["wkv"])),
         "ffn_x": to_numpy(state["ffn_x"]),
     }
+
+
+def wkv_from_head_pairs(wkv: np.ndarray, num_heads: int) -> np.ndarray:
+    """The B=1 TPU kernel's state (L, P, 64, 128), row i (value dim) and
+    lane h*64 + j (head h of the pair, key dim j) -> (L, 1, H, 64, 64)
+    (rwkvtts_tpu/ops/wkv7_step_pallas.py::pack_state)."""
+    L, P = wkv.shape[:2]
+    w = np.asarray(wkv).reshape(L, P, 64, 2, 64)    # (L, p, i, h, j)
+    w = np.transpose(w, (0, 1, 3, 2, 4))            # (L, p, h, i, j)
+    return w.reshape(L, 1, num_heads, 64, 64)
+
+
+def wkv_to_head_pairs(wkv: np.ndarray) -> np.ndarray:
+    """(L, 1, H, 64, 64) -> the B=1 TPU kernel's (L, P, 64, 128)."""
+    L, _, H = wkv.shape[:3]
+    w = np.asarray(wkv).reshape(L, H // 2, 2, 64, 64)  # (L, p, h, i, j)
+    return np.transpose(w, (0, 1, 3, 2, 4)).reshape(L, H // 2, 64, 128)
+
+
+def state_from_mega_b1(mstate: Dict[str, Any], num_heads: int, device=None
+                       ) -> Dict[str, torch.Tensor]:
+    """JAX B=1 megakernel state -> the port's B=1 decode state: shift states
+    f32, the WKV state in the JAX carry's dtype (bf16 or f32), natural
+    layout."""
+    wkv = np.asarray(mstate["wkv"])
+    dt = torch.bfloat16 if wkv.dtype.name == "bfloat16" else torch.float32
+    f32 = lambda a: to_tensor(np.asarray(a, np.float32), device).contiguous()
+    return {"att_x": f32(mstate["att_x"]),
+            "wkv": f32(wkv_from_head_pairs(wkv.astype(np.float32), num_heads)).to(dt),
+            "ffn_x": f32(mstate["ffn_x"])}
+
+
+def state_to_mega_b1(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's B=1 decode state -> the JAX megakernel layout (numpy f32;
+    cast the WKV state to the carry dtype on the JAX side)."""
+    return {"att_x": to_numpy(state["att_x"]),
+            "wkv": wkv_to_head_pairs(to_numpy(state["wkv"])),
+            "ffn_x": to_numpy(state["ffn_x"])}

@@ -1,0 +1,315 @@
+"""Flow-matching mel generator of the CosyVoice path (counterpart of
+rwkvtts_tpu/codecs/flow.py; reference third_party/cosyvoice/flow/flow.py,
+flow_matching.py, decoder.py): the x-vector affine, the token encoder
+(upsample conformer), the causal estimator UNet, the 10-step Euler CFM
+solve with classifier-free guidance, and the windowed streaming hop.
+
+The initial CFM noise is a function of (seed, absolute mel frame), so a
+windowed hop sees at its frames exactly the noise the full sequence would.
+The JAX package folds the frame index into a key; the port draws a table
+over absolute frames once (``NoiseTable``) and indexes it with the same
+absolute-index formula. Every noise input can be passed in explicitly.
+The SFM fast path and the training losses are not ported yet.
+Channels-last (B, T, C).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from rwkvtts_torch.codecs import conformer, nn
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class EstimatorConfig:
+    in_channels: int = 320  # 80 x + 80 mu + 80 spk + 80 cond (cosy2)
+    out_channels: int = 80
+    channels: Tuple[int, ...] = (256,)
+    n_blocks: int = 4
+    num_mid_blocks: int = 12
+    num_heads: int = 8
+    attention_head_dim: int = 64
+    static_chunk_size: int = 0  # 0 => full attention (offline)
+
+
+@dataclasses.dataclass(frozen=True)
+class CFMConfig:
+    inference_cfg_rate: float = 0.7  # classifier-free guidance
+
+
+@dataclasses.dataclass(frozen=True)
+class FlowConfig:
+    input_size: int = 512
+    output_size: int = 80
+    spk_embed_dim: int = 192
+    vocab_size: int = 6561
+    token_mel_ratio: int = 2
+    pre_lookahead_len: int = 3
+    encoder: conformer.UpsampleConformerConfig = conformer.UpsampleConformerConfig()
+    estimator: EstimatorConfig = EstimatorConfig()
+    cfm: CFMConfig = CFMConfig()
+    n_timesteps: int = 10
+
+
+# ---------------------------------------------------------------------------
+# Estimator (matcha / diffusers style, channels-last)
+# ---------------------------------------------------------------------------
+
+
+def _sinusoidal_t_emb(t: torch.Tensor, dim: int, scale: float = 1000.0) -> torch.Tensor:
+    half = dim // 2
+    freqs = torch.exp(torch.arange(half, device=t.device) * -(math.log(10000.0) / (half - 1)))
+    ang = scale * t[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
+def _block1d_init(g, dim, dim_out) -> Params:
+    return {"conv": nn.conv1d_init(g, dim, dim_out, 3), "ln": nn.layer_norm_init(dim_out, g.device)}
+
+
+def _block1d(p, x, mask):
+    x = nn.layer_norm(p["ln"], nn.conv1d(p["conv"], x * mask, padding=(2, 0)), eps=1e-5)
+    return F.mish(x) * mask
+
+
+def _resnet_block_init(g, dim, dim_out, time_dim) -> Params:
+    return {"mlp": nn.linear_init(g, time_dim, dim_out),
+            "block1": _block1d_init(g, dim, dim_out),
+            "block2": _block1d_init(g, dim_out, dim_out),
+            "res_conv": nn.conv1d_init(g, dim, dim_out, 1)}
+
+
+def _resnet_block(p, x, mask, t_emb):
+    h = _block1d(p["block1"], x, mask)
+    h = h + nn.linear(p["mlp"], F.mish(t_emb))[:, None, :]
+    h = _block1d(p["block2"], h, mask)
+    return h + nn.conv1d(p["res_conv"], x * mask, padding=0)
+
+
+def _transformer_block_init(g, dim, heads, head_dim) -> Params:
+    inner = heads * head_dim
+    return {
+        "norm1": nn.layer_norm_init(dim, g.device),
+        "to_q": nn.linear_init(g, dim, inner, bias=False),
+        "to_k": nn.linear_init(g, dim, inner, bias=False),
+        "to_v": nn.linear_init(g, dim, inner, bias=False),
+        "to_out": nn.linear_init(g, inner, dim),
+        "norm3": nn.layer_norm_init(dim, g.device),
+        "ff_in": nn.linear_init(g, dim, dim * 4),
+        "ff_out": nn.linear_init(g, dim * 4, dim),
+    }
+
+
+def _transformer_block(p, x, attn_bias, heads, head_dim):
+    B, T, _ = x.shape
+    h = nn.layer_norm(p["norm1"], x, eps=1e-5)
+    split = lambda t: t.reshape(B, T, heads, head_dim).transpose(1, 2)
+    q, k, v = (split(nn.linear(p[n], h)) for n in ("to_q", "to_k", "to_v"))
+    scores = q @ k.transpose(-1, -2) / math.sqrt(head_dim)
+    if attn_bias is not None:
+        scores = scores + attn_bias[:, None]
+    o = (torch.softmax(scores, -1) @ v).transpose(1, 2).reshape(B, T, heads * head_dim)
+    x = x + nn.linear(p["to_out"], o)
+    h = nn.gelu(nn.linear(p["ff_in"], nn.layer_norm(p["norm3"], x, eps=1e-5)))
+    return x + nn.linear(p["ff_out"], h)
+
+
+def estimator_init(g: torch.Generator, cfg: EstimatorConfig) -> Params:
+    chans = tuple(cfg.channels)
+    time_dim = chans[0] * 4
+    tblocks = lambda ch: [_transformer_block_init(g, ch, cfg.num_heads, cfg.attention_head_dim)
+                          for _ in range(cfg.n_blocks)]
+    p: Params = {"time_mlp": {"lin1": nn.linear_init(g, cfg.in_channels, time_dim),
+                              "lin2": nn.linear_init(g, time_dim, time_dim)},
+                 "down": [], "mid": [], "up": []}
+    out_ch = cfg.in_channels
+    for ch in chans:
+        p["down"].append({"resnet": _resnet_block_init(g, out_ch, ch, time_dim),
+                          "transformers": tblocks(ch),
+                          "downsample": nn.conv1d_init(g, ch, ch, 3)})
+        out_ch = ch
+    for _ in range(cfg.num_mid_blocks):
+        p["mid"].append({"resnet": _resnet_block_init(g, chans[-1], chans[-1], time_dim),
+                         "transformers": tblocks(chans[-1])})
+    up_chans = chans[::-1] + (chans[0],)
+    for i in range(len(up_chans) - 1):
+        in_ch, ch = up_chans[i] * 2, up_chans[i + 1]
+        # applied as a convolution on every level, as the JAX package does
+        # (the deployed configs have a single level, whose kernel is 3)
+        k = 3 if i == len(up_chans) - 2 else 4
+        p["up"].append({"resnet": _resnet_block_init(g, in_ch, ch, time_dim),
+                        "transformers": tblocks(ch),
+                        "upsample": nn.conv1d_init(g, ch, ch, k)})
+    p["final_block"] = _block1d_init(g, up_chans[-1], up_chans[-1])
+    p["final_proj"] = nn.conv1d_init(g, up_chans[-1], cfg.out_channels, 1)
+    return p
+
+
+def _chunk_attn_bias(mask: torch.Tensor, chunk_size: int) -> torch.Tensor:
+    """(B, T) padding mask -> additive bias (B, T, T); chunk_size > 0 is the
+    wenet static chunk mask with all left context."""
+    T = mask.shape[1]
+    valid = (mask[:, None, :] > 0)
+    if chunk_size > 0:
+        pos = torch.arange(T, device=mask.device)
+        valid = valid & ((pos[None, :] // chunk_size) <= (pos[:, None] // chunk_size))[None]
+    return torch.where(valid, 0.0, -1e10).to(mask.dtype)
+
+
+def estimator_apply(p: Params, cfg: EstimatorConfig, x, mask, mu, t, spks, cond):
+    """x / mu / cond (B, T, 80), mask (B, T), t (B,), spks (B, spk) ->
+    velocity (B, T, 80)."""
+    t_emb = nn.linear(p["time_mlp"]["lin1"], _sinusoidal_t_emb(t, cfg.in_channels))
+    t_emb = nn.linear(p["time_mlp"]["lin2"], F.silu(t_emb))
+    B, T, _ = x.shape
+    h = torch.cat([x, mu, spks[:, None, :].expand(B, T, spks.shape[-1]), cond], -1)
+    m = mask[:, :, None]
+    attn_bias = _chunk_attn_bias(mask, cfg.static_chunk_size)
+
+    def stage(blk, h):
+        h = _resnet_block(blk["resnet"], h, m, t_emb)
+        for tb in blk["transformers"]:
+            h = _transformer_block(tb, h, attn_bias, cfg.num_heads, cfg.attention_head_dim)
+        return h
+
+    def resample(conv, h):  # the deployed single level: a stride-1 causal conv
+        return nn.conv1d(conv, h * m, padding=(2, 0))
+
+    hiddens = []
+    for blk in p["down"]:
+        h = stage(blk, h)
+        hiddens.append(h)
+        h = resample(blk["downsample"], h)
+    for blk in p["mid"]:
+        h = stage(blk, h)
+    for blk in p["up"]:
+        skip = hiddens.pop()
+        h = stage(blk, torch.cat([h[:, :skip.shape[1]], skip], -1))
+        h = resample(blk["upsample"], h)
+    h = _block1d(p["final_block"], h, m)
+    return nn.conv1d(p["final_proj"], h * m, padding=0) * m
+
+
+# ---------------------------------------------------------------------------
+# CFM: Euler solver with classifier-free guidance
+# ---------------------------------------------------------------------------
+
+
+def cfm_solve(p_est: Params, est_cfg: EstimatorConfig, cfm: CFMConfig, z, mu, mask, spks,
+              cond, n_timesteps: int = 10):
+    """Fixed-step Euler ODE on the cosine t-schedule with CFG
+    (flow_matching.py:71-122)."""
+    ts = 1 - torch.cos(torch.linspace(0.0, 1.0, n_timesteps + 1, device=z.device) * 0.5 * math.pi)
+    B = mu.shape[0]
+    mu2 = torch.cat([mu, torch.zeros_like(mu)], 0)
+    spks2 = torch.cat([spks, torch.zeros_like(spks)], 0)
+    cond2 = torch.cat([cond, torch.zeros_like(cond)], 0)
+    mask2 = torch.cat([mask, mask], 0)
+    rate = cfm.inference_cfg_rate
+    x = z
+    for i in range(n_timesteps):
+        v2 = estimator_apply(p_est, est_cfg, torch.cat([x, x], 0), mask2, mu2,
+                             ts[i].expand(2 * B), spks2, cond2)
+        v = (1.0 + rate) * v2[:B] - rate * v2[B:]
+        x = x + (ts[i + 1] - ts[i]) * v
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Positional noise
+# ---------------------------------------------------------------------------
+
+
+class NoiseTable:
+    """Gaussian CFM noise over absolute mel frames, (1, frames, channels),
+    drawn from a seeded generator in blocks of `block` frames on first
+    use, so frame t has one value whatever size is asked for first."""
+
+    def __init__(self, seed: int, channels: int, device=None, block: int = 1024):
+        self.g = torch.Generator().manual_seed(seed)
+        self.channels, self.device, self.block = channels, device, block
+        self.table = torch.zeros(1, 0, channels, device=device)
+
+    def __call__(self, n_frames: int) -> torch.Tensor:
+        while self.table.shape[1] < n_frames:
+            new = torch.randn(1, self.block, self.channels, generator=self.g)
+            self.table = torch.cat([self.table, new.to(self.device)], 1)
+        return self.table
+
+
+# ---------------------------------------------------------------------------
+# Flow wrapper (CausalMaskedDiffWithXvec)
+# ---------------------------------------------------------------------------
+
+
+def init_params(g: torch.Generator, cfg: FlowConfig) -> Params:
+    return {
+        "input_embedding": 0.02 * torch.randn(cfg.vocab_size, cfg.input_size, generator=g,
+                                              device=g.device),
+        "spk_affine": nn.linear_init(g, cfg.spk_embed_dim, cfg.output_size),
+        "encoder": conformer.init_params(g, cfg.encoder),
+        "encoder_proj": nn.linear_init(g, cfg.encoder.output_size, cfg.output_size),
+        "estimator": estimator_init(g, cfg.estimator),
+    }
+
+
+def encode_tokens(p: Params, cfg: FlowConfig, tokens, token_mask):
+    """tokens (B, Tt) -> encoder hidden (B, Tt * ratio, enc_dim)."""
+    emb = p["input_embedding"][tokens.clamp_min(0)] * token_mask[:, :, None]
+    return conformer.apply(p["encoder"], cfg.encoder, emb, mask=token_mask)
+
+
+def _condition(p, cfg: FlowConfig, tokens, token_mask, prompt_feat, spk_embedding):
+    """(spks, mu, mel mask, conds) of a token buffer."""
+    emb = spk_embedding * torch.rsqrt((spk_embedding ** 2).sum(-1, keepdim=True) + 1e-12)
+    spks = nn.linear(p["spk_affine"], emb)
+    mu = nn.linear(p["encoder_proj"], encode_tokens(p, cfg, tokens, token_mask))
+    mel_mask = torch.repeat_interleave(token_mask, cfg.token_mel_ratio, 1).to(mu.dtype)
+    conds = torch.zeros_like(mu)
+    conds[:, :prompt_feat.shape[1]] = prompt_feat.to(mu.dtype)
+    return spks, mu, mel_mask, conds
+
+
+def inference(p: Params, cfg: FlowConfig, tokens, token_mask, prompt_feat,
+              prompt_feat_len: int, spk_embedding, noise: torch.Tensor,
+              n_timesteps: Optional[int] = None):
+    """Zero-shot mel generation (flow.py:194-241). tokens (B, Tt) prompt +
+    target speech tokens; token_mask (B, Tt); prompt_feat (B, Tp, 80);
+    spk_embedding (B, 192); noise (B, >= Tt * ratio, 80) the CFM noise
+    over absolute frames. Returns the generated mel (B, Tt * ratio - Tp, 80)."""
+    spks, mu, mel_mask, conds = _condition(p, cfg, tokens, token_mask, prompt_feat,
+                                           spk_embedding)
+    z = noise[:, :mu.shape[1]].to(mu)
+    feat = cfm_solve(p["estimator"], cfg.estimator, cfg.cfm, z, mu, mel_mask, spks, conds,
+                     n_timesteps=n_timesteps or cfg.n_timesteps)
+    return feat[:, prompt_feat_len:]
+
+
+def window_frames(prompt_len: int, gen_start: int, n_frames: int, ratio: int) -> torch.Tensor:
+    """Absolute frame of each window frame: the prompt frames keep their
+    place, the rest shift by ratio * gen_start (flow.py:534-538)."""
+    pos = torch.arange(n_frames)
+    return torch.where(pos < ratio * prompt_len, pos, pos + ratio * gen_start)
+
+
+def inference_window(p: Params, cfg: FlowConfig, tokens, token_mask, prompt_feat,
+                     prompt_len: int, gen_start: int, spk_embedding, noise: torch.Tensor,
+                     n_timesteps: Optional[int] = None):
+    """One bounded-window streaming hop. tokens (B, Wt) = [prompt tokens |
+    window of generated tokens | right pad], token_mask marking the valid
+    entries; gen_start the index in the generated stream of the first
+    window token after the prompt; noise (B, frames, 80) over absolute
+    frames (at least ratio * (Wt + gen_start)). Returns the mel of the whole
+    window (B, Wt * ratio, 80); the caller slices out the new frames."""
+    spks, mu, mel_mask, conds = _condition(p, cfg, tokens, token_mask, prompt_feat,
+                                           spk_embedding)
+    idx = window_frames(prompt_len, gen_start, mu.shape[1], cfg.token_mel_ratio)
+    z = noise[:, idx.to(noise.device)].to(mu)
+    return cfm_solve(p["estimator"], cfg.estimator, cfg.cfm, z, mu, mel_mask, spks, conds,
+                     n_timesteps=n_timesteps or cfg.n_timesteps)

@@ -127,3 +127,19 @@ def collate_plain(rows, tokenizer, eos_id: int, pad_to=None, packed=False):
         for r in rows
     ]
     return pack_batch(samples, pad_to) if packed else pad_batch(samples, pad_to)
+
+
+def pad_prompts_left(samples: Sequence[Sample]) -> Dict[str, np.ndarray]:
+    """Left-pad prompts for generation (leading pads only decay a zero
+    state) to the longest, rounded up to a multiple of 16."""
+    pad_to = -(-max(len(s) for s in samples) // 16) * 16
+    B = len(samples)
+    tokens = np.zeros((B, pad_to), dtype=np.int32)
+    modality = np.full((B, pad_to), MOD_PAD, dtype=np.int32)
+    mask = np.zeros((B, pad_to), dtype=np.int32)
+    for i, s in enumerate(samples):
+        n = len(s)
+        tokens[i, pad_to - n:] = s.tokens
+        modality[i, pad_to - n:] = s.modality
+        mask[i, pad_to - n:] = 1
+    return {"tokens": tokens, "modality": modality, "attention_mask": mask}

@@ -183,8 +183,9 @@ def init_params(g: torch.Generator, cfg: RWKV7Config) -> Params:
         "ln_out_scale": ones(), "ln_out_bias": zeros(),
     }
     V = cfg.vocab_size
-    params["embedding"] = (torch.rand(V, C, generator=g, device=dev) * 2 - 1) * 1e-4
-    params["head"] = _orthogonal(g, (C, V), 0.5 * math.sqrt(V / C) if V > C else 0.5)
+    if V:  # a model with tables of its own (Cosy) sets vocab_size 0
+        params["embedding"] = (torch.rand(V, C, generator=g, device=dev) * 2 - 1) * 1e-4
+        params["head"] = _orthogonal(g, (C, V), 0.5 * math.sqrt(V / C) if V > C else 0.5)
     return params
 
 

@@ -79,6 +79,23 @@ def _smalls_source(blocks: Params) -> Dict[str, torch.Tensor]:
 def pack_mega_b64(params: Params, cfg) -> Params:
     """Quantize and pack the backbone parameters (on their device)."""
     C, L = cfg.hidden_size, cfg.num_layers
+    att = params["blocks"]["att"]
+    mega = pack_common(params, cfg)
+    dev = mega["rkv_q"].device
+    lo_q = torch.zeros(L, 4 * LORA_PAD, C, dtype=torch.int8, device=dev)
+    lo_s = torch.zeros(L, 4, C, device=dev)
+    for gi, name in enumerate(_LG):
+        q, s = q8(att[f"{name}2"])
+        lo_q[:, gi * LORA_PAD:gi * LORA_PAD + q.shape[-2]] = q
+        lo_s[:, gi] = s.reshape(L, C)
+    return {**mega, "lo_q": lo_q, "lo_s": lo_s}
+
+
+def pack_common(params: Params, cfg) -> Params:
+    """What the B=64 and the B=1 decode steps pack alike: every int8
+    product but the lora-out, its bf16-rounded scales, the smalls block and
+    the ln0 / ln_out vectors."""
+    C, L = cfg.hidden_size, cfg.num_layers
     if cfg.head_size != 64 or C % 128:
         raise ValueError("the decode step takes head size 64 and C % 128 == 0")
     blocks = params["blocks"]
@@ -92,8 +109,6 @@ def pack_mega_b64(params: Params, cfg) -> Params:
 
     li_q = torch.zeros(L, C, 4 * LORA_PAD, dtype=torch.int8, device=dev)
     li_s = torch.ones(L, 4 * LORA_PAD, device=dev)
-    lo_q = torch.zeros(L, 4 * LORA_PAD, C, dtype=torch.int8, device=dev)
-    lo_s = torch.zeros(L, 4, C, device=dev)
     for gi, name in enumerate(_LG):
         q, s = q8(att[f"{name}1"])
         d = q.shape[-1]
@@ -101,9 +116,6 @@ def pack_mega_b64(params: Params, cfg) -> Params:
             raise ValueError(f"lora {name} width {d} > {LORA_PAD}")
         li_q[:, :, gi * LORA_PAD:gi * LORA_PAD + d] = q
         li_s[:, gi * LORA_PAD:gi * LORA_PAD + d] = stream_scale(s)
-        q, s = q8(att[f"{name}2"])
-        lo_q[:, gi * LORA_PAD:gi * LORA_PAD + q.shape[-2]] = q
-        lo_s[:, gi] = s.reshape(L, C)
 
     smalls = torch.zeros(L, NS, C, device=dev)
     for name, src in _smalls_source(blocks).items():
@@ -116,7 +128,7 @@ def pack_mega_b64(params: Params, cfg) -> Params:
     f32 = lambda t: t.float().contiguous()
     return {
         "rkv_q": rkv_q, "rkv_s": rkv_s, "li_q": li_q, "li_s": li_s,
-        "lo_q": lo_q, "lo_s": lo_s, "out_q": out_q, "out_s": out_s,
+        "out_q": out_q, "out_s": out_s,
         "fk_q": fk_q, "fk_s": fk_s, "fv_q": fv_q, "fv_s": fv_s,
         "smalls": smalls,
         "ln0_scale": f32(params["ln0_scale"]), "ln0_bias": f32(params["ln0_bias"]),

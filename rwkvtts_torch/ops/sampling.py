@@ -1,16 +1,17 @@
-"""Sampling: temperature / top-k / top-p (counterpart of
-rwkvtts_tpu/ops/sampling.py).
+"""Sampling: temperature / top-k / top-p, and Cosy's repetition-aware
+sampling (counterpart of rwkvtts_tpu/ops/sampling.py).
 
 JAX's ``jax.random.categorical(key, logits)`` is ``argmax(logits + g)``
 with ``g`` Gumbel noise of the logits' shape. The port makes the noise an
 explicit input: ``sample`` takes either ``noise`` (for the fused top-k +
 nucleus branch, the shape of the k candidates; otherwise the shape of the
-logits) or a ``torch.Generator`` from which it draws ``-log(-log(u))``.
-Fed the same noise, port and JAX pick the same tokens.
+logits) or a ``torch.Generator`` from which it draws ``-log(-log(u))``;
+``ras_sample`` takes the noise of both its draws. Fed the same noise, port
+and JAX pick the same tokens.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -83,3 +84,35 @@ def sample(
     if top_p < 1.0:
         x = top_p_mask(x, top_p)
     return _categorical(x, noise, generator)
+
+
+def ras_sample(
+    logits: torch.Tensor, recent: torch.Tensor, *, top_p: float = 0.8, top_k: int = 25,
+    win_size: int = 10, tau_r: float = 0.1,
+    noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Repetition-aware sampling (VALL-E 2; reference
+    third_party/cosyvoice/utils/common.py:108-113): a top-k + nucleus draw,
+    replaced by a draw from the full distribution where the drawn token
+    already appears >= win_size * tau_r times in `recent`.
+
+    logits (B, V); recent (B, win_size) past draws (-1 pads). The two
+    draws take Gumbel noise: `noise` = (nucleus (B, k), fallback (B, V)),
+    or drawn from `generator` (nucleus first)."""
+    x = logits.float()
+    k = min(top_k, x.shape[-1])
+    if noise is None:
+        if generator is None:
+            raise ValueError("ras_sample: pass `noise` or a `generator`")
+        noise = (gumbel((x.shape[0], k), generator, x.device),
+                 gumbel(x.shape, generator, x.device))
+    vals, idx = torch.topk(x, k, dim=-1)
+    probs = torch.softmax(vals, -1)
+    keep = torch.cumsum(probs, -1) - probs < top_p
+    keep[..., 0] = True  # >= 1 token survives: top_p <= 0 means greedy
+    vals = torch.where(keep, vals, NEG_INF)
+    tok = torch.gather(idx, -1, _categorical(vals, noise[0], None)[..., None])[..., 0]
+    rep = (recent == tok[:, None]).sum(-1)
+    fallback = _categorical(x, noise[1], None)
+    return torch.where(rep >= win_size * tau_r, fallback, tok)
