@@ -3,15 +3,18 @@
 It builds the port's hand-written CUDA kernels from ``rwkvtts_torch/csrc``,
 holds each against its plain PyTorch version on the card, checks a small
 generation, a small train step and a small stream against the plain path
-on the CPU, then drives the three main paths once: Spark speech-LM batched
+on the CPU, then drives the four main paths once: Spark speech-LM batched
 generation at 1024 hidden x 24 layers (random weights from a seed), B = 64,
 a 128-token prompt and 256 new tokens at top-k 50 / top-p 0.95, the
 configuration of ``bench.py``; Spark training at 1024 x 24 through the
 train CLI, B = 8 x 2048 tokens of synthetic rows, bf16 over f32 master
-weights, per-block remat, the fused-prep WKV7 kernel pair; and CosyVoice
+weights, per-block remat, the fused-prep WKV7 kernel pair; CosyVoice
 streaming TTS at the deployed 1.5B pairing (RWKV-7 2048 x 24 LM, B = 1
 decode, CosyVoice2 flow + HiFT), the configuration of
-``benchmarks/bench_streaming_latency.py``.
+``benchmarks/bench_streaming_latency.py``; and the Spark continuous-batching
+server through its launcher at 1024 x 24 with the launcher's defaults (96
+slots, 32-step chunks, the in-place WKV step), the traffic of
+``benchmarks/bench_serving_continuous.py``.
 
 Phases, each printing its own lines; any failure raises, so the run exits
 non-zero and prints no result:
@@ -43,6 +46,18 @@ non-zero and prints no result:
              3 utterances of 200 characters, 75 prompt tokens, 400 new
              tokens (1 warm-up, 2 timed): TTFA, RTF, LM ms a token, flow and
              HiFT ms a hop, decode launches a token, peak memory
+ 14. wkv7 step  the slot pool's in-place WKV step kernel vs wkv7_step_plain
+             at B = 96, H = 16: f32 and bf16 carry, 4 chained steps; ms a
+             layer over 24 layers' states, the bound from the bytes
+ 15. serve small a 256 x 2 Spark slot pool (8 slots; then the B=64 pool) on
+             the card vs the same pool on the CPU's plain path: 12 requests,
+             greedy and then top-k 50 / top-p 0.95 through the pool's noise,
+             identical tokens
+ 16. serve main  the serving launcher at Spark 1024 x 24 (random weights
+             from seed 0 written as model.safetensors and loaded by
+             launch.build_pipeline), 96 slots, chunk 32: 4 requests over HTTP,
+             then 192 at once; tokens, sustained tok/s, occupancy, ms a step,
+             latency, launches, peak memory, a profile of two chunks
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -72,6 +87,8 @@ FUSED_FWD_REPLACES = "rwkvtts_tpu/ops/wkv7_pallas.py:752"
 FUSED_BWD_REPLACES = "rwkvtts_tpu/ops/wkv7_pallas.py:796"
 DECODE_B1_SOURCE = "rwkvtts_torch/csrc/decode_b1.cu"
 DECODE_B1_REPLACES = "rwkvtts_tpu/ops/decode_mega.py:330"
+STEP_SOURCE = "rwkvtts_torch/csrc/wkv7_step.cu"
+STEP_REPLACES = "rwkvtts_tpu/ops/wkv7_step_pallas.py:93"
 
 B = 64
 PROMPT, NEW_TOKENS = 128, 256
@@ -82,6 +99,10 @@ TRAIN_WARM, TRAIN_TIMED = 2, 6
 # + HiFT, 200-character texts, 75 prompt tokens, 400 new tokens each
 COSY_C, COSY_L = 2048, 24
 COSY_TEXT, COSY_PROMPT, COSY_NEW = 200, 75, 400
+
+# the serving main path: Spark 0.4B behind the launcher's defaults
+SERVE_HIDDEN, SERVE_LAYERS, SERVE_H = 1024, 24, 16
+SERVE_SLOTS, SERVE_CHUNK, SERVE_MAX_NEW, SERVE_REQUESTS = 96, 32, 256, 192
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FMA and bf16
 # tensor-core FLOP/s; the bound of a kernel is the larger of its bytes over
@@ -122,6 +143,28 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, kernel: str, reps: int, per_call: int) -> float:
+    """Device milliseconds of the kernels whose name holds `kernel`, a
+    launch, over `reps` calls of fn (each launching it `per_call` times),
+    from torch.profiler, after one warm call. A profiler run late in a
+    process can drop a few events, so the mean is over those it kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    t, n = 0.0, 0
+    for name, (us, c) in kernel_totals(prof).items():
+        if kernel in name:
+            t, n = t + us, n + c
+    check(0.5 * reps * per_call <= n <= reps * per_call,
+          f"profiled {n} launches of {kernel}, want {reps * per_call}")
+    return t / 1e3 / n
 
 
 def check(ok: bool, what: str) -> None:
@@ -1003,6 +1046,315 @@ def kernel_totals(prof) -> dict:
     return by_kernel
 
 
+# ---------------------------------------------------------------------------
+# 14-16. Spark serving: the WKV step kernel, a small pool on card vs CPU,
+# then the launcher path at full width
+# ---------------------------------------------------------------------------
+
+
+def step_inputs(g: torch.Generator, Bn: int, H: int, dtype):
+    """One decode step's r, w_raw, k, v, z, b (Bn, H, 64) in the model's
+    ranges, as wkv_inputs."""
+    dev = g.device
+    f = lambda: torch.randn(Bn, H, 64, generator=g, device=dev)
+    r, k, v = f(), 0.3 * f(), f()
+    w_raw = -0.5 - f().abs()
+    kk = torch.nn.functional.normalize(f(), dim=-1)
+    a = torch.sigmoid(f())
+    return [x.to(dtype).contiguous() for x in (r, w_raw, k, v, -kk, kk * a)]
+
+
+def phase_wkv7_step(dev) -> dict:
+    from rwkvtts_torch.ops import wkv7_step_packed as sp
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    Bn, H = SERVE_SLOTS, SERVE_H
+    err = 0.0
+    # (carry, vectors, limit on y, limit on the state): y is rounded to the
+    # vectors' dtype, the state to the carry's
+    cases = ((torch.float32, torch.float32, 1e-4, 1e-4),
+             (torch.float32, torch.bfloat16, 2e-2, 1e-4),   # the pool's default
+             (torch.bfloat16, torch.bfloat16, 2e-2, 2e-2))
+    for carry, vdt, ytol, stol in cases:
+        s_k = (0.1 * torch.randn(Bn, H, 64, 64, generator=g, device=dev)).to(carry)
+        s_p = s_k.clone()
+        ey = 0.0
+        for _ in range(4):
+            vecs = step_inputs(g, Bn, H, vdt)
+            ptr = s_k.data_ptr()
+            y_k, out = sp.wkv7_step_packed(s_k, *vecs, inplace=True)
+            check(out.data_ptr() == ptr, "wkv7 step did not update the state in place")
+            y_p, s_p = sp.wkv7_step_plain(s_p, *vecs, inplace=True)
+            check(bool(torch.isfinite(y_k).all()) and y_k.dtype == vdt, "wkv7 step y")
+            ey = max(ey, rel(y_k, y_p))
+            if vdt == torch.float32:
+                err = max(err, max_abs(y_k, y_p))
+        es = rel(s_k, s_p)
+        print(f"wkv7 step: carry {str(carry)[6:]}, vectors {str(vdt)[6:]}, B={Bn} H={H}, 4 "
+              f"in-place steps: y rel {ey:.3e} (limit {ytol:g}), state rel {es:.3e} "
+              f"(limit {stol:g})")
+        check(ey <= ytol and es <= stol, "wkv7 step kernel disagrees with wkv7_step_plain")
+
+    # time: one step a layer over 24 layers' states, as the pool steps them
+    # (each layer's state is cold in L2 when its turn comes), bf16 vectors
+    L = 24
+    vecs = step_inputs(g, Bn, H, torch.bfloat16)
+    times = {}
+    for carry in (torch.float32, torch.bfloat16):
+        states = [torch.zeros(Bn, H, 64, 64, dtype=carry, device=dev) for _ in range(L)]
+
+        def kernel():
+            for s in states:
+                sp.wkv7_step_packed(s, *vecs, inplace=True)
+
+        def plain():
+            for s in states:
+                sp.wkv7_step_plain(s, *vecs, inplace=True)
+
+        call_ms = cuda_ms(kernel, 20) / L
+        ms = device_ms(kernel, "step_kernel", 5, L)
+        plain_ms = cuda_ms(plain, 2) / L
+        # bytes: the state read and written, the six vectors read and y written
+        bms, by = bound_ms(2 * nbytes(states[0]) + 7 * nbytes(vecs[0]), 7 * Bn * H * 4096,
+                           F32_FLOPS)
+        times[carry] = (ms, call_ms, plain_ms, bms, by)
+        print(f"wkv7 step: carry {str(carry)[6:]}, B={Bn} H={H}: kernel {ms:.4f} ms a layer "
+              f"on the device ({call_ms:.4f} ms a call from the host), plain {plain_ms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}); {1e-9 * 2 * nbytes(states[0]) / (ms / 1e3):.1f} GB/s "
+              f"of state")
+    ms, call_ms, plain_ms, bms, by = times[torch.float32]
+    return {"name": "wkv7_step", "route": "cuda", "source": STEP_SOURCE,
+            "replaces": STEP_REPLACES, "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "bf16_carry": dict(zip(("ms", "call_ms", "plain_ms", "bound_ms", "bound_by"),
+                                   times[torch.bfloat16]))}
+
+
+def serve_prompts(n: int, seed: int):
+    """n single-request prompts: [TAG2][text][TAG0][32 global tokens][TAG1]
+    with random text and voice tokens, and a cap each."""
+    import numpy as np
+
+    from rwkvtts_torch.data import spark_collator
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        s = spark_collator.build_prompt(rng.integers(1, 4000, rng.integers(4, 20)).tolist(),
+                                        rng.integers(0, 4096, 32).tolist())
+        out.append((spark_collator.pad_prompts_left([s]), int(rng.integers(8, 25))))
+    return out
+
+
+def phase_serve_small(dev) -> None:
+    from rwkvtts_torch.models import rwkv7, spark
+    from rwkvtts_torch.serving.continuous import ContinuousBatcher
+
+    cfg = spark.default_config(hidden_size=256, num_layers=2, dtype=torch.float32,
+                               decode_wkv_packed=True)
+    g = torch.Generator().manual_seed(31)
+    params = spark.init_params(g, cfg)
+    randomize(params, g)
+    params["head"] = 10.0 * params["head"]  # greedy gaps far above rounding noise
+    prompts = serve_prompts(12, 32)
+    for mega in (False, True):
+        for top_k, top_p in ((1, 1.0), (50, 0.95)):
+            out = {}
+            for where in ("cpu", dev):
+                p = rwkv7.tree_map(lambda t: t.to(where), params)
+                if not mega:
+                    p = rwkv7.pack_decode_params(p, cfg.backbone)
+                cb = ContinuousBatcher(p, cfg, n_slots=64 if mega else 8, chunk=4,
+                                       prompt_cap=32, top_k=top_k, top_p=top_p,
+                                       megakernel=mega)
+                rids = [cb.add_request(pb, cap, seed=7 + i)
+                        for i, (pb, cap) in enumerate(prompts)]
+                got = cb.drain()
+                out[str(where)] = [got[r] for r in rids]
+            t_cpu, t_gpu = out["cpu"], out[str(dev)]
+            n = sum(len(t) for t in t_gpu)
+            same = t_cpu == t_gpu
+            rows = sum(a == b for a, b in zip(t_gpu, t_cpu))
+            firsts = all(a[:1] == b[:1] for a, b in zip(t_gpu, t_cpu))
+            print(f"serve small: {'mega (64 slots)' if mega else 'packed (8 slots)'}, "
+                  f"top-k {top_k} / top-p {top_p}, 12 requests, {n} tokens: card vs CPU "
+                  f"tokens identical {same} ({rows} of 12 requests, first tokens {firsts})")
+            check(n > 0 and firsts, f"serve small first tokens differ: card {t_gpu} cpu {t_cpu}")
+            # the B=64 step's bf16 rounding points agree with its plain
+            # version to ~1e-3, enough to flip a near-tie of a sampled draw
+            # and every later token of that request; the greedy draws and
+            # the all-f32 packed pool must agree exactly
+            if not (mega and top_k > 1):
+                check(same, f"serve small tokens differ: card {t_gpu} cpu {t_cpu}")
+
+
+def phase_serve_main(dev, card: str) -> dict:
+    import random
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from rwkvtts_torch.convert import export_hf
+    from rwkvtts_torch.models import spark
+    from rwkvtts_torch.ops import wkv7_cuda
+    from rwkvtts_torch.ops import wkv7_step_packed as sp
+    from rwkvtts_torch.serving import http_server, launch
+    from rwkvtts_torch.serving import service as svc
+
+    L = SERVE_LAYERS
+    t0 = time.perf_counter()
+    cfg = spark.default_config(hidden_size=SERVE_HIDDEN, num_layers=L)
+    params = spark.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    with tempfile.TemporaryDirectory() as d:
+        export_hf.save_pretrained(params, cfg, d)
+        del params
+        t1 = time.perf_counter()
+        pipe = launch.build_pipeline(os.path.join(d, "model.safetensors"))
+    t2 = time.perf_counter()
+    tts = launch.build_service(pipe, n_slots=SERVE_SLOTS, chunk=SERVE_CHUNK,
+                               max_new_tokens=SERVE_MAX_NEW, top_k=50, top_p=0.95)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    print(f"serve main: Spark {SERVE_HIDDEN} x {L} random weights (seed 0) written as "
+          f"model.safetensors in {t1 - t0:.1f} s, loaded by build_pipeline in {t2 - t1:.1f} s, "
+          f"service with {SERVE_SLOTS} slots, chunk {SERVE_CHUNK}, warmed up in "
+          f"{t3 - t2:.1f} s")
+    cb = tts.batcher
+    check(cb.params_l is not None and not cb.megakernel
+          and pipe.cfg.backbone.decode_wkv_packed and "fused_a" in pipe.params["blocks"]["att"],
+          "serve main: not the launcher's default pool")
+
+    generated = []
+    finish = tts._finish
+    tts._finish = lambda toks, g: (generated.append(len(toks)), finish(toks, g))[1]
+    rng = random.Random(0)
+    voices = [[rng.randint(0, 4000) for _ in range(32)] for _ in range(SERVE_REQUESTS + 4)]
+    reqs = [svc.TTSRequest(text="benchmark sentence " * rng.randint(1, 5) + str(i),
+                           global_tokens=voices[i],
+                           max_new_tokens=rng.choice([64, 128, 192, 256]))
+            for i in range(SERVE_REQUESTS + 4)]
+    server, port = http_server.start_background(tts)
+    http_status = [None] * 4
+
+    def post(i):
+        r = reqs[i]
+        body = json.dumps({"text": r.text, "global_tokens": r.global_tokens,
+                           "max_new_tokens": r.max_new_tokens}).encode()
+        with urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{port}/api/rwkv_tts", data=body,
+                headers={"Content-Type": "application/json"}), timeout=600) as resp:
+            resp.read()
+            http_status[i] = (resp.status, resp.headers["Content-Type"])
+
+    t0 = time.perf_counter()
+    try:
+        posts = [threading.Thread(target=post, args=(i,)) for i in range(4)]
+        for t in posts:
+            t.start()
+        for t in posts:
+            t.join()
+        stats_http = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/api/stats", timeout=60).read())
+    finally:
+        server.shutdown()
+        server.server_close()
+    check(all(h == (200, "audio/wav") for h in http_status),
+          f"serve main: HTTP answers {http_status}")
+    t_http = time.perf_counter() - t0
+
+    # the burst is what the numbers below describe: counters from here
+    results, lat = [None] * SERVE_REQUESTS, [0.0] * SERVE_REQUESTS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sp.reset_launches()
+    wkv7_cuda.reset_launches()
+    cb.reset_stats()
+
+    def call(i):
+        t = time.perf_counter()
+        results[i] = tts.synthesize(reqs[4 + i], timeout=900)
+        lat[i] = time.perf_counter() - t
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(SERVE_REQUESTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    st = tts.stats()
+    tts.close()
+    errors = [r.error for r in results if r is None or r.error]
+    launches = {"wkv7_step": sp.launches, "wkv7_fwd": wkv7_cuda.launches["wkv7_fwd"]}
+    steps = st["chunks"] * SERVE_CHUNK
+    n_tok = sum(generated)
+    caps = sum(min(r.max_new_tokens, SERVE_MAX_NEW) for r in reqs)
+    print(f"serve main: {SERVE_REQUESTS + 4} requests (4 over HTTP in {t_http:.2f} s, "
+          f"HTTP /api/stats mode {stats_http['mode']} after {stats_http['chunks']} chunks), "
+          f"{len(results) - len(errors)} + 4 answered, {len(errors)} errors; {n_tok} tokens "
+          f"generated (caps {caps})")
+    check(not errors, f"serve main: errors {errors[:3]}")
+    check(len(generated) == SERVE_REQUESTS + 4 and 0 < n_tok <= caps,
+          f"serve main: {len(generated)} finished rows, {n_tok} tokens")
+    check(launches["wkv7_step"] == L * steps,
+          f"serve main: wkv7_step launched {launches['wkv7_step']} times, want {L} x {steps}")
+    check(launches["wkv7_fwd"] > 0 and launches["wkv7_fwd"] % L == 0,
+          f"serve main: wkv7_fwd launched {launches['wkv7_fwd']} times")
+    lat_ms = sorted(1e3 * x for x in lat)
+    summary = {
+        "requests": SERVE_REQUESTS + 4, "errors": len(errors), "tokens": n_tok,
+        "wall_s": wall, "tok_per_s": (n_tok - sum(generated[:4])) / wall,
+        "occupancy": st["occupancy"], "chunk_ms_per_step": st["chunk_ms_per_step"],
+        "admit_s": st["admit_s"], "chunk_s": st["chunk_s"], "host_s": st["host_s"],
+        "chunks": st["chunks"], "decode_steps": steps,
+        "latency_p50_ms": float(np.percentile(lat_ms, 50)),
+        "latency_p95_ms": float(np.percentile(lat_ms, 95)),
+        "peak_gib": peak / 2**30, "launches": launches,
+    }
+    print(f"serve main: {SERVE_REQUESTS} concurrent requests: {wall:.3f} s, "
+          f"{summary['tok_per_s']:.1f} tok/s sustained on {card}; occupancy "
+          f"{st['occupancy']}, {st['chunk_ms_per_step']} ms a step in chunks, admit "
+          f"{st['admit_s']} s, chunk {st['chunk_s']} s, host {st['host_s']} s over "
+          f"{st['chunks']} chunks; latency p50 {summary['latency_p50_ms']:.1f} ms, p95 "
+          f"{summary['latency_p95_ms']:.1f} ms; launches {launches} ({L} x {steps} decode "
+          f"steps); peak memory {peak / 2**30:.2f} GiB")
+    summary.update(profile_pool(cb, pipe, reqs))
+    return summary
+
+
+def profile_pool(cb, pipe, reqs) -> dict:
+    """Two chunks of a full pool under torch.profiler, driven from this
+    thread once the service's worker has stopped: wall, device busy share,
+    the largest kernels and the WKV step kernel's share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for r in reqs[:cb.n_slots]:
+        cb.add_request(pipe._prompt_batch([r.text], [r.global_tokens], [[]], [None]),
+                       SERVE_MAX_NEW)
+    cb.step()  # admission + one chunk
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cb.step()
+        cb.step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    by_kernel = kernel_totals(prof)
+    busy = sum(t for t, _ in by_kernel.values()) / 1e3
+    n = sum(c for _, c in by_kernel.values())
+    step_t = sum(t for k, (t, _) in by_kernel.items() if "step_kernel" in k) / 1e3
+    print(f"serve main: profiled 2 chunks ({2 * cb.chunk} steps, {cb.n_slots} rows): wall "
+          f"{wall:.2f} ms, device busy {busy:.2f} ms ({busy / wall:.3f}), {n} device ops; "
+          f"WKV step kernel {step_t:.2f} ms ({step_t / busy:.3f} of busy)")
+    for name, (t, c) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"serve main:   {t / 1e3:8.3f} ms, {c:5d} launches  {name[:100]}")
+    return {"profiled_wall_ms": wall, "profiled_busy_share": busy / wall,
+            "step_kernel_share_of_busy": step_t / busy}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1039,6 +1391,9 @@ def main() -> None:
     rows["decode_b1_step"], b1_per_step, b1_ms = phase_decode_b1(dev)
     phase_cosy_small(dev)
     cosy_run = phase_cosy_main(dev, card, b1_ms)
+    rows["wkv7_step"] = phase_wkv7_step(dev)
+    phase_serve_small(dev)
+    serve_run = phase_serve_main(dev, card)
 
     rows["wkv7_fwd"]["launches"] = main_run["launches"]["wkv7_fwd"]
     rows["wkv7_fwd"]["train_forward"] = train_fwd  # its training-shape numbers, unfused path
@@ -1051,12 +1406,16 @@ def main() -> None:
     rows["decode_b1_step"]["launches"] = cosy_run["launches"]["decode_b1_step"]
     rows["decode_b1_step"]["launches_by_kernel"] = cosy_run["launches"]["by_kernel"]
     rows["decode_b1_step"]["launches_per_step"] = b1_per_step
+    rows["wkv7_step"]["launches"] = serve_run["launches"]["wkv7_step"]
+    rows["wkv7_step"]["decode_steps_serve_main"] = serve_run["decode_steps"]
+    rows["wkv7_fwd"]["launches_serve_main"] = serve_run["launches"]["wkv7_fwd"]
     print("train: " + json.dumps({k: v for k, v in train_run.items()
                                   if k not in ("launches", "unfused")}))
     print("cosy: " + json.dumps({k: v for k, v in cosy_run.items() if k != "launches"}))
+    print("serve: " + json.dumps({k: v for k, v in serve_run.items() if k != "launches"}))
     print(json.dumps({"kernels": [rows[k] for k in ("wkv7_fwd", "decode_b64_step", "wkv7_bwd",
                                                     "wkv7_fused_fwd", "wkv7_fused_bwd",
-                                                    "decode_b1_step")]}))
+                                                    "decode_b1_step", "wkv7_step")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

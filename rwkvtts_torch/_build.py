@@ -148,6 +148,13 @@ _SIGNATURES = {
         _P, _P,                      # dparams, ds0
         _P,                          # stream
     ],
+    "wkv7_step": [
+        _I, _I, _I,                  # state dtype, dtype, B * H
+        _P, _P,                      # s_in, s_out (may be the same buffer)
+        _P, _P, _P, _P, _P, _P,      # r, w_raw, k, v, z, b
+        _P,                          # y
+        _P,                          # stream
+    ],
     "decode_b64_step": [
         _I, _I, _I, _F, _F,          # L, C, B, norm_eps, ln_x_eps
         _P, _P, _P, _P,              # x, h_out, ln0 (scale, bias)

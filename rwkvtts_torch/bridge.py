@@ -9,7 +9,9 @@ Parameter trees have the same names and shapes in both packages, so
 ``wkv`` is (L, P, 4096, 128) with P = C/128 head pairs, row i*64 + j
 (i the value dim, j the key dim) and lane h*64 + b (h the head in the
 pair, b the batch row) — rwkvtts_tpu/ops/decode_mega_b64.py:255-281. The
-port keeps (L, B, H, 64, 64).
+TPU step kernels (B=1 decode, the packed slot-pool step) pack head pairs
+along lanes instead: (..., B H / 2, N, 2N). The port keeps
+(L, B, H, N, N).
 """
 from __future__ import annotations
 
@@ -30,8 +32,11 @@ def to_tensor(a, device=None) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """Tensor -> numpy; bf16 comes back as f32 (exact)."""
+def to_numpy(t) -> np.ndarray:
+    """Tensor -> numpy; bf16 comes back as f32 (exact). An array passes
+    through."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()
@@ -80,7 +85,7 @@ def codec_params_from_numpy(tree, device=None, _transposed=False):
 
 def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
     """The port's parameter tree -> numpy leaves (bf16 as exact f32): the
-    inverse of ``params_from_numpy``."""
+    inverse of ``params_from_numpy``. Numpy leaves pass through."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     return to_numpy(tree)
@@ -159,21 +164,36 @@ def state_to_mega(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     }
 
 
-def wkv_from_head_pairs(wkv: np.ndarray, num_heads: int) -> np.ndarray:
-    """The B=1 TPU kernel's state (L, P, 64, 128), row i (value dim) and
-    lane h*64 + j (head h of the pair, key dim j) -> (L, 1, H, 64, 64)
+def wkv_from_packed(wkv: np.ndarray, batch: int, num_heads: int) -> np.ndarray:
+    """The TPU step kernels' head-pair-packed state (..., P, N, 2N), P =
+    B H / 2, row i (value dim) and lane h N + j (head h of the pair, key
+    dim j) -> (..., B, H, N, N)
+    (rwkvtts_tpu/ops/wkv7_step_pallas.py::unpack_state)."""
+    w = np.asarray(wkv)
+    *lead, P, N, N2 = w.shape
+    w = w.reshape(*lead, batch, num_heads // 2, N, 2, N)   # (..., b, p, i, h, j)
+    w = np.moveaxis(w, -2, -3)                              # (..., b, p, h, i, j)
+    return w.reshape(*lead, batch, num_heads, N, N)
+
+
+def wkv_to_packed(wkv: np.ndarray) -> np.ndarray:
+    """(..., B, H, N, N) -> the head-pair-packed (..., B H / 2, N, 2N)
     (rwkvtts_tpu/ops/wkv7_step_pallas.py::pack_state)."""
-    L, P = wkv.shape[:2]
-    w = np.asarray(wkv).reshape(L, P, 64, 2, 64)    # (L, p, i, h, j)
-    w = np.transpose(w, (0, 1, 3, 2, 4))            # (L, p, h, i, j)
-    return w.reshape(L, 1, num_heads, 64, 64)
+    w = np.asarray(wkv)
+    *lead, Bn, H, N, _ = w.shape
+    w = w.reshape(*lead, Bn, H // 2, 2, N, N)               # (..., b, p, h, i, j)
+    w = np.moveaxis(w, -3, -2)                              # (..., b, p, i, h, j)
+    return w.reshape(*lead, Bn * (H // 2), N, 2 * N)
+
+
+def wkv_from_head_pairs(wkv: np.ndarray, num_heads: int) -> np.ndarray:
+    """The B=1 TPU kernel's state (L, P, 64, 128) -> (L, 1, H, 64, 64)."""
+    return wkv_from_packed(wkv, 1, num_heads)
 
 
 def wkv_to_head_pairs(wkv: np.ndarray) -> np.ndarray:
     """(L, 1, H, 64, 64) -> the B=1 TPU kernel's (L, P, 64, 128)."""
-    L, _, H = wkv.shape[:3]
-    w = np.asarray(wkv).reshape(L, H // 2, 2, 64, 64)  # (L, p, h, i, j)
-    return np.transpose(w, (0, 1, 3, 2, 4)).reshape(L, H // 2, 64, 128)
+    return wkv_to_packed(wkv)
 
 
 def state_from_mega_b1(mstate: Dict[str, Any], num_heads: int, device=None

@@ -1,6 +1,6 @@
 """Spark-TTS prompt-layout collator, token domain (a copy of the plain
-collator of rwkvtts_tpu/data/spark_collator.py; the properties and
-global-token collators come later).
+collator and the inference prompt of rwkvtts_tpu/data/spark_collator.py;
+the properties and global-token collators come later).
 
 Layout: [TAG2][text][TAG0][global x 32][TAG1][semantic ...][EOS]; labels
 are -100 over the prefix, then the semantic tokens and EOS. Padded, every
@@ -129,10 +129,37 @@ def collate_plain(rows, tokenizer, eos_id: int, pad_to=None, packed=False):
     return pack_batch(samples, pad_to) if packed else pad_batch(samples, pad_to)
 
 
-def pad_prompts_left(samples: Sequence[Sample]) -> Dict[str, np.ndarray]:
+def build_prompt(
+    text_ids: Sequence[int],
+    global_tokens: Sequence[int],
+    *,
+    prompt_semantic_tokens: Sequence[int] = (),
+    properties: Optional[str] = None,
+    tokenizer=None,
+) -> Sample:
+    """Inference prompt [props?][TAG2][text][TAG0][global][TAG1][prompt_sem...]:
+    decoding continues after the prompt's semantic tokens."""
+    s = Sample([], [], [])
+    if properties is not None:
+        prop_ids = tokenizer.encode(properties)
+        s.extend(prop_ids, MOD_TEXT, [IGNORE] * len(prop_ids))
+    s.extend([TAG_START_TTS], MOD_TAG, [IGNORE])
+    s.extend(list(text_ids), MOD_TEXT, [IGNORE] * len(text_ids))
+    s.extend([TAG_GLOBAL], MOD_TAG, [IGNORE])
+    s.extend(list(global_tokens), MOD_GLOBAL, [IGNORE] * len(global_tokens))
+    s.extend([TAG_SEMANTIC], MOD_TAG, [IGNORE])
+    if prompt_semantic_tokens:
+        s.extend(list(prompt_semantic_tokens), MOD_SEMANTIC,
+                 [IGNORE] * len(prompt_semantic_tokens))
+    return s
+
+
+def pad_prompts_left(samples: Sequence[Sample], pad_to: Optional[int] = None,
+                     pad_multiple: int = 16) -> Dict[str, np.ndarray]:
     """Left-pad prompts for generation (leading pads only decay a zero
-    state) to the longest, rounded up to a multiple of 16."""
-    pad_to = -(-max(len(s) for s in samples) // 16) * 16
+    state) to `pad_to`, or to the longest rounded up to `pad_multiple`."""
+    if pad_to is None:
+        pad_to = -(-max(len(s) for s in samples) // pad_multiple) * pad_multiple
     B = len(samples)
     tokens = np.zeros((B, pad_to), dtype=np.int32)
     modality = np.full((B, pad_to), MOD_PAD, dtype=np.int32)

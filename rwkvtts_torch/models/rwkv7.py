@@ -10,9 +10,14 @@ Ported here: the config, ``init_params`` (same tree, shapes and init
 distributions; values from a ``torch.Generator``, so they differ from
 JAX's), ``init_model_state``, the full-sequence ``block_forward`` and
 ``forward`` (the prefill, and the training forward, differentiable, with
-per-block rematerialisation), and the int8 weight quantizer. The WKV
-recurrence goes through ``ops/wkv7.wkv7`` (the CUDA kernels on a card), or
-with ``wkv_fuse_prep`` through ``ops/wkv7_cuda.wkv7_fused``.
+per-block rematerialisation), the int8 weight quantizer, and the decode
+half: ``pack_decode_params`` (fused projections, int8), the per-layer
+decode state (``pack_decode_state`` / ``unpack_decode_state``,
+``layer_decode_views``) and ``decode_step``. The WKV recurrence goes
+through ``ops/wkv7.wkv7`` (the CUDA kernels on a card), or with
+``wkv_fuse_prep`` through ``ops/wkv7_cuda.wkv7_fused``; the decode step's
+through ``ops/wkv7.wkv7_step`` (the step kernel on a card). The products
+are ``torch.matmul``, as the JAX package leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -49,6 +54,14 @@ class RWKV7Config:
     # run kk normalize, k_a mix, ln_x GroupNorm and the bonus inside the
     # fused WKV kernel pair (ops/wkv7_cuda.wkv7_fused); same function
     wkv_fuse_prep: bool = False
+    # decode: step each layer's WKV state in place (the slot pool's mode,
+    # ops/wkv7_step_packed.py); off, every step returns a fresh state
+    # buffer. The same function either way. The JAX package's flag also
+    # picks its head-pair-packed TPU layout, which the port does not keep.
+    decode_wkv_packed: bool = False
+    # decode: carry the WKV state in bf16 between steps (the step runs in
+    # f32 and casts at the carry boundary)
+    decode_state_bf16: bool = False
 
     @property
     def num_heads(self) -> int:
@@ -359,3 +372,189 @@ def _quantize_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The JAX package's _quantize_int8: q int8 and bf16 scales."""
     q, scale = q8(w)
     return {"q": q, "s": scale.to(torch.bfloat16)}
+
+
+def _qmat(att: Params, name: str, dt) -> torch.Tensor:
+    """Effective weight for `name`: int8 storage is dequantized on the fly
+    (q * s in the model dtype, as the JAX package's _qmat; int4 is not
+    ported)."""
+    qk = f"{name}_q8"
+    if qk in att:
+        p = att[qk]
+        return p["q"].to(dt) * p["s"].to(dt)
+    return att[name].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+_STATE_KEYS = ("att_x", "wkv", "ffn_x")
+
+
+def pack_decode_params(params: Params, cfg: RWKV7Config, quantize_int8: bool = False,
+                       fuse_projections: bool = True) -> Params:
+    """Precompute the decode weights (once, amortized): with
+    fuse_projections the seven input projections of a block collapse into
+    two products, (xn + xx x_s) @ W_s = xn @ W_s + xx @ (diag(x_s) W_s),
+    against blocks.att.fused_a / fused_b of shape (L, C, 3C+Dw+Da+Dv+Dg)
+    in cfg.dtype; with quantize_int8 those two (or, unfused, the r/k/v
+    projections), the output and the FFN matrices are also stored as
+    per-output-channel int8 (``_quantize_int8``). The original weights
+    stay in the tree (the prefill reads them)."""
+    att, ffn = params["blocks"]["att"], params["blocks"]["ffn"]
+    out = dict(params)
+    out["blocks"] = dict(params["blocks"])
+    new_att, new_ffn = dict(att), dict(ffn)
+    if not fuse_projections:
+        if not quantize_int8:
+            return params  # decode_step's unfused branch reads the originals
+        for name in ("receptance", "key", "value", "output"):
+            new_att[f"{name}_q8"] = _quantize_int8(att[name])
+    else:
+        ws = [("x_r", "receptance"), ("x_k", "key"), ("x_v", "value"), ("x_w", "w1"),
+              ("x_a", "a1"), ("x_v", "v1"), ("x_g", "g1")]
+        fused_a = torch.cat([att[w] for _, w in ws], -1).to(cfg.dtype)
+        fused_b = torch.cat([att[x][:, :, None] * att[w] for x, w in ws], -1).to(cfg.dtype)
+        if quantize_int8:
+            new_att["fused_a_q8"] = _quantize_int8(fused_a)
+            new_att["fused_b_q8"] = _quantize_int8(fused_b)
+            new_att["output_q8"] = _quantize_int8(att["output"])
+        else:
+            new_att["fused_a"], new_att["fused_b"] = fused_a, fused_b
+    if quantize_int8:
+        new_ffn["key_q8"] = _quantize_int8(ffn["key"])
+        new_ffn["value_q8"] = _quantize_int8(ffn["value"])
+    out["blocks"]["att"], out["blocks"]["ffn"] = new_att, new_ffn
+    return out
+
+
+_NORM_KEYS = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias")
+
+
+def layer_decode_views(params: Params, cfg: RWKV7Config) -> Params:
+    """The stacked block parameters as a tuple of per-layer views, sliced
+    once outside the decode loop; the norms' scales and biases also get an
+    f32 copy (exact), which the step's norms read."""
+    if isinstance(params.get("blocks"), tuple):
+        return params
+    layers = []
+    for bp in _unbind(params["blocks"], cfg.num_layers):
+        att = bp["att"]
+        layers.append({**bp, **{k: bp[k].float() for k in _NORM_KEYS},
+                       "att": {**att, "ln_x_scale": att["ln_x_scale"].float(),
+                               "ln_x_bias": att["ln_x_bias"].float()}})
+    return {**params, "blocks": tuple(layers)}
+
+
+def _ln(x: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
+    """layer_norm (f32 statistics, output in x's dtype) as one fused op."""
+    return F.layer_norm(x.float(), x.shape[-1:], scale.float(), bias.float(), eps).to(x.dtype)
+
+
+def pack_decode_state(state, cfg: RWKV7Config) -> tuple:
+    """The stacked model state (leaves (L, ...)) -> a tuple of per-layer
+    dicts, each leaf its own contiguous buffer (which the decode step, with
+    ``decode_wkv_packed``, updates in place), the WKV state in bf16 under
+    ``decode_state_bf16``. A tuple already in that form comes back as is."""
+    wkv_dt = torch.bfloat16 if cfg.decode_state_bf16 else None
+
+    def layer(st):
+        wkv = st["wkv"]
+        return {"att_x": st["att_x"].contiguous(),
+                "wkv": wkv.to(wkv_dt or wkv.dtype).contiguous(),
+                "ffn_x": st["ffn_x"].contiguous()}
+
+    if isinstance(state, tuple):
+        if wkv_dt is None or all(st["wkv"].dtype == wkv_dt for st in state):
+            return state
+        return tuple(layer(st) for st in state)
+    L = state["att_x"].shape[0]
+    return tuple(layer({k: state[k][l].clone() for k in _STATE_KEYS}) for l in range(L))
+
+
+def unpack_decode_state(state, cfg: RWKV7Config) -> Params:
+    """Inverse of pack_decode_state: a tuple of layers -> stacked leaves."""
+    if isinstance(state, tuple):
+        return {k: torch.stack([st[k] for st in state]) for k in _STATE_KEYS}
+    return state
+
+
+def decode_step(params: Params, cfg: RWKV7Config, x: torch.Tensor, state
+                ) -> Tuple[torch.Tensor, Any]:
+    """One autoregressive step. x: (B, C) token embeddings (pre-ln0).
+
+    `params` may hold the stacked blocks or their per-layer views
+    (``layer_decode_views``), and `state` the stacked leaves or the tuple
+    of ``pack_decode_state``; the new state comes back in the form it was
+    given. With a tuple and ``cfg.decode_wkv_packed`` each layer's WKV
+    state is updated in place. Blocks carrying fused_a/fused_b (or their
+    int8 forms, ``pack_decode_params``) take the two-product branch, the
+    others the seven-product one. Inside the layers the norms are
+    PyTorch's fused layer_norm / group_norm / normalize on f32 (the same
+    function as ops/norm.py, one op each: the eager step is bound by the
+    host's op dispatch). Returns (hidden (B, C) in cfg.dtype, state)."""
+    B, C = x.shape
+    H, N, L, dt = cfg.num_heads, cfg.head_size, cfg.num_layers, cfg.dtype
+    blocks = params["blocks"]
+    layers = blocks if isinstance(blocks, tuple) else _unbind(blocks, L)
+    layered = isinstance(state, tuple)
+    states = state if layered else [{k: state[k][l] for k in _STATE_KEYS} for l in range(L)]
+    inplace = layered and cfg.decode_wkv_packed
+    cast = lambda p: p.to(dt)
+    heads = lambda u: u.reshape(B, H, N).contiguous()
+
+    x = layer_norm(x.to(dt), params["ln0_scale"], params["ln0_bias"], cfg.norm_eps)
+    v_first = torch.zeros_like(x)
+    new_states = []
+    for l, (bp, st) in enumerate(zip(layers, states)):
+        att = bp["att"]
+        xn = _ln(x, bp["ln1_scale"], bp["ln1_bias"], cfg.norm_eps)
+        xx = st["att_x"].to(dt) - xn
+        if "fused_a" in att or "fused_a_q8" in att:
+            fused = xn @ _qmat(att, "fused_a", dt) + xx @ _qmat(att, "fused_b", dt)
+            sizes = [C, C, C, cfg.decay_lora, cfg.a_lora, cfg.v_lora]
+            r, k, v, w_h, a_h, v_h, g_h = torch.split(
+                fused, sizes + [fused.shape[-1] - sum(sizes)], -1)  # the gate takes the rest
+            w_raw = -F.softplus(-(cast(att["w0"]) + torch.tanh(w_h) @ cast(att["w2"]))) - 0.5
+            v_mix = torch.sigmoid(cast(att["v0"]) + v_h @ cast(att["v2"]))
+            a = torch.sigmoid(cast(att["a0"]) + a_h @ cast(att["a2"]))
+            g = torch.sigmoid(g_h) @ cast(att["g2"])
+        else:
+            xr, xw, xk, xv, xa, xg = (xn + xx * cast(att[f"x_{s}"]) for s in "rwkvag")
+            r = xr @ _qmat(att, "receptance", dt)
+            w_raw = -F.softplus(
+                -(cast(att["w0"]) + _lora(xw, cast(att["w1"]), cast(att["w2"]), torch.tanh))
+            ) - 0.5
+            k = xk @ _qmat(att, "key", dt)
+            v = xv @ _qmat(att, "value", dt)
+            v_mix = torch.sigmoid(cast(att["v0"]) + _lora(xv, cast(att["v1"]), cast(att["v2"])))
+            a = torch.sigmoid(cast(att["a0"]) + _lora(xa, cast(att["a1"]), cast(att["a2"])))
+            g = _lora(xg, cast(att["g1"]), cast(att["g2"]), torch.sigmoid)
+        if l == 0:
+            v_first = v
+        else:
+            v = v + (v_first - v) * v_mix
+        kk = F.normalize((k * cast(att["k_k"])).reshape(B, H, N).float(), dim=-1)
+        kk = kk.reshape(B, C).to(dt)
+        k = k * (1 + (a - 1) * cast(att["k_a"]))
+
+        y, wkv_state = wkv7_ops.wkv7_step(
+            st["wkv"], heads(r), heads(w_raw), heads(k), heads(v), heads(-kk), heads(kk * a),
+            inplace=inplace)
+        y = F.group_norm(y.reshape(B, C).float(), H, att["ln_x_scale"].float(),
+                         att["ln_x_bias"].float(), cfg.ln_x_eps).to(dt)
+        bonus = ((r.reshape(B, H, N) * k.reshape(B, H, N) * cast(att["r_k"]))
+                 .sum(-1, keepdim=True) * v.reshape(B, H, N)).reshape(B, C)
+        x = x + ((y + bonus) * g) @ _qmat(att, "output", dt)
+
+        ffn = bp["ffn"]
+        xn2 = _ln(x, bp["ln2_scale"], bp["ln2_bias"], cfg.norm_eps)
+        xx2 = st["ffn_x"].to(dt) - xn2
+        kf = torch.square(torch.relu((xn2 + xx2 * cast(ffn["x_k"])) @ _qmat(ffn, "key", dt)))
+        x = x + kf @ _qmat(ffn, "value", dt)
+        new_states.append({"att_x": xn, "wkv": wkv_state, "ffn_x": xn2})
+    x = layer_norm(x, params["ln_out_scale"], params["ln_out_bias"], cfg.norm_eps)
+    if layered:
+        return x, tuple(new_states)
+    return x, {k: torch.stack([st[k] for st in new_states]) for k in _STATE_KEYS}

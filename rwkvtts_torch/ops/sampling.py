@@ -8,6 +8,12 @@ nucleus branch, the shape of the k candidates; otherwise the shape of the
 logits) or a ``torch.Generator`` from which it draws ``-log(-log(u))``;
 ``ras_sample`` takes the noise of both its draws. Fed the same noise, port
 and JAX pick the same tokens.
+
+``sample_rows`` is the slot pool's sampler: per-row temperature and top-p
+vectors and a static top-k cap. Its noise is ``row_noise``, a counter hash
+of (the request's seed, its own step index, the candidate index) in torch
+integer ops: the same bits on the CPU and the card, no host sync, and a
+row's draw independent of what else shares the pool.
 """
 from __future__ import annotations
 
@@ -116,3 +122,52 @@ def ras_sample(
     rep = (recent == tok[:, None]).sum(-1)
     fallback = _categorical(x, noise[1], None)
     return torch.where(rep >= win_size * tau_r, fallback, tok)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer finalizer on int64 tensors holding values below
+    2^32; every product stays below 2^59."""
+    x = ((x ^ (x >> 16)) * 0x45D9F3B) & _M32
+    x = ((x ^ (x >> 16)) * 0x45D9F3B) & _M32
+    return x ^ (x >> 16)
+
+
+def row_noise(seed: torch.Tensor, n: torch.Tensor, k: int) -> torch.Tensor:
+    """Gumbel noise (B, k) that is a pure function of each row's (seed,
+    step index n) and the candidate index: the hash's top 24 bits give u in
+    (0, 1), then -log(-log(u))."""
+    h = _mix32((seed.long() & _M32) ^ 0x5BD1E995)
+    h = _mix32(h ^ (n.long() & _M32))
+    j = torch.arange(k, device=seed.device, dtype=torch.long)
+    x = _mix32((h[:, None] + _mix32(j + 0x632BE5AB)[None, :]) & _M32)
+    u = ((x >> 8).float() + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
+def sample_rows(
+    logits: torch.Tensor, *, temperature: torch.Tensor, top_k: int, top_p: torch.Tensor,
+    noise: Optional[torch.Tensor] = None, seed: Optional[torch.Tensor] = None,
+    n: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Token ids (B,) from logits (B, V) with per-row temperature and top-p
+    ((B,) vectors) and a static top-k cap (0 or >= V: the whole
+    vocabulary); the nucleus keeps >= 1 token a row, so top_p = 0 is
+    greedy. The Gumbel noise is `noise` (B, k) of the candidate shape, or
+    ``row_noise(seed, n, k)``."""
+    x = logits.float() / temperature.float().clamp_min(1e-6)[:, None]
+    V = x.shape[-1]
+    k = top_k if 0 < top_k < V else V
+    vals, idx = torch.topk(x, k, dim=-1)
+    probs = torch.softmax(vals, -1)
+    keep = torch.cumsum(probs, -1) - probs < top_p.float()[:, None]
+    keep[:, 0] = True
+    vals = torch.where(keep, vals, NEG_INF)
+    if noise is None:
+        if seed is None or n is None:
+            raise ValueError("sample_rows: pass `noise` or the rows' `seed` and `n`")
+        noise = row_noise(seed, n, k)
+    choice = _categorical(vals, noise, None)
+    return torch.gather(idx, -1, choice[:, None])[:, 0]

@@ -14,6 +14,8 @@ reference the CUDA kernels are held to); ``wkv7_fused_plain`` is the same
 for the fused-prep variant. ``wkv7`` is what the model calls: it goes
 through ``ops/wkv7_cuda.py``, which launches the CUDA kernels for tensors
 on a CUDA device and runs ``wkv7_scan`` for tensors on the CPU.
+``wkv7_step``, the one-step decode form, goes the same way through
+``ops/wkv7_step_packed.py``.
 """
 from __future__ import annotations
 
@@ -66,18 +68,22 @@ def wkv7_scan(
 
 def wkv7_step(
     state: torch.Tensor, r: torch.Tensor, w_raw: torch.Tensor, k: torch.Tensor,
-    v: torch.Tensor, z: torch.Tensor, b: torch.Tensor,
+    v: torch.Tensor, z: torch.Tensor, b: torch.Tensor, *, inplace: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decode step. state (B, H, N, N); r..b (B, H, N). The state is
     stepped in f32 and returned in its own dtype (a bf16 carry stays
-    bf16). Returns (y in v's dtype, new state)."""
-    s = state.float()
-    w = decay_from_raw(w_raw)
-    r, k, vf, z, b = (x.float() for x in (r, k, v, z, b))
-    sa = torch.einsum("bhij,bhj->bhi", s, z)
-    s = s * w[:, :, None, :] + sa[..., None] * b[:, :, None, :] + vf[..., None] * k[:, :, None, :]
-    y = torch.einsum("bhij,bhj->bhi", s, r)
-    return y.to(v.dtype), s.to(state.dtype)
+    bf16). Returns (y in v's dtype, new state).
+
+    A CUDA tensor launches the step kernel (ops/wkv7_step_packed.py, f32 or
+    bf16 carry); a CPU tensor runs its plain version. The card never runs
+    the plain step. ``inplace`` writes the new state over the given one
+    (the slot pool's mode, which the model's ``decode_wkv_packed`` selects,
+    as the TPU kernel updates its operand in place); otherwise a fresh
+    buffer is returned. Both compute the same function, the one the JAX
+    package's XLA step computes too."""
+    from rwkvtts_torch.ops import wkv7_step_packed
+
+    return wkv7_step_packed.wkv7_step_packed(state, r, w_raw, k, v, z, b, inplace=inplace)
 
 
 def wkv7_fused_plain(

@@ -1,0 +1,335 @@
+"""TTS serving core (counterpart of rwkvtts_tpu/serving/service.py): the
+request and response types, the speaker library, the worker-thread service
+base, and ``ContinuousTTSService``, which admits every request into a
+``ContinuousBatcher`` slot.
+
+One worker thread owns the pool and is the only thread that touches the
+card; client threads (the HTTP handlers) put a request on a queue and wait
+on an event. ``torch.inference_mode`` and the current CUDA device are
+thread-local, so the worker sets both itself.
+
+Not ported yet: the grouped same-voice dispatcher (``BatchedTTSService``'s
+own ``_run`` / ``_process``), streaming (``stream``), the Cosy service, and
+audio: until BiCodec is ported a finished request is answered with its
+tokens counted and an empty wav, as the JAX service answers when no codec
+is loaded.
+"""
+from __future__ import annotations
+
+import base64
+import dataclasses
+import io
+import logging
+import os
+import queue
+import struct
+import threading
+import wave
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from rwkvtts_torch.utils import audio_io
+
+log = logging.getLogger("rwkvtts_torch")
+
+
+@dataclasses.dataclass
+class TTSRequest:
+    text: str
+    speaker: Optional[str] = None
+    prompt_text: Optional[str] = None
+    prompt_wav: Optional[np.ndarray] = None
+    properties: Optional[Dict[str, Any]] = None
+    global_tokens: Optional[List[int]] = None  # a designed voice, unsaved
+    seed: int = 0
+    temperature: float = 1.0
+    top_k: int = 50
+    top_p: float = 0.95
+    # per-request decode cap; clamped to the service's max_new_tokens
+    max_new_tokens: Optional[int] = None
+
+
+@dataclasses.dataclass
+class TTSResponse:
+    wav: np.ndarray
+    sample_rate: int
+    error: Optional[str] = None
+
+
+class SpeakerLibrary:
+    """demos/<speaker>/*.wav prompt library; caches codec tokens per speaker."""
+
+    def __init__(self, demo_dir: Optional[str], codec=None, sample_rate: int = 16000):
+        self.demo_dir = demo_dir
+        self.codec = codec
+        self.sample_rate = sample_rate
+        self._cache: Dict[str, Dict[str, Any]] = {}
+
+    def speakers(self) -> List[str]:
+        """All voices: demo-dir prompt folders plus registered entries."""
+        names = set(self._cache)
+        if self.demo_dir and os.path.isdir(self.demo_dir):
+            names.update(d for d in os.listdir(self.demo_dir)
+                         if os.path.isdir(os.path.join(self.demo_dir, d)))
+        return sorted(names)
+
+    def register(self, name: str, global_tokens: Sequence[int],
+                 semantic_tokens: Sequence[int] = ()):
+        self._cache[name] = {"global_tokens": list(global_tokens),
+                             "semantic_tokens": list(semantic_tokens)}
+
+    def get(self, name: str) -> Dict[str, Any]:
+        if name in self._cache:
+            return self._cache[name]
+        if not self.demo_dir:
+            raise KeyError(name)
+        d = os.path.join(self.demo_dir, name)
+        wavs = sorted(f for f in os.listdir(d) if f.endswith(".wav"))
+        if not wavs:
+            raise KeyError(name)
+        wav = audio_io.load_wav(os.path.join(d, wavs[0]), self.sample_rate,
+                                volume_normalize=True)
+        if self.codec is None:
+            raise RuntimeError("codec required to tokenize speaker prompts")
+        glob, sem = self.codec.tokenize(wav)
+        entry = {"global_tokens": glob.reshape(-1).tolist(),
+                 "semantic_tokens": sem.reshape(-1).tolist()}
+        self._cache[name] = entry
+        return entry
+
+
+def _error(msg: str, sample_rate: int = 16000) -> TTSResponse:
+    return TTSResponse(np.zeros(0, np.float32), sample_rate, error=msg)
+
+
+class BatchedTTSService:
+    """The worker-thread service base: a request queue, one worker thread,
+    ``synthesize`` (the blocking client API), ``close`` and ``stats``.
+    Subclasses give the worker's loop (``_run``); the grouped same-voice
+    dispatcher of the JAX package, this class's own loop, is not ported
+    yet."""
+
+    def __init__(self, pipeline, speakers: Optional[SpeakerLibrary] = None,
+                 max_new_tokens: int = 1024):
+        if type(self) is BatchedTTSService:
+            raise NotImplementedError(
+                "the grouped same-voice dispatcher is not ported yet; use ContinuousTTSService")
+        self.pipeline = pipeline
+        self.speakers = speakers or SpeakerLibrary(None)
+        self.max_new_tokens = max_new_tokens
+        self._q: "queue.Queue" = queue.Queue()
+        self._stop = threading.Event()
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker.start()
+
+    def synthesize(self, req: TTSRequest, timeout: float = 300.0) -> TTSResponse:
+        done = threading.Event()
+        box: Dict[str, Any] = {}
+        self._q.put((req, done, box))
+        if not done.wait(timeout):
+            return _error("timeout")
+        return box["resp"]
+
+    def close(self):
+        self._stop.set()
+        self._worker.join(timeout=5)
+
+    def stats(self) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def _run(self):
+        raise NotImplementedError
+
+
+class ContinuousTTSService(BatchedTTSService):
+    """Every /api/rwkv_tts request is admitted into a ContinuousBatcher
+    slot: mixed voices and lengths decode in one pool, since a Spark voice
+    lives in the prompt tokens. Per-request temperature and top-p ride in
+    the slot carry; top-k is the pool's cap."""
+
+    def __init__(
+        self,
+        pipeline,  # infer.spark_pipeline.SparkPipeline
+        speakers: Optional[SpeakerLibrary] = None,
+        n_slots: int = 8,
+        chunk: int = 16,
+        prompt_cap: int = 128,
+        max_new_tokens: int = 1024,
+        temperature: float = 1.0,
+        top_k: int = 50,
+        top_p: float = 0.95,
+        seed: int = 0,
+        warmup: bool = False,
+        warmup_widths=None,  # prompt widths to run at boot (default: prompt_cap)
+        dp: int = 1,
+        overlap: bool = False,
+        megakernel: bool = False,
+    ):
+        from rwkvtts_torch.serving.continuous import ContinuousBatcher
+
+        if dp > 1:
+            raise NotImplementedError("dp-sharded serving is not ported yet")
+        self.batcher = ContinuousBatcher(
+            pipeline.params, pipeline.cfg, n_slots=n_slots, chunk=chunk,
+            prompt_cap=prompt_cap, temperature=temperature, top_k=top_k,
+            top_p=top_p, seed=seed, overlap=overlap, megakernel=megakernel,
+        )
+        if warmup:
+            self.batcher.warmup(warmup_widths)
+        # super() starts the worker thread: the batcher must exist first
+        super().__init__(pipeline, speakers, max_new_tokens=max_new_tokens)
+
+    def stats(self) -> Dict[str, Any]:
+        st = self.batcher.snapshot_stats()
+        chunks = max(1, st["chunks"])
+        return {
+            "mode": "continuous",
+            "n_slots": self.batcher.n_slots,
+            "chunk": self.batcher.chunk,
+            "queued": self._q.qsize(),
+            **{k: round(v, 3) if isinstance(v, float) else v for k, v in st.items()},
+            "occupancy": round(st["active_rows"] / (chunks * self.batcher.n_slots), 3),
+            "chunk_ms_per_step": round(1e3 * st["chunk_s"] / chunks / self.batcher.chunk, 3),
+        }
+
+    # -- request -> prompt --------------------------------------------------
+
+    def _resolve_voice(self, req: TTSRequest):
+        """-> (text, global_tokens, prompt_semantics, properties_str)."""
+        from rwkvtts_torch.data.properties import properties_string
+
+        text, prompt_sem, props_str = req.text, [], None
+        if req.speaker:
+            globals_ = self.speakers.get(req.speaker)["global_tokens"]
+        elif req.global_tokens:
+            globals_ = list(req.global_tokens)
+        elif req.prompt_wav is not None:
+            if self.pipeline.codec is None:
+                raise ValueError("audio tokenizer required for prompt_wav")
+            glob, sem = self.pipeline.codec.tokenize(req.prompt_wav)
+            globals_ = glob.reshape(-1).tolist()
+            if req.prompt_text:
+                text = req.prompt_text + text
+                prompt_sem = sem.reshape(-1).tolist()
+        elif req.properties is not None:
+            globals_ = self.pipeline.design_voice(req.properties, seed=req.seed)
+            props_str = properties_string(
+                req.properties.get("age", "youth-adult"),
+                req.properties.get("gender", "female"),
+                req.properties.get("emotion", "NEUTRAL"),
+                req.properties.get("pitch", "medium_pitch"),
+                req.properties.get("speed", "medium"),
+            )
+        else:
+            raise ValueError("need speaker, global_tokens, prompt_wav, or properties")
+        return text, globals_, prompt_sem, props_str
+
+    def _admit(self, item, pending) -> None:
+        req, done, box = item
+        try:
+            text, globals_, prompt_sem, props = self._resolve_voice(req)
+            pb = self.pipeline._prompt_batch([text], [globals_], [prompt_sem], [props])
+            cap = min(req.max_new_tokens or self.max_new_tokens, self.max_new_tokens)
+            rid = self.batcher.add_request(pb, cap, temperature=req.temperature,
+                                           top_p=req.top_p, seed=req.seed)
+            pending[rid] = (req, done, box, globals_)
+        except Exception as e:  # noqa: BLE001 — the service must answer
+            box["resp"] = _error(str(e))
+            done.set()
+
+    def _finish(self, toks, globals_) -> TTSResponse:
+        codec = self.pipeline.codec
+        sr = getattr(self.pipeline, "sample_rate", 16000)
+        if codec is None or not toks:
+            return TTSResponse(np.zeros(0, np.float32), sr)
+        g = np.asarray(globals_, np.int64)[None, None, :]
+        sem = np.asarray(toks, np.int64)[None]
+        return TTSResponse(np.asarray(codec.detokenize(g, sem))[0], sr)
+
+    # -- worker -------------------------------------------------------------
+
+    def _run(self):
+        cb = self.batcher
+        if cb.device.type == "cuda":
+            torch.cuda.set_device(cb.device)
+        pending: Dict[int, Any] = {}
+        with torch.inference_mode():
+            while not self._stop.is_set():
+                # admit everything queued right now (one batched prefill)
+                while True:
+                    try:
+                        item = self._q.get_nowait()
+                    except queue.Empty:
+                        break
+                    self._admit(item, pending)
+                if cb.idle():
+                    try:
+                        item = self._q.get(timeout=0.1)
+                    except queue.Empty:
+                        continue
+                    self._admit(item, pending)
+                    continue  # loop back to drain a burst before stepping
+                try:
+                    finished = cb.step()
+                except Exception as e:  # noqa: BLE001 — the worker must survive
+                    # a failed chunk leaves the carry in an unknown state:
+                    # answer every request in flight or queued with the
+                    # error and start the pool afresh
+                    log.exception("decode chunk failed; resetting the slot pool")
+                    for req, done, box, _g in pending.values():
+                        box["resp"] = _error(str(e))
+                        done.set()
+                    pending.clear()
+                    cb.reset()
+                    continue
+                for rid, toks in finished:
+                    req, done, box, globals_ = pending.pop(rid)
+                    try:
+                        box["resp"] = self._finish(toks, globals_)
+                    except Exception as e:  # noqa: BLE001
+                        box["resp"] = _error(str(e))
+                    done.set()
+
+
+def stream_wav_header(sample_rate: int, channels: int = 1) -> bytes:
+    """WAV header with an unknown (maximal) data length: players start
+    decoding at once and read until the connection closes."""
+    bits = 16
+    byte_rate = sample_rate * channels * bits // 8
+    block_align = channels * bits // 8
+    return (b"RIFF" + struct.pack("<I", 0xFFFFFFFF) + b"WAVE"
+            + b"fmt " + struct.pack("<IHHIIHH", 16, 1, channels, sample_rate,
+                                    byte_rate, block_align, bits)
+            + b"data" + struct.pack("<I", 0xFFFFFFFF))
+
+
+def pcm16(wav) -> bytes:
+    x = np.clip(np.asarray(wav, np.float32), -1.0, 1.0)
+    return (x * 32767.0).astype("<i2").tobytes()
+
+
+def properties_options() -> Dict[str, List[str]]:
+    """Dropdown vocabularies for voice design: the SPCT property sets."""
+    from rwkvtts_torch.data import properties as props
+
+    return {"age": list(props.AGE_TOKENS), "gender": list(props.GENDER_TOKENS),
+            "emotion": list(props.EMOTION_TOKENS), "pitch": list(props.PITCH_TOKENS),
+            "speed": list(props.SPEED_TOKENS)}
+
+
+def decode_audio_b64(b64: str, sample_rate: int = 16000) -> np.ndarray:
+    """base64 wav payload -> float32 mono."""
+    return audio_io.load_wav_bytes(base64.b64decode(b64), sample_rate)
+
+
+def wav_bytes(wav: np.ndarray, sample_rate: int) -> bytes:
+    """16-bit PCM mono WAV file bytes."""
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sample_rate)
+        w.writeframes(pcm16(wav))
+    return buf.getvalue()
