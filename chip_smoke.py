@@ -22,7 +22,12 @@ non-zero and prints no result:
   1. device  the card's name and power limit (nvidia-smi); no CUDA device is an error
   2. build   nvcc of rwkvtts_torch/csrc/*.cu into a ctypes library
   3. wkv7    the prefill kernel vs ops/wkv7.wkv7_scan (f32 reference)
-  4. decode  the B=64 decode step vs decode_step_plain, 4 chained steps
+  4. decode  the B=64 decode step's launch plan (shared memory a CTA, the
+             workspace); the step vs decode_step_plain at 2048 x 2 (2 chained
+             steps) and at 1024 x 24 (4 steps); two calls on the same inputs
+             bit-identical; 8 L + 2 launches a step; ms a step with and
+             without programmatic dependent launch, device time by kernel
+             (torch.profiler) and the busy share
   5. small   greedy generation at hidden 256 x 2 layers: kernels on the card
              vs plain versions on the CPU
   6. main    the full-size generation, launch counts, audio tok/s
@@ -52,7 +57,9 @@ non-zero and prints no result:
  15. serve small a 256 x 2 Spark slot pool (8 slots; then the B=64 pool) on
              the card vs the same pool on the CPU's plain path: 12 requests,
              greedy and then top-k 50 / top-p 0.95 through the pool's noise,
-             identical tokens
+             identical tokens; for each B=64 sampled request that differs,
+             the first differing token and its draw's margins, and the same
+             pool with decode_step_plain on the card against the CPU
  16. serve main  the serving launcher at Spark 1024 x 24 (random weights
              from seed 0 written as model.safetensors and loaded by
              launch.build_pipeline), 96 slots, chunk 32: 4 requests over HTTP,
@@ -244,13 +251,17 @@ def randomize(params: dict, g: torch.Generator) -> None:
         tree[name] = torch.randn(t.shape, generator=g, device=t.device) * t.shape[-2] ** -0.5
 
 
-def phase_decode(dev) -> tuple[dict, dict]:
+def decode_vs_plain(dev, C: int, L: int, seed: int, steps: int):
+    """The B=64 step on the card vs decode_step_plain on the card, `steps`
+    chained steps from one state, at C x L with random weights from `seed`:
+    hidden and state within 2e-2. Returns the pack, the kernel's state, the
+    last input, the largest |hidden difference| and the config."""
     from rwkvtts_torch.models import rwkv7
     from rwkvtts_torch.ops import decode_mega_b64 as dmb
 
-    cfg = rwkv7.RWKV7Config(vocab_size=8193, hidden_size=1024, num_layers=24)
-    L, C, H = cfg.num_layers, cfg.hidden_size, cfg.num_heads
-    g = torch.Generator(device=dev).manual_seed(2)
+    cfg = rwkv7.RWKV7Config(vocab_size=8193, hidden_size=C, num_layers=L)
+    H = cfg.num_heads
+    g = torch.Generator(device=dev).manual_seed(seed)
     params = rwkv7.init_params(g, cfg)
     randomize(params, g)
     mega = dmb.pack_mega_b64(params, cfg)
@@ -260,24 +271,63 @@ def phase_decode(dev) -> tuple[dict, dict]:
             "ffn_x": bf(L, B, C, s=0.5)}
     st_p = {k: v.clone() for k, v in st_k.items()}
     err = 0.0
-    for i in range(4):
+    for i in range(steps):
         x = torch.randn(B, C, generator=g, device=dev)
         h_k, _ = dmb.decode_step_mega_b64(mega, cfg, x, st_k)
         h_p, _ = dmb.decode_step_plain(mega, cfg, x, st_p)
         eh = rel(h_k, h_p)
         err = max(err, max_abs(h_k, h_p))
-        print(f"decode: step {i}: hidden rel {eh:.3e} (limit 2e-2)")
+        print(f"decode: {C} x {L}: step {i}: hidden rel {eh:.3e} (limit 2e-2)")
         check(bool(torch.isfinite(h_k).all()), "decode hidden is not finite")
-        check(eh <= 2e-2, "decode kernel disagrees with decode_step_plain")
+        check(eh <= 2e-2, f"decode kernel disagrees with decode_step_plain at {C} x {L}")
     for leaf in ("att_x", "ffn_x", "wkv"):
         es = rel(st_k[leaf], st_p[leaf])
-        print(f"decode: after 4 steps: state {leaf} rel {es:.3e} (limit 2e-2)")
-        check(es <= 2e-2, f"decode state {leaf} disagrees")
+        print(f"decode: {C} x {L}: after {steps} steps: state {leaf} rel {es:.3e} (limit 2e-2)")
+        check(es <= 2e-2, f"decode state {leaf} disagrees at {C} x {L}")
+    return mega, st_k, x, err, cfg
+
+
+def phase_decode(dev) -> tuple[dict, dict]:
+    from rwkvtts_torch import _build
+    from rwkvtts_torch.ops import decode_mega_b64 as dmb
+
+    lib = _build.library()
+    for C in (1024, 2048):
+        plan = dmb.launch_plan(C)
+        for name, pr in plan["products"].items():
+            print(f"decode: plan C={C} {name}: {pr}")
+            check(lib.decode_b64_gemm_smem_bytes(pr["k_piece"]) == pr["smem_bytes"]
+                  <= dmb.SMEM_LIMIT, f"decode plan {name}: shared memory")
+        check(lib.decode_b64_workspace_bytes(C) == plan["workspace_bytes"],
+              "decode plan: workspace bytes")
+    # the width the Cosy B=64 path needs, at 2 layers
+    decode_vs_plain(dev, 2048, 2, 5, 2)
+    mega, st_k, x, err, cfg = decode_vs_plain(dev, 1024, 24, 2, 4)
+    L, C = cfg.num_layers, cfg.hidden_size
+
+    # deterministic: two calls on the same inputs give the same bits
+    runs = []
+    for _ in range(2):
+        st = {k: v.clone() for k, v in st_k.items()}
+        h, _ = dmb.decode_step_mega_b64(mega, cfg, x, st)
+        runs.append({"h": h, **st})
+    same = {k: torch.equal(runs[0][k], runs[1][k]) for k in runs[0]}
+    print(f"decode: two calls on the same inputs, bit-identical: {same}")
+    check(all(same.values()), "decode step is not deterministic")
 
     dmb.reset_launches()
     dmb.decode_step_mega_b64(mega, cfg, x, st_k)
     per_step = dict(dmb.kernel_launches)
+    want = {"ln_rows": 2 * L + 2, "gemm_i8": 5 * L, "wkv_glue": L}
+    check(per_step == want and dmb.launches == 8 * L + 2,
+          f"decode launches a step {per_step}, want {want} (8 L + 2 = {8 * L + 2})")
+    st_p = {k: v.clone() for k, v in st_k.items()}
     ms = cuda_ms(lambda: dmb.decode_step_mega_b64(mega, cfg, x, st_k), 20)
+    # each kernel's own device time: the chain without programmatic
+    # dependent launch, whose spans would hold each kernel's wait
+    profile = decode_profile("decode", mega, cfg, x, st_k, pdl=False)
+    print(f"decode: host-timed {ms:.4f} ms a step with programmatic dependent launch, "
+          f"{profile['host_ms']:.4f} ms without")
     plain_ms = cuda_ms(lambda: dmb.decode_step_plain(mega, cfg, x, st_p), 3)
     # bytes: every packed weight once, the state read and written, x and h;
     # operations: the int8 products on the bf16 tensor cores, 2 x 64 FLOP a weight
@@ -290,8 +340,57 @@ def phase_decode(dev) -> tuple[dict, dict]:
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms a step, bound {bms:.4f} ms ({by})")
     return ({"name": "decode_b64_step", "route": "cuda", "source": DECODE_SOURCE,
              "replaces": DECODE_REPLACES, "max_abs_err": err, "ms": ms,
+             "ms_nopdl": profile["host_ms"], "device_ms_nopdl": profile["device_ms"],
+             "busy_nopdl": profile["busy"],
              "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
              "library_ms": None}, per_step)
+
+
+def decode_profile(what: str, mega, cfg, x, state, **step_kw) -> dict:
+    """The B=64 step's host-timed ms (20 steps) and step_profile of it;
+    step_kw goes to decode_step_mega_b64."""
+    from rwkvtts_torch.ops import decode_mega_b64 as dmb
+
+    step = lambda: dmb.decode_step_mega_b64(mega, cfg, x, state, **step_kw)
+    return step_profile(what, step, cuda_ms(step, 20))
+
+
+def decode_profile_of_tree(what: str = "decode") -> dict:
+    """decode_profile at 1024 x 24 on phase_decode's weights (seed 2, one
+    step checked against decode_step_plain) with whichever rwkvtts_torch is
+    imported, the kernel's own launch options: from the root of another
+    checkout, with this file copied there, it profiles that tree's kernel
+    under the same measurement, e.g. the parent's, which has no
+    programmatic dependent launch."""
+    dev = torch.device("cuda", 0)
+    mega, st, x, _, cfg = decode_vs_plain(dev, 1024, 24, 2, 1)
+    return decode_profile(what, mega, cfg, x, st)
+
+
+def step_profile(what: str, fn, host_ms: float, steps: int = 8) -> dict:
+    """Device time a step by kernel (template arguments kept, parameter
+    lists dropped) over `steps` calls of fn under torch.profiler, their
+    sum, and the device busy share of the host-timed step `host_ms`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for name, (us, c) in kernel_totals(prof).items():
+        short = name.replace("(anonymous namespace)::", "").split("(")[0]
+        t, n = by_name.get(short, (0.0, 0))
+        by_name[short] = (t + us / 1e3 / steps, n + c / steps)
+    device = sum(t for t, _ in by_name.values())
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        print(f"{what}: profile: {t:.4f} ms, {n:.1f} launches a step  {name}")
+    print(f"{what}: profile: device {device:.4f} ms a step of {host_ms:.4f} ms host-timed, "
+          f"busy share {device / host_ms:.3f}")
+    return {"device_ms": device, "host_ms": host_ms, "busy": device / host_ms,
+            "by_kernel_ms": {k: t for k, (t, _) in by_name.items()}}
 
 
 def _leaves(tree):
@@ -1146,8 +1245,70 @@ def serve_prompts(n: int, seed: int):
     return out
 
 
+class _GapRecorder:
+    """Wraps sampling.sample_rows (the pool's sampler) and records, for each
+    row's first draw at (seed, n), two margins a rounding difference must
+    cross to change that draw: the gap between its two largest
+    Gumbel-perturbed logits, and the smallest gap between two neighbours
+    of the sorted candidate logits up to the first one the nucleus drops
+    (the noise is drawn by position in that order, so a swap of two
+    neighbours swaps their noise). Restores the sampler on exit."""
+
+    def __enter__(self):
+        from rwkvtts_torch.ops import sampling
+
+        self.gaps, self.fn = {}, sampling.sample_rows
+
+        def wrapped(logits, *, temperature, top_k, top_p, seed, n, noise=None):
+            x = logits.float() / temperature.float().clamp_min(1e-6)[:, None]
+            k = top_k if 0 < top_k < x.shape[-1] else x.shape[-1]
+            vals = torch.topk(x, k, dim=-1).values
+            probs = torch.softmax(vals, -1)
+            keep = torch.cumsum(probs, -1) - probs < top_p.float()[:, None]
+            keep[:, 0] = True
+            pert = torch.where(keep, vals, -math.inf) + sampling.row_noise(seed, n, k)
+            top2 = pert.topk(2, dim=-1).values
+            # neighbours j, j + 1 with j < the kept count
+            near = vals[:, :-1] - vals[:, 1:]
+            near = torch.where(keep[:, :-1], near, math.inf).amin(-1)
+            for key, gap, order in zip(zip(seed.tolist(), n.tolist()),
+                                       (top2[:, 0] - top2[:, 1]).tolist(), near.tolist()):
+                self.gaps.setdefault(key, (gap, order))
+            return self.fn(logits, temperature=temperature, top_k=top_k, top_p=top_p,
+                           seed=seed, n=n, noise=noise)
+
+        sampling.sample_rows = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from rwkvtts_torch.ops import sampling
+
+        sampling.sample_rows = self.fn
+
+
+class _PlainMegaStep:
+    """Routes the B=64 pool's decode step to decode_step_plain on whatever
+    device its tensors lie (a diagnostic: the card's plain version);
+    restores the wrapper on exit."""
+
+    def __enter__(self):
+        from rwkvtts_torch.ops import decode_mega_b64 as dmb
+
+        self.fn = dmb.decode_step_mega_b64
+        dmb.decode_step_mega_b64 = dmb.decode_step_plain
+        return self
+
+    def __exit__(self, *exc):
+        from rwkvtts_torch.ops import decode_mega_b64 as dmb
+
+        dmb.decode_step_mega_b64 = self.fn
+
+
 def phase_serve_small(dev) -> None:
+    import contextlib
+
     from rwkvtts_torch.models import rwkv7, spark
+    from rwkvtts_torch.ops import decode_mega_b64 as dmb
     from rwkvtts_torch.serving.continuous import ContinuousBatcher
 
     cfg = spark.default_config(hidden_size=256, num_layers=2, dtype=torch.float32,
@@ -1157,35 +1318,78 @@ def phase_serve_small(dev) -> None:
     randomize(params, g)
     params["head"] = 10.0 * params["head"]  # greedy gaps far above rounding noise
     prompts = serve_prompts(12, 32)
+
+    def pool(where, mega, top_k, top_p, plain_step=False):
+        p = rwkv7.tree_map(lambda t: t.to(where), params)
+        if not mega:
+            p = rwkv7.pack_decode_params(p, cfg.backbone)
+        cb = ContinuousBatcher(p, cfg, n_slots=64 if mega else 8, chunk=4,
+                               prompt_cap=32, top_k=top_k, top_p=top_p, megakernel=mega)
+        with contextlib.ExitStack() as stack:
+            rec = stack.enter_context(_GapRecorder()) if top_k > 1 else None
+            if plain_step:
+                stack.enter_context(_PlainMegaStep())
+            rids = [cb.add_request(pb, cap, seed=7 + i) for i, (pb, cap) in enumerate(prompts)]
+            got = cb.drain()
+        return [got[r] for r in rids], (rec.gaps if rec else {})
+
+    def flips(what, t_dev, gaps_dev, t_cpu, gaps_cpu):
+        """Each request whose tokens differ: the index of its first
+        differing token and the top-two gap of that draw on both sides."""
+        for i, (a, b) in enumerate(zip(t_dev, t_cpu)):
+            if a == b:
+                continue
+            j = next((j for j, (u, v) in enumerate(zip(a, b)) if u != v), min(len(a), len(b)))
+            (gd, od), (gc, oc) = (g.get((7 + i, j), (math.nan, math.nan))
+                                  for g in (gaps_dev, gaps_cpu))
+            print(f"{what}: request {i} first differs at token {j}: top-two perturbed gap "
+                  f"{gd:.6f} card / {gc:.6f} CPU; nearest sorted neighbours {od:.3e} card "
+                  f"/ {oc:.3e} CPU")
+
     for mega in (False, True):
         for top_k, top_p in ((1, 1.0), (50, 0.95)):
-            out = {}
-            for where in ("cpu", dev):
-                p = rwkv7.tree_map(lambda t: t.to(where), params)
-                if not mega:
-                    p = rwkv7.pack_decode_params(p, cfg.backbone)
-                cb = ContinuousBatcher(p, cfg, n_slots=64 if mega else 8, chunk=4,
-                                       prompt_cap=32, top_k=top_k, top_p=top_p,
-                                       megakernel=mega)
-                rids = [cb.add_request(pb, cap, seed=7 + i)
-                        for i, (pb, cap) in enumerate(prompts)]
-                got = cb.drain()
-                out[str(where)] = [got[r] for r in rids]
-            t_cpu, t_gpu = out["cpu"], out[str(dev)]
+            t_cpu, gaps_cpu = pool("cpu", mega, top_k, top_p)
+            t_gpu, gaps_gpu = pool(dev, mega, top_k, top_p)
             n = sum(len(t) for t in t_gpu)
             same = t_cpu == t_gpu
             rows = sum(a == b for a, b in zip(t_gpu, t_cpu))
             firsts = all(a[:1] == b[:1] for a, b in zip(t_gpu, t_cpu))
-            print(f"serve small: {'mega (64 slots)' if mega else 'packed (8 slots)'}, "
-                  f"top-k {top_k} / top-p {top_p}, 12 requests, {n} tokens: card vs CPU "
-                  f"tokens identical {same} ({rows} of 12 requests, first tokens {firsts})")
+            what = f"serve small: {'mega (64 slots)' if mega else 'packed (8 slots)'}"
+            print(f"{what}, top-k {top_k} / top-p {top_p}, 12 requests, {n} tokens: card vs "
+                  f"CPU tokens identical {same} ({rows} of 12 requests, first tokens {firsts})")
             check(n > 0 and firsts, f"serve small first tokens differ: card {t_gpu} cpu {t_cpu}")
+            if mega and top_k > 1:
+                flips(what + " kernel", t_gpu, gaps_gpu, t_cpu, gaps_cpu)
+                # the same pool with the plain step on the card: what the
+                # card's own summation order does to the sampled draws
+                t_pl, gaps_pl = pool(dev, mega, top_k, top_p, plain_step=True)
+                print(f"{what} with decode_step_plain on the card: card vs CPU tokens "
+                      f"identical for {sum(a == b for a, b in zip(t_pl, t_cpu))} of 12 requests")
+                flips(what + " plain on the card", t_pl, gaps_pl, t_cpu, gaps_cpu)
             # the B=64 step's bf16 rounding points agree with its plain
             # version to ~1e-3, enough to flip a near-tie of a sampled draw
             # and every later token of that request; the greedy draws and
             # the all-f32 packed pool must agree exactly
             if not (mega and top_k > 1):
                 check(same, f"serve small tokens differ: card {t_gpu} cpu {t_cpu}")
+
+    # decode_step_plain itself, card vs CPU, at this pool's widths: one
+    # step from the same inputs
+    bb = cfg.backbone
+    gi = torch.Generator().manual_seed(33)
+    mega_c = dmb.pack_mega_b64(params, bb)
+    L, C, H = bb.num_layers, bb.hidden_size, bb.num_heads
+    st0 = dmb.pack_state({"att_x": 0.5 * torch.randn(L, B, C, generator=gi),
+                          "wkv": 0.1 * torch.randn(L, B, H, 64, 64, generator=gi),
+                          "ffn_x": 0.5 * torch.randn(L, B, C, generator=gi)})
+    x = torch.randn(B, C, generator=gi)
+    on = lambda d: (dmb.MegaPack({k: v.to(d) for k, v in mega_c.items()}), bb, x.to(d),
+                    {k: v.clone().to(d) for k, v in st0.items()})
+    h_c, _ = dmb.decode_step_plain(*on("cpu"))
+    h_g, _ = dmb.decode_step_plain(*on(dev))
+    h_k, _ = dmb.decode_step_mega_b64(*on(dev))
+    print(f"serve small: one B=64 step at 256 x 2 vs decode_step_plain on the CPU: hidden rel "
+          f"{rel(h_g.cpu(), h_c):.3e} (plain on the card), {rel(h_k.cpu(), h_c):.3e} (kernel)")
 
 
 def phase_serve_main(dev, card: str) -> dict:

@@ -164,6 +164,8 @@ _SIGNATURES = {
         _P,                          # smalls
         _P, _P, _P,                  # att_x, ffn_x, wkv (updated in place)
         _P,                          # workspace
+        ctypes.POINTER(_I),          # K pieces of the 5 products (launch plan)
+        _I,                          # programmatic dependent launch (1) or not (0)
         ctypes.POINTER(_I),          # launch counts by kernel (3 ints, increased)
         _P,                          # stream
     ],
@@ -194,6 +196,8 @@ def library() -> ctypes.CDLL:
     for name in ("decode_b64_workspace_bytes", "decode_b1_workspace_bytes"):
         getattr(lib, name).argtypes = [ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_size_t
+    lib.decode_b64_gemm_smem_bytes.argtypes = [ctypes.c_int]
+    lib.decode_b64_gemm_smem_bytes.restype = ctypes.c_int
     return lib
 
 

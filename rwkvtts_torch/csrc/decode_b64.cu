@@ -4,7 +4,10 @@
 // through decode_step_mega_b64). Same arithmetic and the same rounding
 // points: bf16 at acc_rkv, acc_ffn, the wd/a/g/kk rows, the xn/xx shift
 // inputs, v_first, y_g, the shift states and the WKV state; f32 for the
-// residual x_res and the lora-in outputs.
+// residual x_res and the lora-in outputs. Where decode_step_plain rounds
+// a product and a sum apart, so does this file (__fmul_rn / __fadd_rn, no
+// contraction into an FMA), and its norms divide by a correctly rounded
+// sqrtf as the plain version's reciprocal(sqrt(.)) does.
 //
 // What bounds it on this card, reckoned from shapes at C = 1024, L = 24,
 // B = 64: the int8 weights are 24 x (3C^2 + 4C.128 + 128.4C + C^2 + 8C^2)
@@ -12,31 +15,65 @@
 // 24 x 64 x 16 x 64 x 64 x 2 bytes = 0.20 GB, read and written once per
 // step: ~0.73 GB, or 0.22 ms at 3.35 TB/s. The products do
 // 2 x 64 x 0.33 G = 42 GFLOP: 0.04 ms on the tensor cores at 989 TFLOP/s in
-// bf16, but 0.63 ms on the CUDA cores' 67 TFLOP/s of f32 FMA. So the
-// products run on the tensor cores (mma.sync, bf16 in, f32 accumulate), and
-// the step is bound by the bytes; the short per-layer launch chain and the
-// few CTAs of the narrow products keep this first version well above that.
+// bf16. So the step is bound by the bytes; what keeps it far above that
+// bound is latency: 194 dependent launches, each too short to reach the
+// card's rate (PERF.md, PR 6).
 //
 // Design. The TPU grid (L, T) carries scratch from one grid step to the
-// next; CUDA blocks cannot, so the step is a short sequence of launches
-// per layer on one stream, and the activations that the TPU kept in VMEM
-// live in one device workspace between launches:
-//   ln_rows    LayerNorm of the 64 residual rows; for ln1/ln2 it also
-//              steps the token-shift state and writes the bf16 token-shift
-//              mixes that are the products' lhs (6 for time mix, 1 for FFN);
-//   gemm_i8    [64 x K] bf16 x [K x N] int8 -> f32 accumulate on the tensor
-//              cores, times the per-column scale on the output (int8 is
-//              exact in bf16, so this is the TPU kernel's dequant-free
-//              product); a cp.async ring of 4 stages feeds it; column groups
-//              may read different lhs planes (r/k/v, the four lora mixes);
-//              the epilogue stores bf16, applies the lora activations or
-//              relu^2, stores f32, or adds into the f32 residual (split K);
-//   glue       one CTA of 64 threads per (row b, head h): the prep
-//              elementwise work for its 64 channels, the WKV state update in
-//              place (thread i keeps state row i in registers), GroupNorm,
-//              the bonus term and the gate.
-// Per layer: 2 ln_rows + 6 gemm_i8 + 1 glue = 9 launches; per step
-// 9 L + 2. CUDA graphs, a persistent kernel, wgmma and TMA are later work.
+// next; CUDA blocks cannot, so the step is a chain of launches on one
+// stream, 8 a layer and 8 L + 2 a step, and the activations that the TPU
+// kept in VMEM live in one device workspace between launches:
+//   ln_rows  LayerNorm of the 64 residual rows; for ln1/ln2 it also steps
+//            the token-shift state and writes the bf16 token-shift mixes
+//            that are the products' lhs (6 for time mix, 1 for FFN);
+//   gemm_i8  [64 x K] bf16 x [K x N] int8 -> f32 on the tensor cores, times
+//            the per-column scale (int8 is exact in bf16, so this is the TPU
+//            kernel's dequant-free product). One launch carries a table of
+//            up to two products: r/k/v and lora-in run as one launch;
+//   glue     one CTA of 4 warps per (row b, head h): the prep elementwise
+//            work, the WKV state update in place in kernel 7's layout
+//            (csrc/wkv7_step.cu), GroupNorm, bonus and gate.
+//
+// The product, gemm_i8. A CTA owns a 128-column tile of one product and a
+// piece of K (split-K). Its lhs slice, 64 x K-piece bf16 (at most 128 KB),
+// is copied into shared memory once and stays there while the weight tiles
+// stream past: each CTA reads its lhs once (the first version read the
+// whole lhs again for every 32 columns, 4 bytes of lhs for each byte of
+// weight). The weights keep the natural (L, K, N) int8 layout. Both come
+// by TMA: 2-D boxes of 64 rows x 128 bytes with the 128-byte swizzle (a
+// weight stage, or 64 columns of the lhs), one request each; one producer
+// warp keeps a ring of up to 8 weight stages in flight, each completing an
+// mbarrier, and consumers free a stage through another. Eight consumer
+// warps: two on each 32 columns, taking alternate k16 steps, all 64 rows
+// each. Products are mma.sync m16n8k16 (bf16 in, f32 accumulate), chosen
+// over wgmma because B has to be widened from int8 anyway: wgmma would
+// need the widened tile written back to shared memory in its layout, an
+// extra pass and a barrier; mma.sync takes its B fragment from registers.
+// The fragment is built straight from the raw int8 tile: the columns of
+// mma tile e are mapped to tile columns 4j + e, so one 32-bit read of a
+// weight row gives a thread its column in four mma tiles, and the widening
+// is a byte permute that forms the f32 2^23 + (x + 128), one subtraction
+// (exact) and a pack to bf16x2 (exact). The K pieces of a tile run as one
+// thread block cluster: each CTA adds its two warp halves into an f32
+// partial tile in its shared memory (second half, then first), and after
+// a cluster barrier CTA p sums rows [64p/P, 64(p+1)/P) over the cluster's
+// tiles in rank order through distributed shared memory, then applies the
+// epilogue (bf16, lora activations, relu^2, f32, or an add into the f32
+// residual). Every sum has a fixed order, so the step is deterministic:
+// no float atomics.
+//
+// Every kernel is launched with programmatic dependent launch: what does
+// not depend on the previous kernel (a product's first weight stages, the
+// glue's WKV state block) is fetched before griddepcontrol.wait, nothing is
+// written before it, and each kernel lets the next one launch
+// (griddepcontrol.launch_dependents) once its dependent reads are done, so
+// the next kernel's weight stream overlaps this one's tail.
+#include <cuda.h>  // CUtensorMap; the driver's encoder is looked up at run time
+
+#include <atomic>
+#include <mutex>
+#include <vector>
+
 #include "common.cuh"
 
 namespace {
@@ -56,6 +93,19 @@ enum {
 enum { LG_V = 0, LG_W = 1, LG_A = 2, LG_G = 3 };
 // the three kernels, as indices of decode_b64_step's launch counts
 enum { K_LN = 0, K_GEMM = 1, K_GLUE = 2 };
+// the five products of a layer, as indices of decode_b64_step's pieces
+enum { P_RKV_LI = 0, P_LO = 1, P_OUT = 2, P_FK = 3, P_FV = 4 };
+
+// Programmatic dependent launch: wait for the previous kernel of the
+// stream to complete (its writes visible), and let the next one launch.
+// What an earlier kernel of the chain writes is read with ld.global.cg (L2,
+// not this SM's L1, which may hold a line as an earlier kernel saw it), and
+// never through a `const __restrict__` pointer, which lets the compiler use
+// the non-coherent path.
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+__device__ __forceinline__ void pdl_trigger() {
+    asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
 
 // ---------------------------------------------------------------------------
 // LayerNorm over rows
@@ -72,19 +122,20 @@ constexpr int LN_MAX_PER_THREAD = 16;  // C <= 4096
 // xmix[j] = bf16(bf16(xn) + bf16(xx) * mix_j), (rows, C) each.
 template <int NMIX>
 __global__ void __launch_bounds__(LN_THREADS) ln_rows_kernel(
-    int C, float eps, const float* __restrict__ x,
+    int C, float eps, const float* x,
     const float* __restrict__ scale, const float* __restrict__ bias,
-    float* __restrict__ out_f32, bf16* __restrict__ shift,
-    const float* __restrict__ mix, bf16* __restrict__ xmix) {
+    float* out_f32, bf16* shift,
+    const float* __restrict__ mix, bf16* xmix) {
     __shared__ float red[LN_THREADS / 32];
     const int64_t row = (int64_t)blockIdx.x * C;
     const int64_t plane = (int64_t)gridDim.x * C;
+    pdl_wait();
     float v[LN_MAX_PER_THREAD];
     float s = 0.f;
 #pragma unroll
     for (int e = 0; e < LN_MAX_PER_THREAD; ++e) {
         const int c = threadIdx.x + e * LN_THREADS;
-        v[e] = c < C ? x[row + c] : 0.f;
+        v[e] = c < C ? __ldcg(x + row + c) : 0.f;
         s += v[e];
     }
     const float mean = block_sum<LN_THREADS / 32>(s, red) / C;
@@ -93,23 +144,25 @@ __global__ void __launch_bounds__(LN_THREADS) ln_rows_kernel(
     for (int e = 0; e < LN_MAX_PER_THREAD; ++e) {
         const int c = threadIdx.x + e * LN_THREADS;
         const float d = c < C ? v[e] - mean : 0.f;
-        q += d * d;
+        q = __fadd_rn(q, __fmul_rn(d, d));
     }
-    const float rstd = rsqrtf(block_sum<LN_THREADS / 32>(q, red) / C + eps);
+    const float rstd = 1.f / sqrtf(block_sum<LN_THREADS / 32>(q, red) / C + eps);
+    pdl_trigger();
 #pragma unroll
     for (int e = 0; e < LN_MAX_PER_THREAD; ++e) {
         const int c = threadIdx.x + e * LN_THREADS;
         if (c >= C) continue;
-        const float xn = (v[e] - mean) * rstd * scale[c] + bias[c];
+        const float xn = __fadd_rn(__fmul_rn(__fmul_rn(v[e] - mean, rstd), scale[c]), bias[c]);
         if (NMIX == 0) {
             out_f32[row + c] = xn;
         } else {
             const float xn_b = round_bf16(xn);
-            const float xx_b = round_bf16(__bfloat162float(shift[row + c]) - xn);
+            const float xx_b = round_bf16(__bfloat162float(__ldcg(shift + row + c)) - xn);
             shift[row + c] = __float2bfloat16(xn);
 #pragma unroll
             for (int j = 0; j < NMIX; ++j)
-                xmix[j * plane + row + c] = __float2bfloat16(xn_b + xx_b * mix[j * C + c]);
+                xmix[j * plane + row + c] =
+                    __float2bfloat16(__fadd_rn(xn_b, __fmul_rn(xx_b, mix[j * C + c])));
         }
     }
 }
@@ -118,37 +171,53 @@ __global__ void __launch_bounds__(LN_THREADS) ln_rows_kernel(
 // int8-weight product, 64 rows, on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int GM = 64;          // rows (the batch)
-constexpr int GN = 32;          // columns per CTA
-constexpr int GK = 64;          // K per stage
-constexpr int G_STAGES = 4;     // stages in the cp.async ring
-constexpr int G_THREADS = 128;  // 4 warps; warp w owns rows 16w .. 16w + 15
-constexpr int G_LD = GK + 8;    // shared row stride (bf16): fragment reads hit 32 banks
-// per thread and stage: 16-byte lhs chunks and weight chunks it copies, and
-// (k pair, 8 columns) weight items it widens
-constexpr int A_CHUNKS = GM * GK / 8 / G_THREADS;
-constexpr int W_CHUNKS = GK * GN / 16 / G_THREADS;
-constexpr int W_PAIRS = GK / 2 * (GN / 8) / G_THREADS;
-static_assert(A_CHUNKS * G_THREADS * 8 == GM * GK && W_CHUNKS * G_THREADS * 16 == GK * GN &&
-              W_PAIRS * G_THREADS * 16 == GK * GN, "tile and thread counts");
+constexpr int GM = 64;                       // rows (the batch)
+constexpr int NT = 128;                      // columns of a CTA's tile
+constexpr int GK = 64;                       // K rows of a weight stage
+constexpr int RING_MAX = 8;                  // weight stages in flight
+constexpr int KP_MAX = 1024;                 // largest K piece (lhs 128 KB)
+constexpr int KSPLIT = 2;                    // consumer warps on each 32 columns
+constexpr int CONSUMERS = 4 * KSPLIT;        // warp w: columns 32 (w % 4) .., k16 steps w / 4 + 2i
+constexpr int G_THREADS = (CONSUMERS + 1) * 32;  // + one producer warp
+// a TMA box of 64 rows x 128 bytes with the 128-byte swizzle: a weight
+// stage (64 x 128 int8) or 64 columns of the lhs (64 x 64 bf16)
+constexpr int BOX = GK * 128;
+constexpr int RED_LD = NT + 4;               // floats of a row of the partial tile
+constexpr int RED_BYTES = GM * RED_LD * 4;
+constexpr int MAX_PIECES = 8;                // portable cluster size
 
 enum { EPI_BF16 = 0, EPI_LORA_ACT = 1, EPI_RELU2 = 2, EPI_F32 = 3, EPI_ADD_F32 = 4 };
 
-struct GemmArgs {
-    int K, N, k_split;  // blockIdx.y takes K rows [y * k_split, (y + 1) * k_split)
-    // lhs rows: a + z * a_z + (n0 / a_group) * a_gz + m * lda + k, so column
-    // groups of a_group may read different lhs planes (r/k/v, the lora mixes)
-    const bf16* a; int lda; int64_t a_z; int a_group; int64_t a_gz;
-    const int8_t* w; int64_t w_z;   // (K, N) row-major
+// One product of the table: nz slices of [64 x K] x [K x N]; its CTAs are
+// (slice, 128-column tile, K piece), the piece fastest.
+struct Prob {
+    // lhs: a TMA map over (planes, 64 rows, columns) bf16; the tile at
+    // column n0 of slice z reads plane a_plane + n0 / a_group (r/k/v, the
+    // lora mixes), columns z * a_zk + k
+    CUtensorMap amap;
+    // weights: a TMA map over (L, K, N) int8; the rows z * w_zk + k of
+    // layer w_layer
+    CUtensorMap wmap;
+    int K, N, nz, epi;
+    int ctas;                       // nz * (N / NT) * pieces
+    int a_plane, a_group, a_zk, w_layer, w_zk;
     const float* s; int64_t s_z;    // (N,) per-column scale
     void* out; int ldo; int64_t o_z;
 };
 
-struct GemmSmem {
-    bf16 a[G_STAGES][GM][G_LD];     // lhs stages, [m][k]
-    int8_t w8[G_STAGES][GK][GN];    // weight stages as loaded, [k][n]
-    bf16 w[GN][G_LD];               // the current stage widened, [n][k]
+struct GemmLaunch {
+    Prob p[2];
+    int nprob, pieces, kp;          // kp = K / pieces, the same for both
 };
+
+// dynamic shared memory of a CTA for a K piece of kp rows: slack to align
+// the boxes to 1024 bytes (the swizzle's period), the lhs slice, the weight
+// ring, the f32 partial tile, the mbarriers
+__host__ __device__ constexpr int gemm_smem_bytes(int kp) {
+    return 1024 + GM * kp * 2 + (kp / GK < RING_MAX ? kp / GK : RING_MAX) * BOX + RED_BYTES +
+           8 * (2 * RING_MAX + 1);
+}
+static_assert(gemm_smem_bytes(KP_MAX) <= 232448, "shared memory of the largest piece");
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -157,13 +226,63 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-    const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+                 : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+                 "r"(bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+// wait until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    asm volatile(
+        "{\n"
+        ".reg .pred done;\n"
+        "WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+        "@!done bra WAIT;\n"
+        "}\n" ::"r"(smem_u32(bar)),
+        "r"(parity)
+        : "memory");
+}
+// the box at coordinates (c0, c1, c2) of a TMA map into this CTA's shared
+// memory; completes its bytes on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+        : "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n"
+                 "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+// 16 bytes at the same shared offset in the cluster's CTA `rank`. Not
+// volatile: the partial tiles stay fixed between the two cluster barriers
+// (which are), so the compiler may issue these loads together.
+__device__ __forceinline__ float4 ld_cluster_f4(const void* local, int rank) {
+    uint32_t remote;
+    asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(smem_u32(local)), "r"(rank));
+    float4 v;
+    asm("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+        : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(remote));
+    return v;
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
 
 // D += A (16 x 16, row-major fragment) x B (16 x 8, column-major fragment),
 // bf16 operands, f32 accumulate.
@@ -176,136 +295,231 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// [64 x K] bf16 x [K x N] int8 -> f32, times the per-column scale. A ring of
-// G_STAGES stages is filled by cp.async (lhs tile and raw int8 weight tile);
-// each stage's weights are widened to bf16 (exact) and transposed to [n][k]
-// in shared memory, so that a B fragment is one 32-bit read.
-template <int EPI>
-__global__ void __launch_bounds__(G_THREADS) gemm_i8_kernel(GemmArgs p) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    GemmSmem& sm = *reinterpret_cast<GemmSmem*>(smem_raw);
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int gid = lane >> 2, tig = lane & 3;  // mma fragment coordinates
-    const int n0 = blockIdx.x * GN;
-    const int z = blockIdx.z;
-    const int kb = blockIdx.y * p.k_split;
-    const int stages = (min(p.K, kb + p.k_split) - kb) / GK;
-    const int8_t* w = p.w + z * p.w_z + n0;
-    const bf16* a = p.a + z * p.a_z + (int64_t)(n0 / p.a_group) * p.a_gz;
+// Byte e of two 32-bit words of int8 weights (rows k and k + 1), widened to
+// a bf16 pair (row k in the low half). With u = x ^ 0x80 = x + 128, the f32
+// with bits 0x4B0000uu is 2^23 + u, so subtracting 2^23 + 128 gives x
+// exactly, and an integer of [-128, 127] is exact in bf16.
+template <int E>
+__device__ __forceinline__ uint32_t widen_pair(uint32_t lo_x, uint32_t hi_x) {
+    constexpr uint32_t sel = E | 0x7540;  // byte E, 0x00, 0x00, 0x4B
+    const float lo = __int_as_float(__byte_perm(lo_x, 0x4B000000u, sel)) - 8388736.f;
+    const float hi = __int_as_float(__byte_perm(hi_x, 0x4B000000u, sel)) - 8388736.f;
+    return pack_bf16x2(lo, hi);
+}
 
-    auto fetch = [&](int st) {
-        if (st < stages) {
-            const int slot = st % G_STAGES, k0 = kb + st * GK;
+// the scaled sums of row m, columns n .. n + 3, through the product's
+// epilogue; `old` is what an add into the residual adds to
+__device__ __forceinline__ void epilogue4(const Prob& p, int z, int m, int n, float4 acc,
+                                          float4 old) {
+    float v[4] = {acc.x, acc.y, acc.z, acc.w};
+    const int64_t o = z * p.o_z + (int64_t)m * p.ldo + n;
+    if (p.epi == EPI_F32) {
+        *reinterpret_cast<float4*>(reinterpret_cast<float*>(p.out) + o) =
+            make_float4(v[0], v[1], v[2], v[3]);
+        return;
+    }
+    if (p.epi == EPI_ADD_F32) {
+        *reinterpret_cast<float4*>(reinterpret_cast<float*>(p.out) + o) =
+            make_float4(old.x + v[0], old.y + v[1], old.z + v[2], old.w + v[3]);
+        return;
+    }
+    if (p.epi == EPI_LORA_ACT) {
+        const int g = n / LORA_PAD;  // the 4 columns lie in one group
 #pragma unroll
-            for (int i = 0; i < A_CHUNKS; ++i) {
-                const int idx = tid + i * G_THREADS;
-                const int m = idx / (GK / 8), kc = idx % (GK / 8) * 8;
-                cp_async16(&sm.a[slot][m][kc], a + (int64_t)m * p.lda + k0 + kc);
-            }
+        for (int j = 0; j < 4; ++j)
+            v[j] = g == LG_W ? tanhf(v[j]) : g == LG_G ? sigmoidf_(v[j]) : v[j];
+    } else if (p.epi == EPI_RELU2) {
 #pragma unroll
-            for (int i = 0; i < W_CHUNKS; ++i) {
-                const int idx = tid + i * G_THREADS;
-                const int k = idx / (GN / 16), nc = idx % (GN / 16) * 16;
-                cp_async16(&sm.w8[slot][k][nc], w + (int64_t)(k0 + k) * p.N + nc);
-            }
-        }
-        cp_async_commit();  // an empty group keeps the wait count uniform
-    };
-
-    float acc[GN / 8][4] = {};
-    const int r0 = warp * 16 + gid;
-#pragma unroll
-    for (int st = 0; st < G_STAGES - 1; ++st) fetch(st);
-    for (int st = 0; st < stages; ++st) {
-        cp_async_wait<G_STAGES - 2>();  // this thread's copies of stage st landed
-        __syncthreads();                // everyone's; stage st - 1 fully consumed
-        fetch(st + G_STAGES - 1);       // refills the slot of stage st - 1
-        const int slot = st % G_STAGES;
-#pragma unroll
-        for (int i = 0; i < W_PAIRS; ++i) {  // k rows 2 kp, 2 kp + 1; columns nq .. nq + 7
-            const int idx = tid + i * G_THREADS;
-            const int kp = idx / (GN / 8), nq = idx % (GN / 8) * 8;
-            const int2 u0 = *reinterpret_cast<const int2*>(&sm.w8[slot][2 * kp][nq]);
-            const int2 u1 = *reinterpret_cast<const int2*>(&sm.w8[slot][2 * kp + 1][nq]);
-            const int8_t* w0 = reinterpret_cast<const int8_t*>(&u0);
-            const int8_t* w1 = reinterpret_cast<const int8_t*>(&u1);
-#pragma unroll
-            for (int e = 0; e < 8; ++e)
-                *reinterpret_cast<uint32_t*>(&sm.w[nq + e][2 * kp]) =
-                    pack_bf16x2((float)w0[e], (float)w1[e]);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < GK; kk += 16) {
-            const int c = kk + tig * 2;
-            uint32_t af[4];
-            af[0] = *reinterpret_cast<const uint32_t*>(&sm.a[slot][r0][c]);
-            af[1] = *reinterpret_cast<const uint32_t*>(&sm.a[slot][r0 + 8][c]);
-            af[2] = *reinterpret_cast<const uint32_t*>(&sm.a[slot][r0][c + 8]);
-            af[3] = *reinterpret_cast<const uint32_t*>(&sm.a[slot][r0 + 8][c + 8]);
-#pragma unroll
-            for (int nt = 0; nt < GN / 8; ++nt) {
-                const bf16* wr = &sm.w[nt * 8 + gid][c];
-                mma_bf16(acc[nt], af, *reinterpret_cast<const uint32_t*>(wr),
-                         *reinterpret_cast<const uint32_t*>(wr + 8));
-            }
+        for (int j = 0; j < 4; ++j) {
+            const float t = fmaxf(round_bf16(v[j]), 0.f);
+            v[j] = t * t;
         }
     }
-    cp_async_wait<0>();
+    uint2 packed = make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
+    *reinterpret_cast<uint2*>(reinterpret_cast<bf16*>(p.out) + o) = packed;
+}
 
-    // accumulator (nt, 2 h + j) is row r0 + 8 h, column n0 + 8 nt + 2 tig + j
-    const float* s = p.s + z * p.s_z;
+// PROD, the product's index (P_RKV_LI .. P_FV), only names the
+// instantiation, so that a profile tells the products apart.
+template <int PROD>
+__global__ void __launch_bounds__(G_THREADS) gemm_i8_kernel(const __grid_constant__ GemmLaunch g) {
+    extern __shared__ __align__(1024) unsigned char smem[];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int P = g.pieces, KP = g.kp;
+    const int piece = blockIdx.x % P;  // the rank in the cluster of the tile's pieces
+    int tile = blockIdx.x / P;
+    const bool second = g.nprob > 1 && tile >= g.p[0].ctas / P;
+    const Prob& p = second ? g.p[1] : g.p[0];
+    if (second) tile -= g.p[0].ctas / P;
+    const int tiles_n = p.N / NT;
+    const int z = tile / tiles_n, n0 = (tile % tiles_n) * NT;
+    const int kb = piece * KP;
+    const int stages = KP / GK, nring = min(RING_MAX, stages);
+    // the scales of this thread's 4 output columns: constant, so fetched now
+    const float4 sc = *reinterpret_cast<const float4*>(p.s + z * p.s_z + n0 + (tid & 31) * 4);
+
+    // the boxes start at a multiple of 1024 bytes, where the 128-byte
+    // swizzle's pattern starts: 16-byte chunk c of row r lands at c ^ (r % 8)
+    unsigned char* base = smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
+    unsigned char* lhs = base;                                     // [stages][BOX]
+    unsigned char* ring = base + stages * BOX;                     // [nring][BOX]
+    float* red = reinterpret_cast<float*>(ring + nring * BOX);     // [GM][RED_LD]
+    uint64_t* bars = reinterpret_cast<uint64_t*>(ring + nring * BOX + RED_BYTES);
+    uint64_t* full = bars;                 // [RING_MAX] a weight stage landed
+    uint64_t* empty = bars + RING_MAX;     // [RING_MAX] a weight stage consumed
+    uint64_t* lhs_bar = bars + 2 * RING_MAX;
+
+    if (tid == 0) {
+        for (int i = 0; i < nring; ++i) {
+            mbar_init(&full[i], 1);
+            mbar_init(&empty[i], CONSUMERS);
+        }
+        mbar_init(lhs_bar, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp == CONSUMERS) {
+        // the producer warp; lane 0 issues every copy
+        const int w_row = z * p.w_zk + kb;
+        auto issue = [&](int st) {
+            const int slot = st % nring;
+            mbar_expect_tx(&full[slot], BOX);
+            tma_load(ring + slot * BOX, &p.wmap, n0, w_row + st * GK, p.w_layer, &full[slot]);
+        };
+        // the weights depend on no earlier kernel: the first ring fill goes
+        // out before the wait for the previous kernel
+        if (lane == 0)
+            for (int st = 0; st < nring; ++st) issue(st);
+        pdl_wait();
+        if (lane == 0) {
+            mbar_expect_tx(lhs_bar, GM * KP * 2);
+            for (int j = 0; j < stages; ++j)
+                tma_load(lhs + j * BOX, &p.amap, z * p.a_zk + kb + j * GK, 0,
+                         p.a_plane + n0 / p.a_group, lhs_bar);
+            for (int st = nring; st < stages; ++st) {
+                mbar_wait(&empty[st % nring], (st / nring - 1) & 1);
+                issue(st);
+            }
+        }
+        __syncwarp();
+    } else {
+        pdl_wait();
+        const int gid = lane >> 2, tig = lane & 3;  // mma fragment coordinates
+        const int q = warp % 4, half = warp / 4;    // column group, k16 steps of a stage
+        // acc[mt][e][c]: row 16 mt + gid + 8 (c >> 1), tile column
+        // 32 q + 8 tig + 4 (c & 1) + e
+        float acc[4][4][4] = {};
+        // this thread's 4 weight bytes in a row k of a stage: chunk
+        // 2 q + gid / 4, swizzled by k % 8, which is 2 tig or 2 tig + 1
+        const int cb = 2 * q + (gid >> 2);
+        const int w_off0 = ((cb ^ (2 * tig)) << 4) | ((gid & 3) << 2);
+        const int w_off1 = ((cb ^ (2 * tig + 1)) << 4) | ((gid & 3) << 2);
+        // this lane's ldmatrix row (lane & 15 of each 16-row tile; its row
+        // % 8 is lane & 7) and chunk half
+        const int a_row = (lane & 15) * 128, a_half = lane >> 4, a_sw = lane & 7;
+        mbar_wait(lhs_bar, 0);
+        for (int st = 0; st < stages; ++st) {
+            const int slot = st % nring;
+            mbar_wait(&full[slot], (st / nring) & 1);
+            const unsigned char* wt = ring + slot * BOX + 2 * tig * 128;
+            const unsigned char* at = lhs + st * BOX + a_row;
 #pragma unroll
-    for (int nt = 0; nt < GN / 8; ++nt) {
+            for (int i = 0; i < GK / 16 / KSPLIT; ++i) {
+                const int kk = 16 * (KSPLIT * i + half);
+                const uint32_t x = 0x80808080u;
+                const unsigned char* w = wt + kk * 128;
+                const uint32_t u0 = *reinterpret_cast<const uint32_t*>(w + w_off0) ^ x;
+                const uint32_t u1 = *reinterpret_cast<const uint32_t*>(w + 128 + w_off1) ^ x;
+                const uint32_t u2 = *reinterpret_cast<const uint32_t*>(w + 8 * 128 + w_off0) ^ x;
+                const uint32_t u3 = *reinterpret_cast<const uint32_t*>(w + 9 * 128 + w_off1) ^ x;
+                const uint32_t b0[4] = {widen_pair<0>(u0, u1), widen_pair<1>(u0, u1),
+                                        widen_pair<2>(u0, u1), widen_pair<3>(u0, u1)};
+                const uint32_t b1[4] = {widen_pair<0>(u2, u3), widen_pair<1>(u2, u3),
+                                        widen_pair<2>(u2, u3), widen_pair<3>(u2, u3)};
+                const int a_chunk = (((kk >> 3) + a_half) ^ a_sw) << 4;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int m = r0 + 8 * h;
+                for (int mt = 0; mt < 4; ++mt) {
+                    uint32_t af[4];
+                    ldmatrix_x4(af, at + mt * 16 * 128 + a_chunk);
 #pragma unroll
-            for (int j = 0; j < 2; ++j) {
-                const int n = n0 + nt * 8 + tig * 2 + j;
-                float val = acc[nt][2 * h + j] * s[n];
-                const int64_t o = z * p.o_z + (int64_t)m * p.ldo + n;
-                if (EPI == EPI_BF16) {
-                    reinterpret_cast<bf16*>(p.out)[o] = __float2bfloat16(val);
-                } else if (EPI == EPI_LORA_ACT) {
-                    const int g = n / LORA_PAD;
-                    if (g == LG_W) val = tanhf(val);
-                    else if (g == LG_G) val = sigmoidf_(val);
-                    reinterpret_cast<bf16*>(p.out)[o] = __float2bfloat16(val);
-                } else if (EPI == EPI_RELU2) {
-                    const float t = fmaxf(round_bf16(val), 0.f);
-                    reinterpret_cast<bf16*>(p.out)[o] = __float2bfloat16(t * t);
-                } else if (EPI == EPI_F32) {
-                    reinterpret_cast<float*>(p.out)[o] = val;
-                } else {
-                    atomicAdd(reinterpret_cast<float*>(p.out) + o, val);
+                    for (int e = 0; e < 4; ++e) mma_bf16(acc[mt][e], af, b0[e], b1[e]);
                 }
             }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&empty[slot]);
+        }
+        pdl_trigger();
+        // the partial tile: the second half's sums, then the first half adds
+        // its own to them (a fixed order)
+        float* mine = red + 32 * q + 8 * tig;
+        for (int h = KSPLIT - 1; h >= 0; --h) {
+            if (half == h) {
+#pragma unroll
+                for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+                    for (int r = 0; r < 2; ++r)
+#pragma unroll
+                        for (int j = 0; j < 2; ++j) {
+                            float4* d = reinterpret_cast<float4*>(
+                                mine + (16 * mt + gid + 8 * r) * RED_LD + 4 * j);
+                            float4 v = make_float4(acc[mt][0][2 * r + j], acc[mt][1][2 * r + j],
+                                                   acc[mt][2][2 * r + j], acc[mt][3][2 * r + j]);
+                            if (h < KSPLIT - 1) {
+                                const float4 o = *d;
+                                v.x += o.x; v.y += o.y; v.z += o.z; v.w += o.w;
+                            }
+                            *d = v;
+                        }
+            }
+            asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS * 32) : "memory");
         }
     }
-}
-
-// K is split into pieces of k_split rows (a multiple of GK), one per
-// blockIdx.y; only EPI_ADD_F32 may take more than one piece.
-template <int EPI>
-int gemm(const GemmArgs& p, int nz, cudaStream_t stream) {
-    if (p.N % GN || p.K % GK || p.k_split % GK || p.k_split <= 0 || p.a_group % GN)
-        return (int)cudaErrorInvalidValue;
-    const int pieces = (p.K + p.k_split - 1) / p.k_split;
-    if (EPI != EPI_ADD_F32 && pieces != 1) return (int)cudaErrorInvalidValue;
-    const int bytes = (int)sizeof(GemmSmem);  // above the 48 KB static limit
-    const cudaError_t e = cudaFuncSetAttribute(
-        gemm_i8_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid(p.N / GN, pieces, nz);
-    RWKV_TRY(gemm_i8_kernel<EPI><<<grid, G_THREADS, bytes, stream>>>(p));
-    return 0;
-}
-
-// k_split that cuts K into about `pieces` multiples of GK
-int split_k(int K, int pieces) {
-    const int q = K / GK / pieces;
-    return GK * (q > 1 ? q : 1);
+    if (warp == CONSUMERS) pdl_trigger();
+    // this thread's rows of the output: m = r0 + tid / 32 + 9 j; an add into
+    // the residual reads them now, so that the read overlaps the barriers
+    const int rows = GM / P, r0 = piece * rows, c = (tid & 31) * 4;
+    constexpr int MAX_ROWS = (GM + G_THREADS / 32 - 1) / (G_THREADS / 32);
+    float4 old[MAX_ROWS];
+    if (p.epi == EPI_ADD_F32) {
+#pragma unroll
+        for (int j = 0; j < MAX_ROWS; ++j) {
+            const int m = r0 + (tid >> 5) + j * (G_THREADS / 32);
+            if (m < r0 + rows)
+                old[j] = __ldcg(reinterpret_cast<const float4*>(
+                    reinterpret_cast<const float*>(p.out) + z * p.o_z + (int64_t)m * p.ldo + n0 + c));
+        }
+    }
+    __syncthreads();
+    if (P > 1) cluster_sync();
+    // CTA `piece` sums rows [r0, r0 + rows) over the cluster's partial tiles
+    // in rank order, scales and stores them: thread t takes the 4 columns
+    // 4 (t % 32) of every ninth row from r0 + t / 32
+#pragma unroll
+    for (int j = 0; j < MAX_ROWS; ++j) {
+        const int m = r0 + (tid >> 5) + j * (G_THREADS / 32);
+        if (m >= r0 + rows) break;
+        const float* src = &red[m * RED_LD + c];
+        float4 sum;
+        if (P == 1) {
+            sum = *reinterpret_cast<const float4*>(src);
+        } else {
+            float4 part[MAX_PIECES];  // all loads in flight, then the sum in order
+#pragma unroll
+            for (int q = 0; q < MAX_PIECES; ++q)
+                if (q < P) part[q] = ld_cluster_f4(src, q);
+            sum = part[0];
+#pragma unroll
+            for (int q = 1; q < MAX_PIECES; ++q)
+                if (q < P) {
+                    sum.x += part[q].x; sum.y += part[q].y;
+                    sum.z += part[q].z; sum.w += part[q].w;
+                }
+        }
+        epilogue4(p, z, m, n0 + c,
+                  make_float4(sum.x * sc.x, sum.y * sc.y, sum.z * sc.z, sum.w * sc.w), old[j]);
+    }
+    if (P > 1) cluster_sync();  // no CTA leaves while another reads its tile
 }
 
 // ---------------------------------------------------------------------------
@@ -317,99 +531,124 @@ __device__ __forceinline__ float softplus_(float z) {
     return fmaxf(z, 0.f) + logf(1.f + expf(-fabsf(z)));
 }
 
-__global__ void __launch_bounds__(NH) glue_kernel(
+// One CTA of GLUE_WARPS warps per (row b, head h), kernel 7's layout
+// (csrc/wkv7_step.cu): warp w steps state rows 16w .. 16w + 15 (the value
+// dim) and lane l holds key columns 2l, 2l + 1 of each, so a warp reads a
+// state row as one coalesced 128-byte line, all 16 rows in flight before
+// the first is used, and the row sums are warp shuffles. Before that,
+// threads 0 .. 63 do the prep of the head's 64 channels (one each) into
+// shared memory; after it, the same threads do GroupNorm, bonus and gate.
+constexpr int GLUE_WARPS = 4;
+constexpr int GLUE_ROWS = NH / GLUE_WARPS;  // state rows a warp
+
+__global__ void __launch_bounds__(GLUE_WARPS * 32) glue_kernel(
     int C, int H, float ln_x_eps, int is_first,
-    const bf16* __restrict__ acc_rkv,   // (64, 3C): r, k, v
-    const float* __restrict__ lo_out,   // (4, 64, C): lora-out in LG order
-    bf16* __restrict__ v_first,         // (64, C)
+    const bf16* acc_rkv,                // (64, 3C): r, k, v
+    const float* lo_out,                // (4, 64, C): lora-out in LG order
+    bf16* v_first,                      // (64, C)
     const float* __restrict__ sm,       // (NS, C) this layer's smalls
-    bf16* __restrict__ wkv,             // (64, H, 64, 64) this layer, in place
-    bf16* __restrict__ y_g) {           // (64, C)
-    __shared__ float red[2];
-    __shared__ float sz[NH], sbb[NH], sr[NH], swd[NH], sk[NH];
-    __shared__ __align__(16) bf16 blk_s[NH][NH + 8];  // the (b, h) state, padded rows
+    bf16* wkv,                          // (64, H, 64, 64) this layer, in place
+    bf16* y_g) {                        // (64, C)
+    __shared__ float red[GLUE_WARPS];
+    // key-indexed: decay, z = -kk_n, b = kk_n a, k_eff, r; value-indexed v
+    __shared__ __align__(8) float swd[NH], sz[NH], sbb[NH], sk[NH], sr[NH], sv[NH], sy[NH];
     const int b = blockIdx.x / H, h = blockIdx.x % H;
-    const int i = threadIdx.x;
-    const int c = h * NH + i;
-    const int64_t bc = (int64_t)b * C + c;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int64_t BC = (int64_t)gridDim.x / H * C;  // 64 * C
 
-    // the (b, h) state block (64 x 64 bf16, contiguous) is loaded first, so
-    // that its latency overlaps the prep below: chunk q * 64 + i is 16 B of
-    // row (q * 64 + i) / 8, so neighbouring threads read neighbouring chunks
-    uint4* blk = reinterpret_cast<uint4*>(wkv + ((int64_t)b * H + h) * NH * NH);
-    uint4 raw[NH / 8];
+    // the state block's rows, loaded first and before the wait for the
+    // previous kernel: it was last written by this layer's glue of the
+    // previous step, which every kernel since waited for. The loads bypass
+    // L1 (ld.global.cg): before the wait, an L1 line of this SM may still
+    // hold the block as an earlier step left it.
+    unsigned* blk = reinterpret_cast<unsigned*>(wkv + ((int64_t)b * H + h) * NH * NH) +
+                    warp * GLUE_ROWS * (NH / 2) + lane;
+    unsigned raw[GLUE_ROWS];
 #pragma unroll
-    for (int q = 0; q < NH / 8; ++q) raw[q] = blk[q * NH + i];
+    for (int i = 0; i < GLUE_ROWS; ++i) raw[i] = __ldcg(blk + i * (NH / 2));
+    pdl_wait();
 
-    const float r = __bfloat162float(acc_rkv[(int64_t)b * 3 * C + c]);
-    const float k0 = __bfloat162float(acc_rkv[(int64_t)b * 3 * C + C + c]);
-    const float v_row = __bfloat162float(acc_rkv[(int64_t)b * 3 * C + 2 * C + c]);
-
-    const float w_raw = -softplus_(-(sm[SM_W0 * C + c] + lo_out[LG_W * BC + bc])) - 0.5f;
-    const float wd = round_bf16(expf(-expf(w_raw)));
-    const float a_row = sigmoidf_(sm[SM_A0 * C + c] + lo_out[LG_A * BC + bc]);
-    const float a_s = round_bf16(a_row);
-    float v_eff;
-    if (is_first) {
-        v_eff = v_row;
-        v_first[bc] = __float2bfloat16(v_eff);
-    } else {
-        const float vmix = sigmoidf_(sm[SM_V0 * C + c] + lo_out[LG_V * BC + bc]);
-        v_eff = v_row + (__bfloat162float(v_first[bc]) - v_row) * vmix;
+    // prep: thread i < 64 takes channel c = h * 64 + i
+    const int i = tid;
+    const bool chan = i < NH;
+    const int c = h * NH + (chan ? i : 0);
+    const int64_t bc = (int64_t)b * C + c;
+    float r = 0.f, k_eff = 0.f, kk = 0.f, a_s = 0.f, v_s = 0.f, g_s = 0.f;
+    if (chan) {
+        r = __bfloat162float(__ldcg(acc_rkv + (int64_t)b * 3 * C + c));
+        const float k0 = __bfloat162float(__ldcg(acc_rkv + (int64_t)b * 3 * C + C + c));
+        const float v_row = __bfloat162float(__ldcg(acc_rkv + (int64_t)b * 3 * C + 2 * C + c));
+        const float w_raw =
+            -softplus_(-(sm[SM_W0 * C + c] + __ldcg(lo_out + LG_W * BC + bc))) - 0.5f;
+        swd[i] = round_bf16(expf(-expf(w_raw)));
+        const float a_row = sigmoidf_(sm[SM_A0 * C + c] + __ldcg(lo_out + LG_A * BC + bc));
+        a_s = round_bf16(a_row);
+        float v_eff;
+        if (is_first) {
+            v_eff = v_row;
+            v_first[bc] = __float2bfloat16(v_eff);
+        } else {
+            const float vmix = sigmoidf_(sm[SM_V0 * C + c] + __ldcg(lo_out + LG_V * BC + bc));
+            v_eff = __fadd_rn(v_row,
+                              __fmul_rn(__bfloat162float(__ldcg(v_first + bc)) - v_row, vmix));
+        }
+        v_s = round_bf16(v_eff);
+        g_s = round_bf16(__ldcg(lo_out + LG_G * BC + bc));
+        kk = round_bf16(k0 * sm[SM_K_K * C + c]);
+        k_eff = round_bf16(k0 * __fadd_rn(1.f, __fmul_rn(a_row - 1.f, sm[SM_K_A * C + c])));
     }
-    const float v_s = round_bf16(v_eff);
-    const float g_s = round_bf16(lo_out[LG_G * BC + bc]);
-    const float kk = round_bf16(k0 * sm[SM_K_K * C + c]);
-    const float k_eff = round_bf16(k0 * (1.f + (a_row - 1.f) * sm[SM_K_A * C + c]));
-
+    pdl_trigger();
     // l2-normalize kk over the head (eps^2 = 1e-24 clamped before the sqrt)
-    const float nrm = sqrtf(fmaxf(block_sum<2>(kk * kk, red), 1e-24f));
-    const float kkn = kk * (1.f / nrm);
-    sz[i] = -kkn;
-    sbb[i] = kkn * a_s;
-    sr[i] = r;
-    swd[i] = wd;
-    sk[i] = k_eff;
-#pragma unroll
-    for (int q = 0; q < NH / 8; ++q) {
-        const int chunk = q * NH + i;
-        *reinterpret_cast<uint4*>(&blk_s[chunk >> 3][(chunk & 7) * 8]) = raw[q];
+    const float nrm = sqrtf(fmaxf(block_sum<GLUE_WARPS>(__fmul_rn(kk, kk), red), 1e-24f));
+    // bonus (sum_j r k_eff r_k), used after the update
+    const float s_bh = block_sum<GLUE_WARPS>(chan ? r * k_eff * sm[SM_R_K * C + c] : 0.f, red);
+    if (chan) {
+        const float kkn = kk * (1.f / nrm);
+        sz[i] = -kkn;
+        sbb[i] = kkn * a_s;
+        sk[i] = k_eff;
+        sr[i] = r;
+        sv[i] = v_s;
     }
     __syncthreads();
 
-    // thread i steps state row i (value dim; 64 key-dim columns) in f32
-    float S[NH];
+    // the update, in f32: S w + sa b + v k with each product and sum
+    // rounded as the plain version's separate tensor ops; y from the f32 S
+    const int j0 = 2 * lane;
+    const float2 wd = *reinterpret_cast<const float2*>(&swd[j0]);
+    const float2 zv = *reinterpret_cast<const float2*>(&sz[j0]);
+    const float2 bv = *reinterpret_cast<const float2*>(&sbb[j0]);
+    const float2 kv = *reinterpret_cast<const float2*>(&sk[j0]);
+    const float2 rv = *reinterpret_cast<const float2*>(&sr[j0]);
+    float y_mine = 0.f;
 #pragma unroll
-    for (int q = 0; q < NH / 8; ++q)
-        unpack8(*reinterpret_cast<const uint4*>(&blk_s[i][8 * q]), S + 8 * q);
-    float sa = 0.f;
-#pragma unroll
-    for (int j = 0; j < NH; ++j) sa = fmaf(S[j], sz[j], sa);
-    float y = 0.f;
-#pragma unroll
-    for (int j = 0; j < NH; ++j) {
-        S[j] = fmaf(S[j], swd[j], fmaf(sa, sbb[j], v_s * sk[j]));
-        y = fmaf(S[j], sr[j], y);
+    for (int q = 0; q < GLUE_ROWS; ++q) {
+        const float2 S = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw[q]));
+        const float sa = warp_sum(fmaf(S.x, zv.x, S.y * zv.y));
+        const float vi = sv[warp * GLUE_ROWS + q];
+        const float n0 = __fadd_rn(__fadd_rn(__fmul_rn(S.x, wd.x), __fmul_rn(sa, bv.x)),
+                                   __fmul_rn(vi, kv.x));
+        const float n1 = __fadd_rn(__fadd_rn(__fmul_rn(S.y, wd.y), __fmul_rn(sa, bv.y)),
+                                   __fmul_rn(vi, kv.y));
+        __nv_bfloat162 o = __floats2bfloat162_rn(n0, n1);
+        blk[q * (NH / 2)] = *reinterpret_cast<unsigned*>(&o);
+        const float yq = warp_sum(fmaf(n0, rv.x, n1 * rv.y));
+        if (lane == q) y_mine = yq;
     }
-#pragma unroll
-    for (int q = 0; q < NH / 8; ++q)
-        *reinterpret_cast<uint4*>(&blk_s[i][8 * q]) = pack8(S + 8 * q);
+    if (lane < GLUE_ROWS) sy[warp * GLUE_ROWS + lane] = y_mine;
     __syncthreads();
-#pragma unroll
-    for (int q = 0; q < NH / 8; ++q) {
-        const int chunk = q * NH + i;
-        blk[chunk] = *reinterpret_cast<const uint4*>(&blk_s[chunk >> 3][(chunk & 7) * 8]);
-    }
 
-    // GroupNorm over the head's 64 outputs
-    const float mean = block_sum<2>(y, red) / NH;
-    const float d = y - mean;
-    const float var = block_sum<2>(d * d, red) / NH;
-    const float y_n = d * rsqrtf(var + ln_x_eps) * sm[SM_LN_X_S * C + c] + sm[SM_LN_X_B * C + c];
-    // bonus (sum_j r k_eff r_k) v, then the gate
-    const float s_bh = block_sum<2>(r * k_eff * sm[SM_R_K * C + c], red);
-    y_g[bc] = __float2bfloat16((y_n + s_bh * v_s) * g_s);
+    // GroupNorm over the head's 64 outputs, then the bonus and the gate
+    const float y = chan ? sy[i] : 0.f;
+    const float mean = block_sum<GLUE_WARPS>(y, red) / NH;
+    const float d = chan ? y - mean : 0.f;
+    const float var = block_sum<GLUE_WARPS>(__fmul_rn(d, d), red) / NH;
+    if (chan) {
+        const float y_n = __fadd_rn(
+            __fmul_rn(__fmul_rn(d, 1.f / sqrtf(var + ln_x_eps)), sm[SM_LN_X_S * C + c]),
+            sm[SM_LN_X_B * C + c]);
+        y_g[bc] = __float2bfloat16(__fmul_rn(__fadd_rn(y_n, __fmul_rn(s_bh, v_s)), g_s));
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -449,17 +688,165 @@ size_t carve(void* base, int C, Workspace* ws) {
     return off;
 }
 
+// ---------------------------------------------------------------------------
+// Launches
+// ---------------------------------------------------------------------------
+
+// every kernel of the chain goes out with programmatic stream
+// serialization (unless pdl is false, which a profile of each kernel's own
+// device time asks for); a product whose K is split runs its pieces as a
+// cluster
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), int grid, int block, int smem, int cluster,
+                   bool pdl, cudaStream_t stream, Args... args) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(block);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[2];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    attr[1].id = cudaLaunchAttributeClusterDimension;
+    attr[1].val.clusterDim.x = cluster;
+    attr[1].val.clusterDim.y = 1;
+    attr[1].val.clusterDim.z = 1;
+    cfg.attrs = pdl ? attr : attr + 1;
+    cfg.numAttrs = (pdl ? 1 : 0) + (cluster > 1 ? 1 : 0);
+    return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// The largest dynamic shared memory of gemm_i8_kernel is allowed once per
+// device and process, not before every launch.
+template <int PROD>
+cudaError_t allow_gemm_smem() {
+    constexpr int MAX_DEVICES = 64;
+    static std::atomic<bool> done[MAX_DEVICES];
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+    if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+    e = cudaFuncSetAttribute(gemm_i8_kernel<PROD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             gemm_smem_bytes(KP_MAX));
+    if (e == cudaSuccess) done[dev].store(true, std::memory_order_release);
+    return e;
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+    static const EncodeTiled fn = [] {
+        void* f = nullptr;
+        cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+        if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                             cudaEnableDefault, &q) != cudaSuccess)
+            f = nullptr;
+#else
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) !=
+            cudaSuccess)
+            f = nullptr;
+#endif
+        return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f) : nullptr;
+    }();
+    return fn;
+}
+
+// A TMA map over a row-major (d2, d1, d0) array of 1-byte (int8) or 2-byte
+// (bf16) elements whose box is 64 rows of 128 bytes, swizzled. Maps are
+// kept by (address, shape), so each is encoded once per weight pack and
+// workspace; a map holds only the address and shape, so one found there is
+// right for whatever array now lies at that address with that shape.
+int tensor_map(CUtensorMap* out, const void* base, int esize, uint64_t d0, uint64_t d1,
+               uint64_t d2) {
+    struct Entry { const void* base; int esize; uint64_t d0, d1, d2; CUtensorMap map; };
+    static std::mutex mu;
+    static std::vector<Entry> cache;
+    std::lock_guard<std::mutex> lock(mu);
+    for (const Entry& e : cache)
+        if (e.base == base && e.esize == esize && e.d0 == d0 && e.d1 == d1 && e.d2 == d2) {
+            *out = e.map;
+            return 0;
+        }
+    const EncodeTiled encode = encoder();
+    if (!encode) return (int)cudaErrorNotSupported;
+    const cuuint64_t dims[3] = {d0, d1, d2};
+    const cuuint64_t strides[2] = {d0 * esize, d0 * d1 * esize};
+    const cuuint32_t box[3] = {(cuuint32_t)(128 / esize), (cuuint32_t)GK, 1};
+    const cuuint32_t unit[3] = {1, 1, 1};
+    Entry e = {base, esize, d0, d1, d2, {}};
+    if (encode(&e.map, esize == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+               3, const_cast<void*>(base), dims, strides, box, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+        return (int)cudaErrorInvalidValue;
+    if (cache.size() >= 256) cache.clear();
+    cache.push_back(e);
+    *out = e.map;
+    return 0;
+}
+
+// A product of the table: K is cut into `pieces` of K / pieces rows.
+Prob prob(int K, int N, int nz, int epi, int pieces, const CUtensorMap& amap, int a_plane,
+          int a_group, int a_zk, const CUtensorMap& wmap, int w_layer, int w_zk,
+          const float* s, int64_t s_z, void* out, int ldo, int64_t o_z) {
+    Prob p;
+    p.amap = amap;
+    p.wmap = wmap;
+    p.K = K; p.N = N; p.nz = nz; p.epi = epi; p.ctas = nz * (N / NT) * pieces;
+    p.a_plane = a_plane; p.a_group = a_group; p.a_zk = a_zk;
+    p.w_layer = w_layer; p.w_zk = w_zk;
+    p.s = s; p.s_z = s_z; p.out = out; p.ldo = ldo; p.o_z = o_z;
+    return p;
+}
+
+template <int PROD>
+int gemm(const Prob& p0, const Prob* p1, int pieces, bool pdl, cudaStream_t stream) {
+    GemmLaunch g = {};
+    g.p[0] = p0;
+    g.nprob = p1 ? 2 : 1;
+    if (p1) g.p[1] = *p1;
+    g.pieces = pieces;
+    g.kp = p0.K / pieces;
+    if (pieces < 1 || pieces > MAX_PIECES || (pieces & (pieces - 1)) || g.kp % GK ||
+        g.kp > KP_MAX)
+        return (int)cudaErrorInvalidValue;
+    int ctas = 0;
+    for (int i = 0; i < g.nprob; ++i) {
+        const Prob& p = g.p[i];
+        if (p.K != g.kp * pieces || p.N % NT || p.a_group % NT)
+            return (int)cudaErrorInvalidValue;
+        ctas += p.ctas;
+    }
+    cudaError_t e = allow_gemm_smem<PROD>();
+    if (e != cudaSuccess) return (int)e;
+    return (int)launch(gemm_i8_kernel<PROD>, ctas, G_THREADS, gemm_smem_bytes(g.kp), pieces, pdl,
+                       stream, g);
+}
+
 }  // namespace
 
 extern "C" size_t decode_b64_workspace_bytes(int C) { return carve(nullptr, C, nullptr); }
+
+// Dynamic shared memory of a product CTA for a K piece of kp rows (the
+// wrapper's launch plan checks it against the card's 227 KB).
+extern "C" int decode_b64_gemm_smem_bytes(int kp) { return gemm_smem_bytes(kp); }
 
 // One decode step. x (64, C) f32 token embeddings (pre-ln0); h_out (64, C)
 // f32 (post ln_out). Packed weights as built by
 // rwkvtts_torch/ops/decode_mega_b64.py::pack_mega_b64, each (L, ...)
 // contiguous. att_x/ffn_x (L, 64, C) bf16 and wkv (L, 64, H, 64, 64) bf16
-// are updated in place. counts[K_LN], counts[K_GEMM], counts[K_GLUE] are
-// increased by the launches of each kernel. Returns the first CUDA launch
-// error (0 on success).
+// are updated in place. pieces[P_RKV_LI .. P_FV] is the number of K pieces
+// of each product (the wrapper's launch plan); pdl = 0 launches the chain
+// without programmatic dependent launch. counts[K_LN], counts[K_GEMM],
+// counts[K_GLUE] are increased by the launches of each kernel. Returns the
+// first CUDA launch error (0 on success).
 extern "C" int decode_b64_step(
     int L, int C, int B, float norm_eps, float ln_x_eps,
     const float* x, float* h_out, const float* ln0_s, const float* ln0_b,
@@ -468,9 +855,9 @@ extern "C" int decode_b64_step(
     const int8_t* lo_q, const float* lo_s, const int8_t* out_q, const float* out_s,
     const int8_t* fk_q, const float* fk_s, const int8_t* fv_q, const float* fv_s,
     const float* smalls, bf16* att_x, bf16* ffn_x, bf16* wkv, void* workspace,
-    int* counts, void* stream) {
+    const int* pieces, int pdl, int* counts, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    if (B != GM || C % 128 || C > LN_THREADS * LN_MAX_PER_THREAD)
+    if (B != GM || C % NT || C > LN_THREADS * LN_MAX_PER_THREAD)
         return (int)cudaErrorInvalidValue;
     const int H = C / NH;
     Workspace ws;
@@ -478,84 +865,77 @@ extern "C" int decode_b64_step(
     const int64_t BC = (int64_t)GM * C;
     const int LI = 4 * LORA_PAD;
     int err;
-#define GEMM(call)                      \
-    do {                                \
-        if ((err = (call))) return err; \
-        ++counts[K_GEMM];               \
-    } while (0)
-#define LAUNCH(kind, ...)                                \
-    do {                                                 \
-        __VA_ARGS__;                                     \
-        if ((err = (int)cudaGetLastError())) return err; \
-        ++counts[kind];                                  \
+#define LAUNCH(kind, call)                             \
+    do {                                               \
+        if ((err = (int)(call))) return err;           \
+        ++counts[kind];                                \
     } while (0)
 
-    LAUNCH(K_LN, ln_rows_kernel<0><<<GM, LN_THREADS, 0, st>>>(
-        C, norm_eps, x, ln0_s, ln0_b, ws.x_res, nullptr, nullptr, nullptr));
+    // TMA maps: each weight array over (L, K, N), the lhs buffers over
+    // (planes, 64, columns)
+    CUtensorMap m_rkv, m_li, m_lo, m_out, m_fk, m_fv, m_xmix, m_lora, m_yg, m_ffn;
+    if ((err = tensor_map(&m_rkv, rkv_q, 1, 3 * C, C, L)) ||
+        (err = tensor_map(&m_li, li_q, 1, LI, C, L)) ||
+        (err = tensor_map(&m_lo, lo_q, 1, C, LI, L)) ||
+        (err = tensor_map(&m_out, out_q, 1, C, C, L)) ||
+        (err = tensor_map(&m_fk, fk_q, 1, 4 * C, C, L)) ||
+        (err = tensor_map(&m_fv, fv_q, 1, C, 4 * C, L)) ||
+        (err = tensor_map(&m_xmix, ws.xmix, 2, C, GM, 6)) ||
+        (err = tensor_map(&m_lora, ws.lora_act, 2, LI, GM, 1)) ||
+        (err = tensor_map(&m_yg, ws.y_g, 2, C, GM, 1)) ||
+        (err = tensor_map(&m_ffn, ws.acc_ffn, 2, 4 * C, GM, 1)))
+        return err;
+
+    LAUNCH(K_LN, launch(ln_rows_kernel<0>, GM, LN_THREADS, 0, 1, pdl, st, C, norm_eps, x, ln0_s,
+                        ln0_b, ws.x_res, (bf16*)nullptr, (const float*)nullptr, (bf16*)nullptr));
     for (int l = 0; l < L; ++l) {
         const float* sm = smalls + (int64_t)l * NS * C;
-        bf16* ax = att_x + l * BC;
-        bf16* fx = ffn_x + l * BC;
         // ln1, the token shift and the six mixes r, k, v, w, a, g (rows
         // SM_X_R .. SM_X_G are adjacent in that order)
-        LAUNCH(K_LN, ln_rows_kernel<6><<<GM, LN_THREADS, 0, st>>>(
-            C, norm_eps, ws.x_res, sm + SM_LN1_S * C, sm + SM_LN1_B * C,
-            nullptr, ax, sm + SM_X_R * C, ws.xmix));
+        LAUNCH(K_LN, launch(ln_rows_kernel<6>, GM, LN_THREADS, 0, 1, pdl, st, C, norm_eps,
+                            (const float*)ws.x_res, sm + SM_LN1_S * C, sm + SM_LN1_B * C,
+                            (float*)nullptr, att_x + l * BC, sm + SM_X_R * C, ws.xmix));
 
-        // r, k, v: one product against [W_r | W_k | W_v], lhs planes r, k, v
-        GemmArgs g = {};
-        g.K = C; g.N = 3 * C; g.k_split = C;
-        g.a = ws.xmix; g.lda = C; g.a_group = C; g.a_gz = BC;
-        g.w = rkv_q + (int64_t)l * C * 3 * C; g.s = rkv_s + (int64_t)l * 3 * C;
-        g.out = ws.acc_rkv; g.ldo = 3 * C;
-        GEMM(gemm<EPI_BF16>(g, 1, st));
-        // lora-in, groups (v, w, a, g) of 128 columns, lhs planes v, w, a, g
-        g.N = LI; g.a = ws.xmix + 2 * BC; g.a_group = LORA_PAD;
-        g.w = li_q + (int64_t)l * C * LI; g.s = li_s + (int64_t)l * LI;
-        g.out = ws.lora_act; g.ldo = LI;
-        GEMM(gemm<EPI_LORA_ACT>(g, 1, st));
+        // r, k, v against [W_r | W_k | W_v] (lhs planes r, k, v), and
+        // lora-in, groups (v, w, a, g) of 128 columns (lhs planes v, w, a,
+        // g), in one launch
+        const int pr = pieces[P_RKV_LI];
+        const Prob rkv = prob(C, 3 * C, 1, EPI_BF16, pr, m_xmix, 0, C, 0, m_rkv, l, 0,
+                              rkv_s + (int64_t)l * 3 * C, 0, ws.acc_rkv, 3 * C, 0);
+        const Prob li = prob(C, LI, 1, EPI_LORA_ACT, pr, m_xmix, 2, LORA_PAD, 0, m_li, l, 0,
+                             li_s + (int64_t)l * LI, 0, ws.lora_act, LI, 0);
+        LAUNCH(K_GEMM, gemm<P_RKV_LI>(rkv, &li, pr, pdl, st));
         // lora-out: 4 groups of (64 x 128) @ (128 x C)
-        GemmArgs lo = {};
-        lo.K = LORA_PAD; lo.N = C; lo.k_split = LORA_PAD;
-        lo.a = ws.lora_act; lo.lda = LI; lo.a_z = LORA_PAD; lo.a_group = C;
-        lo.w = lo_q + (int64_t)l * LI * C; lo.w_z = (int64_t)LORA_PAD * C;
-        lo.s = lo_s + (int64_t)l * 4 * C; lo.s_z = C;
-        lo.out = ws.lo_out; lo.ldo = C; lo.o_z = BC;
-        GEMM(gemm<EPI_F32>(lo, 4, st));
+        LAUNCH(K_GEMM, gemm<P_LO>(prob(LORA_PAD, C, 4, EPI_F32, pieces[P_LO], m_lora, 0, C,
+                                       LORA_PAD, m_lo, l, LORA_PAD, lo_s + (int64_t)l * 4 * C, C,
+                                       ws.lo_out, C, BC),
+                                  nullptr, pieces[P_LO], pdl, st));
 
-        LAUNCH(K_GLUE, glue_kernel<<<GM * H, NH, 0, st>>>(
-            C, H, ln_x_eps, l == 0, ws.acc_rkv, ws.lo_out, ws.v_first, sm,
-            wkv + (int64_t)l * GM * H * NH * NH, ws.y_g));
+        LAUNCH(K_GLUE, launch(glue_kernel, GM * H, GLUE_WARPS * 32, 0, 1, pdl, st, C, H, ln_x_eps, (int)(l == 0),
+                              (const bf16*)ws.acc_rkv, (const float*)ws.lo_out, ws.v_first, sm,
+                              wkv + (int64_t)l * GM * H * NH * NH, ws.y_g));
 
-        // output projection into the residual (split K, atomic adds)
-        GemmArgs o = {};
-        o.K = C; o.N = C; o.k_split = split_k(C, 4);
-        o.a = ws.y_g; o.lda = C; o.a_group = C;
-        o.w = out_q + (int64_t)l * C * C; o.s = out_s + (int64_t)l * C;
-        o.out = ws.x_res; o.ldo = C;
-        GEMM(gemm<EPI_ADD_F32>(o, 1, st));
+        // output projection, added into the residual
+        LAUNCH(K_GEMM, gemm<P_OUT>(prob(C, C, 1, EPI_ADD_F32, pieces[P_OUT], m_yg, 0, C, 0, m_out,
+                                        l, 0, out_s + (int64_t)l * C, 0, ws.x_res, C, 0),
+                                   nullptr, pieces[P_OUT], pdl, st));
 
         // ln2, the token shift and the FFN mix
-        LAUNCH(K_LN, ln_rows_kernel<1><<<GM, LN_THREADS, 0, st>>>(
-            C, norm_eps, ws.x_res, sm + SM_LN2_S * C, sm + SM_LN2_B * C,
-            nullptr, fx, sm + SM_FFN_X_K * C, ws.xmix));
+        LAUNCH(K_LN, launch(ln_rows_kernel<1>, GM, LN_THREADS, 0, 1, pdl, st, C, norm_eps,
+                            (const float*)ws.x_res, sm + SM_LN2_S * C, sm + SM_LN2_B * C,
+                            (float*)nullptr, ffn_x + l * BC, sm + SM_FFN_X_K * C, ws.xmix));
         // FFN key with relu^2, then FFN value into the residual
-        GemmArgs fk = {};
-        fk.K = C; fk.N = 4 * C; fk.k_split = C;
-        fk.a = ws.xmix; fk.lda = C; fk.a_group = 4 * C;
-        fk.w = fk_q + (int64_t)l * C * 4 * C; fk.s = fk_s + (int64_t)l * 4 * C;
-        fk.out = ws.acc_ffn; fk.ldo = 4 * C;
-        GEMM(gemm<EPI_RELU2>(fk, 1, st));
-        GemmArgs fv = {};
-        fv.K = 4 * C; fv.N = C; fv.k_split = split_k(4 * C, 8);
-        fv.a = ws.acc_ffn; fv.lda = 4 * C; fv.a_group = C;
-        fv.w = fv_q + (int64_t)l * 4 * C * C; fv.s = fv_s + (int64_t)l * C;
-        fv.out = ws.x_res; fv.ldo = C;
-        GEMM(gemm<EPI_ADD_F32>(fv, 1, st));
+        LAUNCH(K_GEMM, gemm<P_FK>(prob(C, 4 * C, 1, EPI_RELU2, pieces[P_FK], m_xmix, 0, 4 * C, 0,
+                                       m_fk, l, 0, fk_s + (int64_t)l * 4 * C, 0, ws.acc_ffn,
+                                       4 * C, 0),
+                                  nullptr, pieces[P_FK], pdl, st));
+        LAUNCH(K_GEMM, gemm<P_FV>(prob(4 * C, C, 1, EPI_ADD_F32, pieces[P_FV], m_ffn, 0, C, 0,
+                                       m_fv, l, 0, fv_s + (int64_t)l * C, 0, ws.x_res, C, 0),
+                                  nullptr, pieces[P_FV], pdl, st));
     }
-    LAUNCH(K_LN, ln_rows_kernel<0><<<GM, LN_THREADS, 0, st>>>(
-        C, norm_eps, ws.x_res, lnout_s, lnout_b, h_out, nullptr, nullptr, nullptr));
-#undef GEMM
+    LAUNCH(K_LN, launch(ln_rows_kernel<0>, GM, LN_THREADS, 0, 1, pdl, st, C, norm_eps,
+                        (const float*)ws.x_res, lnout_s, lnout_b, h_out, (bf16*)nullptr,
+                        (const float*)nullptr, (bf16*)nullptr));
 #undef LAUNCH
     return 0;
 }

@@ -22,6 +22,12 @@ package does (``rwkv7.q8`` == ``_q8_np``) but keeps a natural layout: one
 Every lora width is zero-padded to 128. The product scales are rounded to
 bf16 (as the TPU ``s_stream``) and stored as f32; the lora-out scales stay
 f32 (as the TPU ``lo_scales``).
+
+On the card each layer is 8 launches (8 L + 2 a step): ln1, r/k/v with
+lora-in, lora-out, the WKV glue, the output projection, ln2, FFN key and
+FFN value. ``launch_plan`` says how each product is cut (128-column
+tiles, K pieces run as one thread block cluster) and what shared memory a
+CTA takes; the kernel refuses a plan it cannot run.
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ _LG = ("v", "w", "a", "g")
 
 # CUDA kernel launches made by decode_step_mega_b64: in all, and by kernel
 # (the order of decode_b64_step's counts). reset_launches() zeroes both.
+# A step makes 2 L + 2 ln_rows, 5 L gemm_i8 and L wkv_glue launches.
 KERNELS = ("ln_rows", "gemm_i8", "wkv_glue")
 launches = 0
 kernel_launches = dict.fromkeys(KERNELS, 0)
@@ -76,6 +83,18 @@ def _smalls_source(blocks: Params) -> Dict[str, torch.Tensor]:
     }
 
 
+class MegaPack(dict):
+    """The packed weights. The CUDA route takes only a MegaPack: it checks
+    the tensors on the pack's first step and keeps the (L, C, device) it
+    checked in ``checked``; replacing an entry clears it."""
+
+    checked = None
+
+    def __setitem__(self, key, value):
+        self.checked = None
+        super().__setitem__(key, value)
+
+
 def pack_mega_b64(params: Params, cfg) -> Params:
     """Quantize and pack the backbone parameters (on their device)."""
     C, L = cfg.hidden_size, cfg.num_layers
@@ -88,7 +107,7 @@ def pack_mega_b64(params: Params, cfg) -> Params:
         q, s = q8(att[f"{name}2"])
         lo_q[:, gi * LORA_PAD:gi * LORA_PAD + q.shape[-2]] = q
         lo_s[:, gi] = s.reshape(L, C)
-    return {**mega, "lo_q": lo_q, "lo_s": lo_s}
+    return MegaPack(mega, lo_q=lo_q, lo_s=lo_s)
 
 
 def pack_common(params: Params, cfg) -> Params:
@@ -236,28 +255,86 @@ def decode_step_plain(mega: Params, cfg, x: torch.Tensor, state: Params
 _MEGA_KEYS = ("rkv_q", "rkv_s", "li_q", "li_s", "lo_q", "lo_s", "out_q",
               "out_s", "fk_q", "fk_s", "fv_q", "fv_s", "smalls")
 
+# the product kernel's tiling (csrc/decode_b64.cu): 128-column tiles, K in
+# stages of 64 rows, a piece of K at most 1024 rows (its lhs, 128 KB, stays
+# in shared memory), at most 8 pieces (a portable cluster), at most 8
+# weight stages in flight
+NT, GK, KP_MAX, MAX_PIECES, RING_MAX = 128, 64, 1024, 8, 8
+# CTAs a product aims at: the K pieces of a tile run as one cluster; on an
+# H100 SXM (132 SMs) 112 CTAs in clusters of 4 started in one wave, 128 in
+# two
+WAVE = 112
+SMEM_LIMIT = 232448       # shared memory a block may use (227 KB)
+# the products of a layer in the order of decode_b64_step's pieces
+PRODUCTS = ("rkv_li", "lo", "out", "fk", "fv")
 
-def decode_step_mega_b64(mega: Params, cfg, x: torch.Tensor, state: Params
-                         ) -> Tuple[torch.Tensor, Params]:
+
+def gemm_smem_bytes(k_piece: int) -> int:
+    """Dynamic shared memory of a product CTA (decode_b64.cu
+    gemm_smem_bytes): slack to align the TMA boxes to 1024 bytes, the lhs
+    slice, the ring of 64 x 128-byte weight boxes, the f32 partial tile
+    (rows padded by 4), the mbarriers."""
+    ring = min(k_piece // GK, RING_MAX) * GK * 128
+    return 1024 + B * k_piece * 2 + ring + B * (NT + 4) * 4 + 8 * (2 * RING_MAX + 1)
+
+
+def workspace_bytes(C: int) -> int:
+    """Bytes of the step's workspace (decode_b64.cu carve): x_res, the six
+    mixes, acc_rkv, lora_act, lo_out, v_first, y_g, acc_ffn."""
+    sizes = (B * C * 4, 6 * B * C * 2, B * 3 * C * 2, B * 4 * LORA_PAD * 2,
+             4 * B * C * 4, B * C * 2, B * C * 2, B * 4 * C * 2)
+    return sum((n + 255) // 256 * 256 for n in sizes)
+
+
+def _pieces(K: int, tiles: int) -> int:
+    """K pieces of a product with `tiles` 128-column tiles: double them while
+    the CTAs fit one wave (WAVE), then while a piece exceeds KP_MAX."""
+    p = 1
+    while p < MAX_PIECES and K % (2 * p * GK) == 0 and 2 * p * tiles <= WAVE:
+        p *= 2
+    while p < MAX_PIECES and K % (2 * p * GK) == 0 and K // p > KP_MAX:
+        p *= 2
+    if K % (p * GK) or K // p > KP_MAX:
+        raise ValueError(f"decode step: K = {K} does not cut into at most {MAX_PIECES} "
+                         f"pieces of a multiple of {GK} rows, at most {KP_MAX}")
+    return p
+
+
+def launch_plan(C: int) -> Dict:
+    """How the kernel cuts each product at width C: for each of PRODUCTS its
+    K, N (all slices), tiles, K pieces, rows a piece, CTAs and shared bytes
+    a CTA; and the workspace bytes."""
+    if C % NT:
+        raise ValueError(f"decode step: C = {C} is not a multiple of {NT}")
+    shapes = {"rkv_li": (C, 3 * C + 4 * LORA_PAD), "lo": (LORA_PAD, 4 * C),
+              "out": (C, C), "fk": (C, 4 * C), "fv": (4 * C, C)}
+    plan = {}
+    for name, (K, N) in shapes.items():
+        tiles = N // NT
+        p = _pieces(K, tiles)
+        plan[name] = {"K": K, "N": N, "tiles": tiles, "pieces": p, "k_piece": K // p,
+                      "ctas": tiles * p, "smem_bytes": gemm_smem_bytes(K // p)}
+    return {"products": plan, "workspace_bytes": workspace_bytes(C)}
+
+
+def decode_step_mega_b64(mega: Params, cfg, x: torch.Tensor, state: Params,
+                         pdl: bool = True) -> Tuple[torch.Tensor, Params]:
     """One decode step. x (64, C) token embeddings (pre-ln0); state
     {'att_x' (L,64,C), 'wkv' (L,64,H,64,64), 'ffn_x' (L,64,C)} bf16,
-    updated in place. Returns (hidden (64, C) f32 after ln_out, state)."""
+    updated in place. Returns (hidden (64, C) f32 after ln_out, state).
+    On the card `mega` must be a MegaPack (``pack_mega_b64``); pdl=False
+    launches the chain without programmatic dependent launch, so that each
+    kernel starts after the previous one ended and a profile gives each its
+    own device time (with it, a kernel's span holds its wait)."""
     dev = x.device.type
     if dev == "cpu":
         return decode_step_plain(mega, cfg, x, state)
     if dev != "cuda":
         raise ValueError(f"decode_step_mega_b64: no implementation for device {x.device}")
-    return _launch(mega, cfg, x, state)
+    return _launch(mega, cfg, x, state, pdl)
 
 
-def _launch(mega, cfg, x, state):
-    global launches
-    C, L, H = cfg.hidden_size, cfg.num_layers, cfg.num_heads
-    x = x.float().contiguous()
-    want = {
-        "att_x": ((L, B, C), torch.bfloat16), "ffn_x": ((L, B, C), torch.bfloat16),
-        "wkv": ((L, B, H, 64, 64), torch.bfloat16),
-    }
+def _check_tensors(mega: Params, L: int, C: int, device) -> None:
     shapes = {
         "rkv_q": (L, C, 3 * C), "rkv_s": (L, 3 * C),
         "li_q": (L, C, 4 * LORA_PAD), "li_s": (L, 4 * LORA_PAD),
@@ -266,6 +343,42 @@ def _launch(mega, cfg, x, state):
         "fk_s": (L, 4 * C), "fv_q": (L, 4 * C, C), "fv_s": (L, C),
         "smalls": (L, NS, C),
     }
+    for name, shape in shapes.items():
+        t = mega[name]
+        dtype = torch.int8 if name.endswith("_q") else torch.float32
+        if t.shape != shape or t.dtype != dtype or t.device != device or not t.is_contiguous():
+            raise ValueError(f"decode_step_mega_b64: mega[{name!r}] must be contiguous "
+                             f"{shape} {dtype} on {device}")
+    for name in ("ln0_scale", "ln0_bias", "ln_out_scale", "ln_out_bias"):
+        t = mega[name]
+        if t.shape != (C,) or t.dtype != torch.float32 or t.device != device:
+            raise ValueError(f"decode_step_mega_b64: mega[{name!r}] must be ({C},) f32")
+
+
+def _check_pack(mega: Params, L: int, C: int, device) -> None:
+    """Check a MegaPack's tensors on its first step at (L, C, device)."""
+    if not isinstance(mega, MegaPack):
+        raise ValueError("decode_step_mega_b64: mega must be a MegaPack from pack_mega_b64")
+    key = (L, C, str(device))
+    if mega.checked != key:
+        _check_tensors(mega, L, C, device)
+        mega.checked = key
+
+
+# the launch plan's pieces (a C array) and a workspace per (device, C): every
+# launch is on the caller's stream, so one step at a time reuses it
+_pieces_arrays: Dict[int, ctypes.Array] = {}
+_workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _launch(mega, cfg, x, state, pdl=True):
+    global launches
+    C, L, H = cfg.hidden_size, cfg.num_layers, cfg.num_heads
+    x = x.float().contiguous()
+    want = {
+        "att_x": ((L, B, C), torch.bfloat16), "ffn_x": ((L, B, C), torch.bfloat16),
+        "wkv": ((L, B, H, 64, 64), torch.bfloat16),
+    }
     if x.shape != (B, C):
         raise ValueError(f"decode_step_mega_b64: x is {tuple(x.shape)}, want {(B, C)}")
     for name, (shape, dtype) in want.items():
@@ -273,19 +386,18 @@ def _launch(mega, cfg, x, state):
         if t.shape != shape or t.dtype != dtype or t.device != x.device or not t.is_contiguous():
             raise ValueError(f"decode_step_mega_b64: state[{name!r}] must be contiguous "
                              f"{shape} {dtype} on {x.device}")
-    for name, shape in shapes.items():
-        t = mega[name]
-        dtype = torch.int8 if name.endswith("_q") else torch.float32
-        if t.shape != shape or t.dtype != dtype or t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"decode_step_mega_b64: mega[{name!r}] must be contiguous "
-                             f"{shape} {dtype} on {x.device}")
-    for name in ("ln0_scale", "ln0_bias", "ln_out_scale", "ln_out_bias"):
-        t = mega[name]
-        if t.shape != (C,) or t.dtype != torch.float32 or t.device != x.device:
-            raise ValueError(f"decode_step_mega_b64: mega[{name!r}] must be ({C},) f32")
+    _check_pack(mega, L, C, x.device)
+    pieces = _pieces_arrays.get(C)
+    if pieces is None:
+        plan = launch_plan(C)["products"]
+        pieces = _pieces_arrays[C] = (ctypes.c_int * len(PRODUCTS))(
+            *(plan[n]["pieces"] for n in PRODUCTS))
 
     lib = _build.library()
-    ws = torch.empty(lib.decode_b64_workspace_bytes(C), dtype=torch.uint8, device=x.device)
+    ws = _workspaces.get((x.device.index, C))
+    if ws is None:
+        ws = _workspaces[(x.device.index, C)] = torch.empty(
+            lib.decode_b64_workspace_bytes(C), dtype=torch.uint8, device=x.device)
     h = torch.empty(B, C, dtype=torch.float32, device=x.device)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     counts = (ctypes.c_int * len(KERNELS))()
@@ -295,7 +407,7 @@ def _launch(mega, cfg, x, state):
         ptr(mega["ln_out_scale"]), ptr(mega["ln_out_bias"]),
         *(ptr(mega[k]) for k in _MEGA_KEYS),
         ptr(state["att_x"]), ptr(state["ffn_x"]), ptr(state["wkv"]), ptr(ws),
-        counts, ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+        pieces, int(pdl), counts, ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
     )
     for name, n in zip(KERNELS, counts):
         kernel_launches[name] += n

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import argparse
 import logging
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -99,8 +99,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--int4", action="store_true", help="int4 decode weights (not ported)")
     ap.add_argument("--state-bf16", action="store_true", help="bf16 WKV state carry")
     ap.add_argument("--max-new-tokens", type=int, default=1024)
-    ap.add_argument("--top-k", type=int, default=50)
-    ap.add_argument("--top-p", type=float, default=0.95)
+    # resolved per family by sampling_defaults when not given
+    ap.add_argument("--top-k", type=int, default=None)
+    ap.add_argument("--top-p", type=float, default=None)
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--grouped", action="store_true",
                     help="same-voice grouping dispatcher (not ported)")
@@ -113,8 +114,22 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
+# the sampling each family ships with (the JAX launcher's): Spark top-k 50 /
+# top-p 0.95, Cosy's RAS top-k 25 / top-p 0.8
+_SAMPLING = {"spark": (50, 0.95), "cosy": (25, 0.8)}
+
+
+def sampling_defaults(family: str, top_k: Optional[int] = None,
+                      top_p: Optional[float] = None) -> Tuple[int, float]:
+    """top-k and top-p for a family: the flags where given, else the
+    family's own."""
+    k, p = _SAMPLING[family]
+    return (k if top_k is None else top_k, p if top_p is None else top_p)
+
+
 def main(argv=None):
     args = _parser().parse_args(argv)
+    top_k, top_p = sampling_defaults(args.family, args.top_k, args.top_p)
     if args.family == "cosy":
         raise SystemExit("--family cosy waits for serving/cosy_pool.py, which is not ported yet")
     if args.grouped:
@@ -139,7 +154,7 @@ def main(argv=None):
     )
     tts = build_service(
         pipeline, args.demo_dir, n_slots=n_slots, chunk=args.chunk,
-        max_new_tokens=args.max_new_tokens, top_k=args.top_k, top_p=args.top_p,
+        max_new_tokens=args.max_new_tokens, top_k=top_k, top_p=top_p,
         temperature=args.temperature, warmup=not args.no_warmup,
         warmup_widths=([int(w) for w in args.warmup_widths.split(",")]
                        if args.warmup_widths else None),

@@ -181,3 +181,73 @@ def test_decode_wrapper_refuses_what_it_cannot_run(bad):
     else:
         with pytest.raises(ValueError, match="x is"):
             tdmb._launch(mega, tcfg, torch.zeros(32, 128), st)
+
+
+@pytest.mark.parametrize("C", [1024, 2048])
+def test_launch_plan_fits_the_card(C):
+    """The launch plan the wrapper hands the kernel: every product cut into
+    128-column tiles and K pieces of a multiple of 64 rows, at most 1024 (the
+    lhs slice that stays in shared memory), at most 8 pieces (one cluster);
+    each CTA within the 227 KB of shared memory a block may use; the
+    workspace as the kernel carves it."""
+    plan = tdmb.launch_plan(C)
+    shapes = {"rkv_li": (C, 3 * C + 512), "lo": (128, 4 * C), "out": (C, C),
+              "fk": (C, 4 * C), "fv": (4 * C, C)}
+    assert list(plan["products"]) == list(tdmb.PRODUCTS) == list(shapes)
+    for name, pr in plan["products"].items():
+        K, N = shapes[name]
+        assert (pr["K"], pr["N"]) == (K, N), name
+        assert pr["tiles"] == N // 128 and N % 128 == 0, name
+        assert pr["pieces"] in (1, 2, 4, 8) and pr["k_piece"] * pr["pieces"] == K, name
+        assert pr["k_piece"] % 64 == 0 and pr["k_piece"] <= 1024, name
+        assert pr["ctas"] == pr["tiles"] * pr["pieces"], name
+        lhs = 64 * pr["k_piece"] * 2
+        assert lhs <= 128 * 1024 and lhs < pr["smem_bytes"] <= 232448, name
+    # the products fill the card without a second wave where K allows it
+    assert plan["products"]["rkv_li"]["ctas"] >= 100
+    assert all(p["ctas"] >= 64 for p in plan["products"].values())
+    rows = 64
+    want = sum((n + 255) // 256 * 256 for n in (
+        rows * C * 4, 6 * rows * C * 2, rows * 3 * C * 2, rows * 512 * 2,
+        4 * rows * C * 4, rows * C * 2, rows * C * 2, rows * 4 * C * 2))
+    assert plan["workspace_bytes"] == want
+
+
+def test_launch_plan_refuses_what_the_kernel_cannot_cut():
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tdmb.launch_plan(1000)
+    with pytest.raises(ValueError, match="does not cut"):
+        tdmb.launch_plan(4096)  # FFN value K = 16384: pieces of 2048 rows
+
+
+def test_pack_check_runs_once_and_refuses_a_malformed_pack(monkeypatch):
+    """The wrapper checks a pack's tensors on its first step: a second step
+    does not check again, a new pack or a replaced entry is checked, a
+    malformed pack is refused (and not remembered), and a dict that is not
+    a MegaPack is refused."""
+    _, tcfg = _cfgs(C=128, L=1)
+    params = trwkv7.init_params(torch.Generator().manual_seed(0), tcfg)
+    mega = tdmb.pack_mega_b64(params, tcfg)
+    calls = []
+    real = tdmb._check_tensors
+    monkeypatch.setattr(tdmb, "_check_tensors", lambda *a: (calls.append(1), real(*a)))
+    dev = torch.device("cpu")
+    for _ in range(3):
+        tdmb._check_pack(mega, 1, 128, dev)
+    assert len(calls) == 1
+    bad = tdmb.pack_mega_b64(params, tcfg)
+    bad["fk_q"] = bad["fk_q"][..., :-128].contiguous()
+    with pytest.raises(ValueError, match=r"mega\['fk_q'\]"):
+        tdmb._check_pack(bad, 1, 128, dev)
+    with pytest.raises(ValueError, match=r"mega\['fk_q'\]"):
+        tdmb._check_pack(bad, 1, 128, dev)  # a refused pack is not remembered
+    assert len(calls) == 3
+    # replacing an entry of a checked pack makes the next step check it
+    mega["fv_q"] = mega["fv_q"][:, :-128].contiguous()
+    with pytest.raises(ValueError, match=r"mega\['fv_q'\]"):
+        tdmb._check_pack(mega, 1, 128, dev)
+    assert len(calls) == 4
+    # a plain dict is refused before any check
+    with pytest.raises(ValueError, match="MegaPack"):
+        tdmb._check_pack(dict(bad), 1, 128, dev)
+    assert len(calls) == 4

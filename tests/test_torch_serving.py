@@ -476,3 +476,51 @@ def test_launcher_without_a_card_raises(jax_ckpt):
         pytest.skip("this host has a CUDA device")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch.build_pipeline(jax_ckpt)
+
+
+class _Resolved(Exception):
+    """Stops a launcher's main once it has handed its sampling on."""
+
+
+def _jax_launcher_sampling(monkeypatch, flags):
+    """(top_k, top_p) that the JAX launcher's main resolves from `flags` and
+    hands to its service, with the model loading stubbed out."""
+    from rwkvtts_tpu.serving import service as jservice
+
+    got = {}
+
+    def capture(*args, **kwargs):
+        got.update(top_k=kwargs["top_k"], top_p=kwargs["top_p"])
+        raise _Resolved
+
+    monkeypatch.setattr(jlaunch, "build_pipeline", lambda *a, **k: None)
+    monkeypatch.setattr(jlaunch, "build_cosy_pipeline", lambda *a, **k: None)
+    monkeypatch.setattr(jlaunch, "build_service", capture)
+    monkeypatch.setattr(jservice, "CosyTTSService", capture)
+    with pytest.raises(_Resolved):
+        jlaunch.main(["--ckpt", "unused.safetensors", *flags])
+    return got["top_k"], got["top_p"]
+
+
+@pytest.mark.parametrize("family", ["spark", "cosy"])
+@pytest.mark.parametrize("given", [[], ["--top-k", "7", "--top-p", "0.5"], ["--top-p", "0.6"]])
+def test_launchers_resolve_the_same_sampling(monkeypatch, family, given):
+    """Both launchers' parsers resolve top-k / top-p per family (spark 50 /
+    0.95, cosy 25 / 0.8) unless the flags give them; the port's main hands
+    them on to its service."""
+    flags = ["--family", family, *given]
+    want = _jax_launcher_sampling(monkeypatch, flags)
+    args = launch._parser().parse_args(["--ckpt", "unused.safetensors", *flags])
+    assert launch.sampling_defaults(args.family, args.top_k, args.top_p) == want
+    if family == "spark":
+        got = {}
+
+        def capture(*a, **kw):
+            got.update(top_k=kw["top_k"], top_p=kw["top_p"])
+            raise _Resolved
+
+        monkeypatch.setattr(launch, "build_pipeline", lambda *a, **k: None)
+        monkeypatch.setattr(launch, "build_service", capture)
+        with pytest.raises(_Resolved):
+            launch.main(["--ckpt", "unused.safetensors", *flags])
+        assert (got["top_k"], got["top_p"]) == want
