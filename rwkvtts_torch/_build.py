@@ -134,15 +134,14 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P,          # k_k, k_a, r_k, ln_w, ln_b
         _P, _P,                      # s0, resets
         _P, _P,                      # y, s_out
-        _P, _P, _P, _P,              # anchors, sa, xhat, stats (training)
+        _P,                          # anchors (training; null for the primal)
         _P,                          # stream
     ],
     "wkv7_fused_bwd": [
-        _I, _I, _I, _I,              # dtype, B, T, H
+        _I, _I, _I, _I, _F,          # dtype, B, T, H, ln_eps
         _P, _P, _P, _P, _P,          # r, w_raw, k_raw, v, a
         _P, _P, _P, _P,              # k_k, k_a, r_k, ln_w
-        _P, _P,                      # s0, resets
-        _P, _P, _P, _P,              # anchors, sa, xhat, stats
+        _P, _P, _P,                  # s0, resets, anchors
         _P, _P,                      # dy, dsfin
         _P, _P, _P, _P, _P,          # dr, dw_raw, dk_raw, dv, da
         _P, _P,                      # dparams, ds0
@@ -196,8 +195,9 @@ def library() -> ctypes.CDLL:
     for name in ("decode_b64_workspace_bytes", "decode_b1_workspace_bytes"):
         getattr(lib, name).argtypes = [ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_size_t
-    lib.decode_b64_gemm_smem_bytes.argtypes = [ctypes.c_int]
-    lib.decode_b64_gemm_smem_bytes.restype = ctypes.c_int
+    for name in ("decode_b64_gemm_smem_bytes", "wkv7_fused_smem_bytes"):
+        getattr(lib, name).argtypes = [ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 

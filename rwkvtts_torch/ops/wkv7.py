@@ -66,6 +66,107 @@ def wkv7_scan(
     return y.to(out_dtype), s
 
 
+def _neumann_inverse(a: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(I - A)^{-1} of a strictly lower-triangular (..., L, L) A: A is
+    nilpotent (A^L = 0), so the inverse is prod_i (I + A^{2^i}), exactly,
+    in ceil(log2 L) products."""
+    eye = torch.eye(chunk, dtype=a.dtype, device=a.device)
+    out = eye + a
+    power = a
+    for _ in range(max(0, (chunk - 1).bit_length() - 1)):
+        power = power @ power
+        out = out @ (eye + power)
+    return out
+
+
+def _chunk_body(s0, r, logw, k, v, z, b, resets):
+    """One chunk of L steps as dense products. s0 (B, H, N, N) f32 entry
+    state; r..b (B, L, H, N) f32 with logw = log w; resets (B, L) int.
+    Returns (the state after the chunk, y (B, L, H, N))."""
+    L = r.shape[1]
+    # c counts the resets up to each position: positions of one segment
+    # share it, and the entry state reaches only those with c = 0
+    c = torch.cumsum(resets, 1)
+    # a reset's decay multiplies a state that is masked away: 0 keeps the
+    # ratios below finite
+    logw = torch.where(resets[:, :, None, None] > 0, 0.0, logw)
+    g = torch.cumsum(logw, 1)  # inclusive, (B, L, H, N)
+    e_g = torch.exp(g)
+    qt = r * e_g  # r_t decayed from the chunk's entry through step t
+    zt = z * e_g * torch.exp(-logw)  # z_t decayed through step t - 1
+    kt = k / e_g
+    bt = b / e_g
+
+    def pair(x, y):  # (B, H, L, L): x_t . y_s over the key dim
+        return torch.einsum("blhn,bmhn->bhlm", x, y)
+
+    same = (c[:, :, None] == c[:, None, :])[:, None]
+    strict = torch.tril(torch.ones(L, L, dtype=torch.bool, device=r.device), -1)
+    incl = torch.tril(torch.ones(L, L, dtype=torch.bool, device=r.device))
+    m_strict = (same & strict).float()
+    m_incl = (same & incl).float()
+    A = pair(zt, bt) * m_strict
+    Kz = pair(zt, kt) * m_strict
+    inv = _neumann_inverse(A, L)
+
+    mask0 = (c == 0)[:, :, None, None]
+    z0 = torch.where(mask0, zt, 0.0)
+    q0 = torch.where(mask0, qt, 0.0)
+    # sa = (I - A)^{-1} (z0 S0^T + Kz v): the rows sa_t of the chunk
+    sa_in = torch.einsum("blhn,bhin->blhi", z0, s0) + torch.einsum("bhlm,bmhi->blhi", Kz, v)
+    sa = torch.einsum("bhlm,bmhi->blhi", inv, sa_in)
+    y = (torch.einsum("blhn,bhin->blhi", q0, s0)
+         + torch.einsum("bhlm,bmhi->blhi", pair(qt, bt) * m_incl, sa)
+         + torch.einsum("bhlm,bmhi->blhi", pair(qt, kt) * m_incl, v))
+    # the sources of the chunk's last segment survive to its end, and the
+    # entry state survives if no reset came
+    c_last = c[:, -1]
+    live = (c == c_last[:, None])[:, :, None, None]
+    g_last = g[:, -1]  # (B, H, N)
+    k_fin = torch.where(live, kt, 0.0) * torch.exp(g_last)[:, None]
+    b_fin = torch.where(live, bt, 0.0) * torch.exp(g_last)[:, None]
+    s0_live = (c_last == 0).float()[:, None, None, None]
+    s_out = (s0 * s0_live * torch.exp(g_last)[:, :, None, :]
+             + torch.einsum("blhi,blhn->bhin", sa, b_fin)
+             + torch.einsum("blhi,blhn->bhin", v, k_fin))
+    return s_out, y
+
+
+def wkv7_chunked(
+    r: torch.Tensor, w_raw: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    z: torch.Tensor, b: torch.Tensor,
+    state: Optional[torch.Tensor] = None,
+    resets: Optional[torch.Tensor] = None,
+    *, chunk: int = 32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """WKV7 in chunks of `chunk` steps, each a few dense products (the
+    counterpart of rwkvtts_tpu/ops/wkv7.py::wkv7_chunked, and the algebra
+    the chunked CUDA kernels of csrc/wkv7_fused.cu follow). Same contract
+    as ``wkv7_scan``; T is padded inside to a multiple of `chunk` with
+    steps of decay 1 and no update. Differentiable by autograd; no main
+    path calls it."""
+    B, T, H, N = r.shape
+    out_dtype = v.dtype
+    s = init_state(B, H, N, r.device) if state is None else state.float()
+    logw = -torch.exp(w_raw.float())
+    r, k, v, z, b = (x.float() for x in (r, k, v, z, b))
+    rs = (torch.zeros(B, T, dtype=torch.int64, device=r.device) if resets is None
+          else resets.long())
+    pad = (-T) % chunk
+    if pad:
+        zpad = lambda x: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        r, logw, k, v, z, b = map(zpad, (r, logw, k, v, z, b))  # logw = 0: w = 1
+        rs = torch.nn.functional.pad(rs, (0, pad))
+    ys = []
+    for c0 in range(0, T + pad, chunk):
+        sl = slice(c0, c0 + chunk)
+        s, y = _chunk_body(s, r[:, sl], logw[:, sl], k[:, sl], v[:, sl], z[:, sl],
+                           b[:, sl], rs[:, sl])
+        ys.append(y)
+    y = torch.cat(ys, 1)[:, :T] if ys else torch.zeros_like(v)
+    return y.to(out_dtype), s
+
+
 def wkv7_step(
     state: torch.Tensor, r: torch.Tensor, w_raw: torch.Tensor, k: torch.Tensor,
     v: torch.Tensor, z: torch.Tensor, b: torch.Tensor, *, inplace: bool = False,

@@ -12,10 +12,12 @@ is (B, T) bool or None. Both return y in v's dtype and the final state in
 f32, and are differentiable: the input gradients come back in the input
 dtypes, the per-head ones as (H, 64) f32 and the state's in f32.
 
-The backward kernels step the state back through the decay (see
+``wkv7``'s backward kernel steps the state back through the decay (see
 csrc/wkv7_core.cuh), which is exact only while every w_raw <= -0.5, as
 the model's soft clamp keeps it (models/rwkv7.py): w_raw above that is
-outside the contract of the CUDA path.
+outside the contract of that kernel. The fused pair works in chunks of 16
+steps (csrc/wkv7_chunk.cuh) and recomputes each chunk forward from its
+saved entry state; ``fused_plan`` is its launch arithmetic.
 
 Tensors on the CPU take the plain versions under autograd
 (``ops/wkv7.py::wkv7_scan`` and ``wkv7_fused_plain``). Tensors on a CUDA
@@ -33,6 +35,7 @@ from rwkvtts_torch.ops.wkv7 import wkv7_fused_plain, wkv7_scan
 
 HEAD = 64
 CHUNK = 16  # steps between the states the training forward saves (csrc/wkv7_core.cuh)
+SMEM_LIMIT = 232448  # shared memory bytes a CTA may take on the H100
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches by C entry point; reset_launches() zeroes them
@@ -96,6 +99,28 @@ def _device(what: str, t: torch.Tensor) -> str:
     if dev not in ("cpu", "cuda"):
         raise ValueError(f"{what}: no implementation for device {t.device}")
     return dev
+
+
+def fused_plan(B: int, T: int, H: int) -> dict:
+    """The launch arithmetic of csrc/wkv7_fused.cu (its constants in
+    csrc/wkv7_chunk.cuh): one CTA of 256 threads a (b, h) walking
+    ceil(T / 16) chunks, and the shared memory bytes each kernel's CTA takes
+    (the library's ``wkv7_fused_smem_bytes`` gives the same on the card).
+    Raises ValueError for what the kernels cannot take."""
+    if T < 1 or B < 1 or H < 1:
+        raise ValueError(f"wkv7_fused: B={B}, T={T}, H={H}: every size must be >= 1")
+    if B * H > 2**31 - 1:
+        raise ValueError(f"wkv7_fused: B * H = {B * H} CTAs, more than a grid holds")
+    ld, ldm = HEAD + 4, CHUNK + 4  # padded row strides (floats)
+    vec, st, mat = CHUNK * ld, HEAD * ld, CHUNK * ldm
+    fwd = 4 * (12 * vec + st + 5 * mat + 5 * HEAD + 2 * CHUNK)
+    bwd = 4 * (20 * vec + 4 * st + 9 * mat + 6 * HEAD + 3 * CHUNK)
+    for name, n in (("forward", fwd), ("backward", bwd)):
+        if n > SMEM_LIMIT:
+            raise ValueError(f"wkv7_fused: the {name} takes {n} bytes of shared memory, "
+                             f"the card gives {SMEM_LIMIT}")
+    return {"chunk": CHUNK, "n_chunks": -(-T // CHUNK), "grid": B * H, "threads": 256,
+            "fwd_smem_bytes": fwd, "bwd_smem_bytes": bwd}
 
 
 def _saved_states(B: int, T: int, H: int, like: torch.Tensor):
@@ -187,50 +212,48 @@ def _fused_fwd(r, w_raw, k_raw, v, a, prm, state, resets, ln_eps, save: bool):
     _check("wkv7_fused", dict(r=r, w_raw=w_raw, k_raw=k_raw, v=v, a=a), state, resets,
            dict(zip(("k_k", "k_a", "r_k", "ln_w", "ln_b"), prm)))
     B, T, H, N = r.shape
+    plan = fused_plan(B, T, H)
     y = torch.empty_like(v)
     s_out = torch.empty(B, H, N, N, dtype=torch.float32, device=r.device)
-    if save:
-        anchors, sa = _saved_states(B, T, H, r)
-        xhat = torch.empty_like(sa)
-        stats = torch.empty(B, H, T, 4, dtype=torch.float32, device=r.device)
-    else:
-        anchors = sa = xhat = stats = None
+    anchors = (torch.empty(B, H, plan["n_chunks"], N, N, dtype=torch.float32, device=r.device)
+               if save else None)
     _launch("wkv7_fused_fwd", r, _DTYPES[r.dtype], B, T, H, float(ln_eps),
-            *map(_ptr, (r, w_raw, k_raw, v, a, *prm, state, resets, y, s_out,
-                        anchors, sa, xhat, stats)))
-    return y, s_out, (anchors, sa, xhat, stats)
+            *map(_ptr, (r, w_raw, k_raw, v, a, *prm, state, resets, y, s_out, anchors)))
+    return y, s_out, anchors
 
 
 class WKV7Fused(torch.autograd.Function):
-    """``wkv7_fused`` on CUDA tensors: the fused forward kernel (saving
-    what the backward needs when a gradient is needed) and the fused
-    backward kernel; the per-head gradients are summed over the batch
-    here."""
+    """``wkv7_fused`` on CUDA tensors: the fused forward kernel (saving the
+    chunk-entry states when a gradient is needed) and the fused backward
+    kernel, which recomputes each chunk from them; the per-head gradients
+    are summed over the batch here."""
 
     @staticmethod
     def forward(ctx, r, w_raw, k_raw, v, a, k_k, k_a, r_k, ln_w, ln_b, state, resets,
                 ln_eps):
         prm = (k_k, k_a, r_k, ln_w, ln_b)
         save = any(ctx.needs_input_grad[:11])
-        y, s_out, saved = _fused_fwd(r, w_raw, k_raw, v, a, prm, state, resets, ln_eps, save)
+        y, s_out, anchors = _fused_fwd(r, w_raw, k_raw, v, a, prm, state, resets, ln_eps,
+                                       save)
         if save:
-            ctx.save_for_backward(r, w_raw, k_raw, v, a, *prm, state, resets, *saved)
+            ctx.save_for_backward(r, w_raw, k_raw, v, a, *prm, state, resets, anchors)
+            ctx.ln_eps = ln_eps
         ctx.set_materialize_grads(False)
         return y, s_out
 
     @staticmethod
     def backward(ctx, dy, dsfin):
         (r, w_raw, k_raw, v, a, k_k, k_a, r_k, ln_w, ln_b, state, resets,
-         anchors, sa, xhat, stats) = ctx.saved_tensors
+         anchors) = ctx.saved_tensors
         B, T, H, N = r.shape
         dy = torch.zeros_like(v) if dy is None else dy.to(v.dtype).contiguous()
         dsfin = None if dsfin is None else dsfin.float().contiguous()
         grads = [torch.empty_like(x) for x in (r, w_raw, k_raw, v, a)]
         dparams = torch.empty(5, B, H, N, dtype=torch.float32, device=r.device)
         ds0 = torch.empty_like(state) if ctx.needs_input_grad[10] else None
-        _launch("wkv7_fused_bwd", r, _DTYPES[r.dtype], B, T, H,
+        _launch("wkv7_fused_bwd", r, _DTYPES[r.dtype], B, T, H, float(ctx.ln_eps),
                 *map(_ptr, (r, w_raw, k_raw, v, a, k_k, k_a, r_k, ln_w, state, resets,
-                            anchors, sa, xhat, stats, dy, dsfin, *grads, dparams, ds0)))
+                            anchors, dy, dsfin, *grads, dparams, ds0)))
         dprm = dparams.sum(1)  # (5, H, N): the per-(b, h) rows summed over the batch
         return (*grads, *dprm.unbind(0), ds0, None, None)
 

@@ -167,3 +167,65 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
     assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
     grads = torch.autograd.grad(y.float().sum() + s.sum(), wt)
     assert all(g.dtype == torch.bfloat16 for g in grads)
+
+
+def test_wkv7_grads_match_jax_scan_at_the_fastest_decay():
+    """Every w_raw at -0.5, the fastest decay the model's clamp allows (the
+    worst case for the CUDA backward's stepping back): wkv7 on the CPU
+    (autograd through wkv7_scan) vs jax.grad through JAX wkv7_scan, f32,
+    state and resets, every output and gradient within 1e-4."""
+    ins, state, resets, dy, ds = _wkv_inputs(6)
+    ins[1] = np.full_like(ins[1], -0.5)
+    y_t, s_t, g_t = _torch_grads(wkv7_cuda.wkv7, ins, state, resets, dy, ds)
+    y_j, s_j, g_j = _jax_grads(jwkv7.wkv7_scan, ins, state, resets, dy, ds)
+    assert _rel(y_t, y_j) <= 1e-4 and _rel(s_t, s_j) <= 1e-4
+    assert len(g_t) == len(g_j) == 7
+    for name, a, b in zip(["r", "w_raw", "k", "v", "z", "b", "state"], g_t, g_j):
+        assert _rel(a, b) <= 1e-4, name
+
+
+def test_fused_grads_match_jax_composed_at_the_fastest_decay():
+    """wkv7_fused_plain at w_raw = -0.5 everywhere vs jax.grad of the
+    composed band: f32, state and resets, within 1e-4."""
+    ins, state, resets, dy, ds = _fused_inputs(7)
+    ins[1] = np.full_like(ins[1], -0.5)
+    y_t, s_t, g_t = _torch_grads(_fused_plain, ins, state, resets, dy, ds)
+    y_j, s_j, g_j = _jax_grads(_jax_composed, ins, state, resets, dy, ds)
+    assert _rel(y_t, y_j) <= 1e-4 and _rel(s_t, s_j) <= 1e-4
+    names = "r w_raw k_raw v a k_k k_a r_k ln_w ln_b state".split()
+    assert len(g_t) == len(g_j) == 11
+    for name, a, b in zip(names, g_t, g_j):
+        assert _rel(a, b) <= 1e-4, name
+
+
+def _chunk_header_constants():
+    """The integer constants of csrc/wkv7_chunk.cuh, evaluated in order."""
+    import re
+    from pathlib import Path
+
+    src = (Path(wkv7_cuda.__file__).resolve().parents[1] / "csrc" / "wkv7_chunk.cuh").read_text()
+    env = {"N": 64}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", src):
+        env[name] = eval(expr.replace("wkv7::CHUNK", str(wkv7_cuda.CHUNK)), {}, dict(env))
+    return env
+
+
+@pytest.mark.parametrize("T", [1, 200, 2048])
+def test_fused_plan_fits_the_card(T):
+    """The fused kernels' launch arithmetic at the training shape's B and H:
+    one CTA of 256 threads a (b, h), ceil(T / 16) chunks, shared memory
+    within the card's 227 KB a CTA and equal to what the kernel source's
+    constants give."""
+    plan = wkv7_cuda.fused_plan(8, T, 16)
+    c = _chunk_header_constants()
+    assert plan["grid"] == 8 * 16 and plan["threads"] == c["NT"] == 256
+    assert plan["chunk"] == c["L"] == 16 and plan["n_chunks"] == -(-T // 16)
+    assert plan["fwd_smem_bytes"] == 4 * c["FWD_FLOATS"]
+    assert plan["bwd_smem_bytes"] == 4 * c["BWD_FLOATS"]
+    assert max(plan["fwd_smem_bytes"], plan["bwd_smem_bytes"]) <= 232448
+
+
+@pytest.mark.parametrize("B,T,H", [(8, 0, 16), (0, 200, 16), (8, 200, 0), (2**16, 1, 2**16)])
+def test_fused_plan_refuses_what_the_kernels_cannot_take(B, T, H):
+    with pytest.raises(ValueError):
+        wkv7_cuda.fused_plan(B, T, H)
