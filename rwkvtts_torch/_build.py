@@ -116,13 +116,13 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P,      # r, w_raw, k, v, z, b
         _P, _P,                      # s0, resets
         _P, _P,                      # y, s_out
-        _P, _P,                      # anchors, sa (training; null for the primal)
+        _P,                          # anchors (training; null for the primal)
         _P,                          # stream
     ],
     "wkv7_bwd": [
         _I, _I, _I, _I,              # dtype, B, T, H
         _P, _P, _P, _P, _P, _P,      # r, w_raw, k, v, z, b
-        _P, _P, _P, _P,              # s0, resets, anchors, sa
+        _P, _P, _P,                  # s0, resets, anchors
         _P, _P,                      # dy, dsfin
         _P, _P, _P, _P, _P, _P,      # dr, dw_raw, dk, dv, dz, db
         _P,                          # ds0
@@ -177,6 +177,8 @@ _SIGNATURES = {
         _P,                          # smalls
         _P, _P, _P,                  # att_x, ffn_x, wkv (updated in place)
         _P,                          # workspace
+        ctypes.POINTER(_I),          # K pieces of the 4 int8 products (launch plan)
+        _I,                          # programmatic dependent launch (1) or not (0)
         ctypes.POINTER(_I),          # launch counts by kernel (3 ints, increased)
         _P,                          # stream
     ],
@@ -192,12 +194,17 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
-    for name in ("decode_b64_workspace_bytes", "decode_b1_workspace_bytes"):
-        getattr(lib, name).argtypes = [ctypes.c_int]
-        getattr(lib, name).restype = ctypes.c_size_t
+    lib.decode_b64_workspace_bytes.argtypes = [ctypes.c_int]
+    lib.decode_b64_workspace_bytes.restype = ctypes.c_size_t
+    lib.decode_b1_workspace_bytes.argtypes = [ctypes.c_int]
+    lib.decode_b1_workspace_bytes.restype = ctypes.c_size_t
+    lib.decode_b1_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.decode_b1_smem_bytes.restype = ctypes.c_int
     for name in ("decode_b64_gemm_smem_bytes", "wkv7_fused_smem_bytes"):
         getattr(lib, name).argtypes = [ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_int
+    lib.wkv7_bwd_smem_bytes.argtypes = [ctypes.c_int]
+    lib.wkv7_bwd_smem_bytes.restype = ctypes.c_int
     return lib
 
 

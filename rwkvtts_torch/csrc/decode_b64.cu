@@ -68,13 +68,7 @@
 // written before it, and each kernel lets the next one launch
 // (griddepcontrol.launch_dependents) once its dependent reads are done, so
 // the next kernel's weight stream overlaps this one's tail.
-#include <cuda.h>  // CUtensorMap; the driver's encoder is looked up at run time
-
-#include <atomic>
-#include <mutex>
-#include <vector>
-
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -95,17 +89,6 @@ enum { LG_V = 0, LG_W = 1, LG_A = 2, LG_G = 3 };
 enum { K_LN = 0, K_GEMM = 1, K_GLUE = 2 };
 // the five products of a layer, as indices of decode_b64_step's pieces
 enum { P_RKV_LI = 0, P_LO = 1, P_OUT = 2, P_FK = 3, P_FV = 4 };
-
-// Programmatic dependent launch: wait for the previous kernel of the
-// stream to complete (its writes visible), and let the next one launch.
-// What an earlier kernel of the chain writes is read with ld.global.cg (L2,
-// not this SM's L1, which may hold a line as an earlier kernel saw it), and
-// never through a `const __restrict__` pointer, which lets the compiler use
-// the non-coherent path.
-__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
-__device__ __forceinline__ void pdl_trigger() {
-    asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
-}
 
 // ---------------------------------------------------------------------------
 // LayerNorm over rows
@@ -224,59 +207,6 @@ __device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
     return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-                 : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-                 "r"(bytes)
-                 : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-// wait until the phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-    asm volatile(
-        "{\n"
-        ".reg .pred done;\n"
-        "WAIT:\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-        "@!done bra WAIT;\n"
-        "}\n" ::"r"(smem_u32(bar)),
-        "r"(parity)
-        : "memory");
-}
-// the box at coordinates (c0, c1, c2) of a TMA map into this CTA's shared
-// memory; completes its bytes on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
-                                         int c2, uint64_t* bar) {
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-        "[%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_u32(dst)),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
-        : "memory");
-}
-__device__ __forceinline__ void cluster_sync() {
-    asm volatile("barrier.cluster.arrive.release.aligned;\n"
-                 "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-// 16 bytes at the same shared offset in the cluster's CTA `rank`. Not
-// volatile: the partial tiles stay fixed between the two cluster barriers
-// (which are), so the compiler may issue these loads together.
-__device__ __forceinline__ float4 ld_cluster_f4(const void* local, int rank) {
-    uint32_t remote;
-    asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(smem_u32(local)), "r"(rank));
-    float4 v;
-    asm("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
-        : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(remote));
-    return v;
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
@@ -692,106 +622,6 @@ size_t carve(void* base, int C, Workspace* ws) {
 // Launches
 // ---------------------------------------------------------------------------
 
-// every kernel of the chain goes out with programmatic stream
-// serialization (unless pdl is false, which a profile of each kernel's own
-// device time asks for); a product whose K is split runs its pieces as a
-// cluster
-template <typename... Params, typename... Args>
-cudaError_t launch(void (*kernel)(Params...), int grid, int block, int smem, int cluster,
-                   bool pdl, cudaStream_t stream, Args... args) {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(grid);
-    cfg.blockDim = dim3(block);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[2];
-    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[0].val.programmaticStreamSerializationAllowed = 1;
-    attr[1].id = cudaLaunchAttributeClusterDimension;
-    attr[1].val.clusterDim.x = cluster;
-    attr[1].val.clusterDim.y = 1;
-    attr[1].val.clusterDim.z = 1;
-    cfg.attrs = pdl ? attr : attr + 1;
-    cfg.numAttrs = (pdl ? 1 : 0) + (cluster > 1 ? 1 : 0);
-    return cudaLaunchKernelEx(&cfg, kernel, args...);
-}
-
-// The largest dynamic shared memory of gemm_i8_kernel is allowed once per
-// device and process, not before every launch.
-template <int PROD>
-cudaError_t allow_gemm_smem() {
-    constexpr int MAX_DEVICES = 64;
-    static std::atomic<bool> done[MAX_DEVICES];
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return e;
-    if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-    if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-    e = cudaFuncSetAttribute(gemm_i8_kernel<PROD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             gemm_smem_bytes(KP_MAX));
-    if (e == cudaSuccess) done[dev].store(true, std::memory_order_release);
-    return e;
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-    static const EncodeTiled fn = [] {
-        void* f = nullptr;
-        cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-        if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                             cudaEnableDefault, &q) != cudaSuccess)
-            f = nullptr;
-#else
-        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) !=
-            cudaSuccess)
-            f = nullptr;
-#endif
-        return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f) : nullptr;
-    }();
-    return fn;
-}
-
-// A TMA map over a row-major (d2, d1, d0) array of 1-byte (int8) or 2-byte
-// (bf16) elements whose box is 64 rows of 128 bytes, swizzled. Maps are
-// kept by (address, shape), so each is encoded once per weight pack and
-// workspace; a map holds only the address and shape, so one found there is
-// right for whatever array now lies at that address with that shape.
-int tensor_map(CUtensorMap* out, const void* base, int esize, uint64_t d0, uint64_t d1,
-               uint64_t d2) {
-    struct Entry { const void* base; int esize; uint64_t d0, d1, d2; CUtensorMap map; };
-    static std::mutex mu;
-    static std::vector<Entry> cache;
-    std::lock_guard<std::mutex> lock(mu);
-    for (const Entry& e : cache)
-        if (e.base == base && e.esize == esize && e.d0 == d0 && e.d1 == d1 && e.d2 == d2) {
-            *out = e.map;
-            return 0;
-        }
-    const EncodeTiled encode = encoder();
-    if (!encode) return (int)cudaErrorNotSupported;
-    const cuuint64_t dims[3] = {d0, d1, d2};
-    const cuuint64_t strides[2] = {d0 * esize, d0 * d1 * esize};
-    const cuuint32_t box[3] = {(cuuint32_t)(128 / esize), (cuuint32_t)GK, 1};
-    const cuuint32_t unit[3] = {1, 1, 1};
-    Entry e = {base, esize, d0, d1, d2, {}};
-    if (encode(&e.map, esize == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-               3, const_cast<void*>(base), dims, strides, box, unit,
-               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-        return (int)cudaErrorInvalidValue;
-    if (cache.size() >= 256) cache.clear();
-    cache.push_back(e);
-    *out = e.map;
-    return 0;
-}
-
 // A product of the table: K is cut into `pieces` of K / pieces rows.
 Prob prob(int K, int N, int nz, int epi, int pieces, const CUtensorMap& amap, int a_plane,
           int a_group, int a_zk, const CUtensorMap& wmap, int w_layer, int w_zk,
@@ -824,7 +654,8 @@ int gemm(const Prob& p0, const Prob* p1, int pieces, bool pdl, cudaStream_t stre
             return (int)cudaErrorInvalidValue;
         ctas += p.ctas;
     }
-    cudaError_t e = allow_gemm_smem<PROD>();
+    // the largest piece's dynamic shared memory, allowed once per device
+    cudaError_t e = allow_smem<gemm_i8_kernel<PROD>>(gemm_smem_bytes(KP_MAX));
     if (e != cudaSuccess) return (int)e;
     return (int)launch(gemm_i8_kernel<PROD>, ctas, G_THREADS, gemm_smem_bytes(g.kp), pieces, pdl,
                        stream, g);
@@ -874,16 +705,16 @@ extern "C" int decode_b64_step(
     // TMA maps: each weight array over (L, K, N), the lhs buffers over
     // (planes, 64, columns)
     CUtensorMap m_rkv, m_li, m_lo, m_out, m_fk, m_fv, m_xmix, m_lora, m_yg, m_ffn;
-    if ((err = tensor_map(&m_rkv, rkv_q, 1, 3 * C, C, L)) ||
-        (err = tensor_map(&m_li, li_q, 1, LI, C, L)) ||
-        (err = tensor_map(&m_lo, lo_q, 1, C, LI, L)) ||
-        (err = tensor_map(&m_out, out_q, 1, C, C, L)) ||
-        (err = tensor_map(&m_fk, fk_q, 1, 4 * C, C, L)) ||
-        (err = tensor_map(&m_fv, fv_q, 1, C, 4 * C, L)) ||
-        (err = tensor_map(&m_xmix, ws.xmix, 2, C, GM, 6)) ||
-        (err = tensor_map(&m_lora, ws.lora_act, 2, LI, GM, 1)) ||
-        (err = tensor_map(&m_yg, ws.y_g, 2, C, GM, 1)) ||
-        (err = tensor_map(&m_ffn, ws.acc_ffn, 2, 4 * C, GM, 1)))
+    if ((err = tensor_map(&m_rkv, rkv_q, 1, 3 * C, C, L, 128, GK, true)) ||
+        (err = tensor_map(&m_li, li_q, 1, LI, C, L, 128, GK, true)) ||
+        (err = tensor_map(&m_lo, lo_q, 1, C, LI, L, 128, GK, true)) ||
+        (err = tensor_map(&m_out, out_q, 1, C, C, L, 128, GK, true)) ||
+        (err = tensor_map(&m_fk, fk_q, 1, 4 * C, C, L, 128, GK, true)) ||
+        (err = tensor_map(&m_fv, fv_q, 1, C, 4 * C, L, 128, GK, true)) ||
+        (err = tensor_map(&m_xmix, ws.xmix, 2, C, GM, 6, 128, GK, true)) ||
+        (err = tensor_map(&m_lora, ws.lora_act, 2, LI, GM, 1, 128, GK, true)) ||
+        (err = tensor_map(&m_yg, ws.y_g, 2, C, GM, 1, 128, GK, true)) ||
+        (err = tensor_map(&m_ffn, ws.acc_ffn, 2, 4 * C, GM, 1, 128, GK, true)))
         return err;
 
     LAUNCH(K_LN, launch(ln_rows_kernel<0>, GM, LN_THREADS, 0, 1, pdl, st, C, norm_eps, x, ln0_s,

@@ -1,5 +1,5 @@
-// The chunked form of the WKV7 recurrence, for the fused training kernels
-// (wkv7_fused.cu). It follows ops/wkv7.py::_chunk_body (the port of
+// The chunked form of the WKV7 recurrence, for the training backward
+// (wkv7_bwd.cu) and the fused training pair (wkv7_fused.cu). It follows ops/wkv7.py::_chunk_body (the port of
 // rwkvtts_tpu/ops/wkv7.py::_chunk_body and of wkv7_pallas.py::_pair_chunk):
 // per (b, h) and chunk of L = 16 steps, with c_t the count of resets up to
 // t, logw_t = -exp(w_raw_t) (0 at a reset) and g its inclusive cumsum,
@@ -37,9 +37,18 @@ constexpr int LDM = L + 4;      // row stride of the L x L matrices
 constexpr int MAT = L * LDM;
 static_assert(L == 16 && N == 64 && NW == 8, "the tiling assumes L = 16, N = 64, 8 warps");
 
-// shared floats of each kernel (ops/wkv7_cuda.py::fused_plan mirrors these)
+// shared floats of each kernel: the fused forward and backward
+// (ops/wkv7_cuda.py::fused_plan mirrors these) and wkv7_bwd.cu's backward
+// (ops/wkv7_cuda.py::bwd_plan), which also stages its 7 step inputs (r,
+// w_raw, k, v, z, b, dy) of two chunks in their own dtype
 constexpr int FWD_FLOATS = 12 * VEC + ST + 5 * MAT + (N + 4 * N + 2 * L);
 constexpr int BWD_FLOATS = 20 * VEC + 4 * ST + 9 * MAT + (2 * N + 4 * N + 3 * L);
+constexpr int UNFUSED_BWD_FLOATS = 19 * VEC + 4 * ST + 9 * MAT + (2 * N + 4 * N + 2 * L);
+constexpr int UNFUSED_BWD_INPUTS = 7;
+
+// passes of each product: 1x TF32 for bf16 inputs, 3xTF32 for f32
+template <typename T> struct Passes { static constexpr int value = 3; };
+template <> struct Passes<bf16> { static constexpr int value = 1; };
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
     uint32_t r;
@@ -84,7 +93,10 @@ template <int P, int K, int NA>
 __device__ __forceinline__ void tiles(float (&c)[NA][4], const float* const (&A)[NA], int am,
                                       int ak, const float* B, int bk, int bn) {
     const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-#pragma unroll
+    // 3xTF32 (P = 3) triples the live fragments of an unrolled step, so its
+    // K loop is unrolled by 2 only: fully unrolled, the f32 backward
+    // (wkv7_bwd.cu) ran out of registers and spilled
+#pragma unroll (P == 3 ? 2 : 8)
     for (int k0 = 0; k0 < K; k0 += 8) {
         const float b[2] = {B[(k0 + q) * bk + g * bn], B[(k0 + q + 4) * bk + g * bn]};
 #pragma unroll
@@ -310,14 +322,18 @@ __device__ __forceinline__ void invert(const float* A, float* X) {
     float x[L];
 #pragma unroll
     for (int t = 0; t < L; ++t) {
-        float a0 = t == col ? 1.f : 0.f, a1 = 0.f;
+        float a0 = 0.f, a1 = 0.f;
 #pragma unroll
         for (int u = 0; u + 1 < t; u += 2) {
             a0 = fmaf(A[t * LDM + u], x[u], a0);
             a1 = fmaf(A[t * LDM + u + 1], x[u + 1], a1);
         }
         if (t & 1) a0 = fmaf(A[t * LDM + t - 1], x[t - 1], a0);
-        x[t] = a0 + a1;
+        // the identity's 1 at t == col (where the sum is 0: x[u] = 0 for
+        // u < col) as a select, not an initial value: 16 per-lane
+        // constants that a compiler hoists out of the chunk loop and
+        // keeps in registers
+        x[t] = t == col ? 1.f : a0 + a1;
     }
 #pragma unroll
     for (int t = 0; t < L; ++t) X[t * LDM + col] = x[t];

@@ -49,9 +49,6 @@ namespace {
 
 using namespace wkv7c;
 
-template <typename T> struct Passes { static constexpr int value = 3; };
-template <> struct Passes<bf16> { static constexpr int value = 1; };
-
 // the prologue's raw inputs of one step, 4 lanes
 struct Raw {
     float r[4], w[4], k[4], v[4], a[4];

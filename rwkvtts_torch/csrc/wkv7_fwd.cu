@@ -4,10 +4,10 @@
 // Replaces: rwkvtts_tpu/ops/wkv7_pallas.py::_fwd_kernel (reached through
 // _fwd_call / wkv7_pallas). It writes y and the final state; for training
 // it also writes what the backward (wkv7_bwd.cu) needs: the state at every
-// chunk boundary (the TPU kernel's chunk-entry states, one chunk later) and
-// sa = S z at every step. The TPU kernel's saved inverse has no
-// counterpart: the recurrence here is the per-step one. The recurrence and
-// its layout are in wkv7_core.cuh.
+// chunk boundary (the TPU kernel's chunk-entry states, one chunk later),
+// from which the backward recomputes each chunk. The TPU kernel's saved
+// inverse has no counterpart: the recurrence here is the per-step one. The
+// recurrence and its layout are in wkv7_core.cuh.
 //
 // What bounds it on this card, reckoned from the prefill shape (B=64,
 // T=128, H=16, bf16): the six inputs and y are 7 x 16.8 MB and the f32
@@ -38,8 +38,7 @@ __global__ void __launch_bounds__(N) wkv7_fwd_kernel(
     const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ z, const T* __restrict__ b,
     const float* __restrict__ s0, const uint8_t* __restrict__ resets,
-    T* __restrict__ y, float* __restrict__ s_out,
-    float* __restrict__ anchors, float* __restrict__ sa_out) {
+    T* __restrict__ y, float* __restrict__ s_out, float* __restrict__ anchors) {
     const int bh = blockIdx.x;  // b * H + h
     const int bi = bh / H;
     const int h = bh - bi * H;
@@ -78,17 +77,14 @@ __global__ void __launch_bounds__(N) wkv7_fwd_kernel(
 #pragma unroll
             for (int j = 0; j < N; ++j) S[j] = 0.f;
         }
-        float sa, yi;
-        wkv7::fwd_row_step(S, cur[3][i], cur[0], cur[1], cur[2], cur[4], cur[5], sa, yi);
+        const float yi =
+            wkv7::fwd_row_step(S, cur[3][i], cur[0], cur[1], cur[2], cur[4], cur[5]);
         y[base + t * step] = from_f32<T>(yi);
-        if constexpr (SAVE) {
-            sa_out[base + t * step] = sa;
-            if ((t + 1) % wkv7::CHUNK == 0 || t + 1 == T_len) {
-                float* a = anchors + (((int64_t)bh * wkv7::n_chunks(T_len) + t / wkv7::CHUNK) * N + i) * N;
+        if (SAVE && ((t + 1) % wkv7::CHUNK == 0 || t + 1 == T_len)) {
+            float* a = anchors + (((int64_t)bh * wkv7::n_chunks(T_len) + t / wkv7::CHUNK) * N + i) * N;
 #pragma unroll
-                for (int j = 0; j < N; j += 4)
-                    *reinterpret_cast<float4*>(a + j) = make_float4(S[j], S[j + 1], S[j + 2], S[j + 3]);
-            }
+            for (int j = 0; j < N; j += 4)
+                *reinterpret_cast<float4*>(a + j) = make_float4(S[j], S[j + 1], S[j + 2], S[j + 3]);
         }
         if (t + 1 < T_len) {
 #pragma unroll
@@ -102,17 +98,17 @@ __global__ void __launch_bounds__(N) wkv7_fwd_kernel(
 template <typename T>
 int launch(int B, int T_len, int H, void* r, void* w, void* k, void* v, void* z,
            void* b, void* s0, void* resets, void* y, void* s_out, void* anchors,
-           void* sa, cudaStream_t stream) {
+           cudaStream_t stream) {
     if (anchors)
         RWKV_TRY(wkv7_fwd_kernel<T, true><<<B * H, N, 0, stream>>>(
             T_len, H, (const T*)r, (const T*)w, (const T*)k, (const T*)v,
             (const T*)z, (const T*)b, (const float*)s0, (const uint8_t*)resets,
-            (T*)y, (float*)s_out, (float*)anchors, (float*)sa));
+            (T*)y, (float*)s_out, (float*)anchors));
     else
         RWKV_TRY(wkv7_fwd_kernel<T, false><<<B * H, N, 0, stream>>>(
             T_len, H, (const T*)r, (const T*)w, (const T*)k, (const T*)v,
             (const T*)z, (const T*)b, (const float*)s0, (const uint8_t*)resets,
-            (T*)y, (float*)s_out, nullptr, nullptr));
+            (T*)y, (float*)s_out, nullptr));
     return 0;
 }
 
@@ -121,20 +117,19 @@ int launch(int B, int T_len, int H, void* r, void* w, void* k, void* v, void* z,
 // r..b: (B, T, H, 64) of `dtype`; s0: (B, H, 64, 64) f32 or null; resets:
 // (B, T) bool or null; y: (B, T, H, 64) of `dtype`; s_out: (B, H, 64, 64)
 // f32. For training, anchors: (B, H, ceil(T / 16), 64, 64) f32, the state
-// after steps 15, 31, ... and T - 1; sa: (B, T, H, 64) f32. Both null for
-// the primal alone. Returns the CUDA error of the launch (0 on success).
+// after steps 15, 31, ... and T - 1; null for the primal alone. Returns the
+// CUDA error of the launch (0 on success).
 extern "C" int wkv7_fwd(int dtype, int B, int T_len, int H, void* r, void* w,
                         void* k, void* v, void* z, void* b, void* s0,
                         void* resets, void* y, void* s_out, void* anchors,
-                        void* sa, void* stream) {
+                        void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    if ((anchors == nullptr) != (sa == nullptr)) return (int)cudaErrorInvalidValue;
     if (dtype == DT_F32)
         return launch<float>(B, T_len, H, r, w, k, v, z, b, s0, resets, y, s_out,
-                             anchors, sa, st);
+                             anchors, st);
     if (dtype == DT_BF16)
         return launch<bf16>(B, T_len, H, r, w, k, v, z, b, s0, resets, y, s_out,
-                            anchors, sa, st);
+                            anchors, st);
     return (int)cudaErrorInvalidValue;
 }
 

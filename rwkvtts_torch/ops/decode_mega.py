@@ -2,9 +2,13 @@
 (counterpart of rwkvtts_tpu/ops/decode_mega.py, the Cosy streaming step).
 
 ``decode_step_mega`` is the wrapper: tensors on a CUDA device launch the
-hand-written kernels of ``csrc/decode_b1.cu`` (which replace the TPU kernel
-``_mega_kernel``); tensors on the CPU take ``decode_step_plain``, which
-keeps every rounding point of the TPU kernel (decode_mega.py:363-605):
+hand-written kernels of ``csrc/decode_b1.cu``, which replace the TPU kernel
+``_mega_kernel`` (``launch_plan`` says how each product is cut,
+``launches_per_step`` what a step launches: 5 L + 1); the pack is checked
+on its first step and the workspace kept per device and width, so a step
+does no check of its weights and no allocation but its result. Tensors on
+the CPU take ``decode_step_plain``, which keeps every rounding point of the
+TPU kernel (decode_mega.py:363-605):
 the token-shift states, the residual, the r/k/v rows and the lora hiddens
 stay f32; each product's lhs is cast to the matmul dtype (bf16, or f32
 for an f32 config); the lora-out products take bf16 weights and a
@@ -35,14 +39,16 @@ from typing import Dict, Tuple
 import torch
 
 from rwkvtts_torch import _build
-from rwkvtts_torch.ops.decode_mega_b64 import _LG, _SM, LORA_PAD, NS, _softplus, pack_common
+from rwkvtts_torch.ops.decode_mega_b64 import (
+    _LG, _SM, LORA_PAD, NS, SMEM_LIMIT, MegaPack, _softplus, pack_common)
 from rwkvtts_torch.ops.norm import layer_norm
 
 Params = Dict[str, torch.Tensor]
 
 # CUDA kernel launches made by decode_step_mega: in all, and by kernel (the
-# order of decode_b1_step's counts). reset_launches() zeroes both.
-KERNELS = ("ln_mix", "gemv", "glue")
+# order of decode_b1_step's counts; launches_per_step gives a step's).
+# reset_launches() zeroes both.
+KERNELS = ("ln_out", "gemv", "glue")
 launches = 0
 kernel_launches = dict.fromkeys(KERNELS, 0)
 
@@ -53,8 +59,10 @@ def reset_launches() -> None:
     kernel_launches.update(dict.fromkeys(KERNELS, 0))
 
 
-def pack_mega(params: Params, cfg) -> Params:
-    """Quantize and pack the backbone parameters (on their device)."""
+def pack_mega(params: Params, cfg) -> MegaPack:
+    """Quantize and pack the backbone parameters (on their device). The
+    CUDA route takes only what this returns (a MegaPack, checked on its
+    first step; replacing an entry has it checked again)."""
     C, L = cfg.hidden_size, cfg.num_layers
     att = params["blocks"]["att"]
     mega = pack_common(params, cfg)
@@ -62,7 +70,7 @@ def pack_mega(params: Params, cfg) -> Params:
     for gi, name in enumerate(_LG):
         w = att[f"{name}2"]
         lo[:, gi * LORA_PAD:gi * LORA_PAD + w.shape[-2]] = w.to(torch.bfloat16)
-    return {**mega, "lo": lo}
+    return MegaPack(mega, lo=lo)
 
 
 def pack_state(state: Params, wkv_dtype: torch.dtype) -> Params:
@@ -167,22 +175,145 @@ _MEGA_KEYS = ("rkv_q", "rkv_s", "li_q", "li_s", "lo", "out_q", "out_s",
               "fk_q", "fk_s", "fv_q", "fv_s", "smalls")
 _STATE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's DT_F32 / DT_BF16
 
+# the product kernel's tiling (csrc/decode_b1.cu): a tile is TB bytes (int8
+# columns) of every weight row, 128 for r/k/v with lora-in and the FFN key,
+# 64 for the C-wide output and FFN value; weights come in 8 KB TMA boxes; a
+# CTA's piece of K is at most 64 KB of weights; the pieces of a tile run as
+# one cluster, at most 8; the pieces are doubled while a product has fewer
+# than 256 CTAs (about two an SM of the H100's 132)
+BOX, PIECE_BYTES, MAX_PIECES, TARGET_CTAS, THREADS = 8192, 65536, 8, 256, 256
+WARPS = THREADS // 32  # compute warps of every kernel (a product CTA adds a producer warp)
+# the int8 products of a layer in the order of decode_b1_step's pieces (the
+# lora-out runs inside the glue) and their tile bytes
+PRODUCTS = ("rkv_li", "out", "fk", "fv")
+_TILE = {"rkv_li": 128, "out": 64, "fk": 128, "fv": 64}
 
-def decode_step_mega(mega: Params, cfg, x: torch.Tensor, state: Params
+
+def gemv_smem_bytes(tb: int, k_piece: int) -> int:
+    """Dynamic shared memory of a product CTA (decode_b1.cu
+    gemv_smem_bytes): slack to align the boxes, the weight boxes, the lhs
+    slice (f32), the warps' column sums, the cluster's partial sums of the
+    CTA's columns, the mbarriers (the boxes', the partial sums')."""
+    return (128 + k_piece * tb + 4 * k_piece + WARPS * tb * 4 + tb * 4
+            + 8 * (PIECE_BYTES // BOX + 1))
+
+
+def glue_smem_bytes() -> int:
+    """Dynamic shared memory of a glue CTA (decode_b1.cu glue_smem_bytes):
+    slack to align, the four 16 KB lora-out weight boxes of a head, the
+    activated hiddens, the lora-out half sums, six per-channel vectors and
+    y, the reduction scratch, the mbarrier."""
+    return 128 + 4 * LORA_PAD * 128 + 4 * (4 * LORA_PAD + 8 * 64 + 7 * 64 + WARPS) + 8
+
+
+def _pieces(K: int, tiles: int, tb: int) -> int:
+    rows = BOX // tb  # a box's rows: pieces are whole boxes
+    p = 1
+    while K // p * tb > PIECE_BYTES and K % (2 * p * rows) == 0:
+        p *= 2
+    while tiles * p < TARGET_CTAS and 2 * p <= MAX_PIECES and K % (2 * p * rows) == 0:
+        p *= 2
+    if K % (p * rows) or K // p * tb > PIECE_BYTES or p > MAX_PIECES:
+        raise ValueError(f"decode step: K = {K} does not cut into at most {MAX_PIECES} pieces "
+                         f"of whole {rows}-row boxes, {PIECE_BYTES} bytes at most")
+    return p
+
+
+def _products(C: int) -> Dict[str, Tuple[int, int]]:
+    """(K, N) of each product at width C."""
+    return {"rkv_li": (C, 3 * C + 4 * LORA_PAD), "out": (C, C), "fk": (C, 4 * C),
+            "fv": (4 * C, C)}
+
+
+def workspace_bytes(C: int) -> int:
+    """Bytes of the step's workspace (decode_b1.cu carve): x_res, r/k/v, the
+    lora-in hiddens, relu(FFN key)^2, v_first, y_g, and the two normalised
+    rows that become the shift states."""
+    sizes = [4 * C, 4 * 3 * C, 4 * 4 * LORA_PAD, 2 * 4 * C, 4 * C, 2 * C, 4 * C, 4 * C]
+    return sum((n + 255) // 256 * 256 for n in sizes)
+
+
+def launch_plan(C: int) -> Dict:
+    """How the kernel cuts each product at width C: for each of PRODUCTS
+    its K, tile bytes, column tiles, K pieces (the cluster), rows a piece,
+    CTAs and shared bytes a CTA; the glue's shared bytes a CTA; and the
+    workspace bytes."""
+    if C % 128 or C > 4096:
+        raise ValueError(f"decode step: C = {C} must be a multiple of 128, at most 4096")
+    plan = {}
+    for name, (K, N) in _products(C).items():
+        tb = _TILE[name]
+        p = _pieces(K, N // tb, tb)
+        if C % p:
+            raise ValueError(f"decode step: C = {C} does not cut into the {p} pieces of {name}")
+        plan[name] = {"K": K, "tile_bytes": tb, "tiles": N // tb, "pieces": p,
+                      "k_piece": K // p, "ctas": N // tb * p,
+                      "smem_bytes": gemv_smem_bytes(tb, K // p)}
+    return {"products": plan, "glue_smem_bytes": glue_smem_bytes(),
+            "workspace_bytes": workspace_bytes(C)}
+
+
+def launches_per_step(L: int) -> Dict[str, int]:
+    """The kernel launches of one step at L layers, by kernel: per layer
+    r/k/v with lora-in (ln1 inside), the glue (lora-out inside), output,
+    FFN key (ln2 inside), FFN value; then ln_out."""
+    return {"ln_out": 1, "gemv": 4 * L, "glue": L}
+
+
+def decode_step_mega(mega: Params, cfg, x: torch.Tensor, state: Params, pdl: bool = True
                      ) -> Tuple[torch.Tensor, Params]:
     """One decode step. x (1, C) token embedding (pre-ln0); state
     {'att_x' (L,1,C) f32, 'wkv' (L,1,H,64,64) f32 or bf16, 'ffn_x'
     (L,1,C) f32}, updated in place. Returns (hidden (1, C) f32 after
-    ln_out, state)."""
+    ln_out, state). On the card `mega` must be a MegaPack (``pack_mega``);
+    pdl=False launches the chain without programmatic dependent launch, so
+    that a profile gives each kernel its own device time."""
     dev = x.device.type
     if dev == "cpu":
         return decode_step_plain(mega, cfg, x, state)
     if dev != "cuda":
         raise ValueError(f"decode_step_mega: no implementation for device {x.device}")
-    return _launch(mega, cfg, x, state)
+    return _launch(mega, cfg, x, state, pdl)
 
 
-def _launch(mega, cfg, x, state):
+def _check_tensors(mega: Params, L: int, C: int, device) -> None:
+    shapes = {
+        "rkv_q": (L, C, 3 * C), "rkv_s": (L, 3 * C),
+        "li_q": (L, C, 4 * LORA_PAD), "li_s": (L, 4 * LORA_PAD),
+        "lo": (L, 4 * LORA_PAD, C), "out_q": (L, C, C), "out_s": (L, C),
+        "fk_q": (L, C, 4 * C), "fk_s": (L, 4 * C), "fv_q": (L, 4 * C, C), "fv_s": (L, C),
+        "smalls": (L, NS, C),
+    }
+    for name, shape in shapes.items():
+        t = mega[name]
+        dtype = {"lo": torch.bfloat16}.get(name, torch.int8 if name.endswith("_q") else torch.float32)
+        if t.shape != shape or t.dtype != dtype or t.device != device or not t.is_contiguous():
+            raise ValueError(f"decode_step_mega: mega[{name!r}] must be contiguous "
+                             f"{shape} {dtype} on {device}")
+    for name in ("ln0_scale", "ln0_bias", "ln_out_scale", "ln_out_bias"):
+        t = mega[name]
+        if t.shape != (C,) or t.dtype != torch.float32 or t.device != device:
+            raise ValueError(f"decode_step_mega: mega[{name!r}] must be ({C},) f32")
+
+
+def _check_pack(mega: Params, L: int, C: int, device) -> None:
+    """Check a MegaPack's tensors on its first step at (L, C, device)."""
+    if not isinstance(mega, MegaPack):
+        raise ValueError("decode_step_mega: mega must be a MegaPack from pack_mega")
+    key = (L, C, str(device))
+    if mega.checked != key:
+        _check_tensors(mega, L, C, device)
+        mega.checked = key
+
+
+# the launch plan's pieces (a C array) by C, and a workspace per (device,
+# C): every launch is on the caller's stream, so one step at a time reuses
+# it
+_pieces_arrays: Dict[int, ctypes.Array] = {}
+_workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _launch(mega, cfg, x, state, pdl=True):
     global launches
     C, L, H = cfg.hidden_size, cfg.num_layers, cfg.num_heads
     if matmul_dtype(cfg) != torch.bfloat16:
@@ -196,31 +327,23 @@ def _launch(mega, cfg, x, state):
         raise ValueError(f"decode_step_mega: WKV state dtype {wkv_dt} (want f32 or bf16)")
     want = {"att_x": ((L, 1, C), torch.float32), "ffn_x": ((L, 1, C), torch.float32),
             "wkv": ((L, 1, H, 64, 64), wkv_dt)}
-    shapes = {
-        "rkv_q": (L, C, 3 * C), "rkv_s": (L, 3 * C),
-        "li_q": (L, C, 4 * LORA_PAD), "li_s": (L, 4 * LORA_PAD),
-        "lo": (L, 4 * LORA_PAD, C), "out_q": (L, C, C), "out_s": (L, C),
-        "fk_q": (L, C, 4 * C), "fk_s": (L, 4 * C), "fv_q": (L, 4 * C, C), "fv_s": (L, C),
-        "smalls": (L, NS, C),
-    }
     for name, (shape, dtype) in want.items():
         t = state[name]
         if t.shape != shape or t.dtype != dtype or t.device != x.device or not t.is_contiguous():
             raise ValueError(f"decode_step_mega: state[{name!r}] must be contiguous "
                              f"{shape} {dtype} on {x.device}")
-    for name, shape in shapes.items():
-        t = mega[name]
-        dtype = {"lo": torch.bfloat16}.get(name, torch.int8 if name.endswith("_q") else torch.float32)
-        if t.shape != shape or t.dtype != dtype or t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"decode_step_mega: mega[{name!r}] must be contiguous "
-                             f"{shape} {dtype} on {x.device}")
-    for name in ("ln0_scale", "ln0_bias", "ln_out_scale", "ln_out_bias"):
-        t = mega[name]
-        if t.shape != (C,) or t.dtype != torch.float32 or t.device != x.device:
-            raise ValueError(f"decode_step_mega: mega[{name!r}] must be ({C},) f32")
+    _check_pack(mega, L, C, x.device)
+    pieces = _pieces_arrays.get(C)
+    if pieces is None:
+        plan = launch_plan(C)["products"]
+        pieces = _pieces_arrays[C] = (ctypes.c_int * len(PRODUCTS))(
+            *(plan[n]["pieces"] for n in PRODUCTS))
 
     lib = _build.library()
-    ws = torch.empty(lib.decode_b1_workspace_bytes(C), dtype=torch.uint8, device=x.device)
+    ws = _workspaces.get((x.device.index, C))
+    if ws is None:
+        ws = _workspaces[(x.device.index, C)] = torch.empty(
+            lib.decode_b1_workspace_bytes(C), dtype=torch.uint8, device=x.device)
     h = torch.empty(1, C, dtype=torch.float32, device=x.device)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     counts = (ctypes.c_int * len(KERNELS))()
@@ -230,7 +353,7 @@ def _launch(mega, cfg, x, state):
         ptr(mega["ln_out_scale"]), ptr(mega["ln_out_bias"]),
         *(ptr(mega[k]) for k in _MEGA_KEYS),
         ptr(state["att_x"]), ptr(state["ffn_x"]), ptr(state["wkv"]), ptr(ws),
-        counts, ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+        pieces, int(pdl), counts, ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
     )
     for name, n in zip(KERNELS, counts):
         kernel_launches[name] += n

@@ -12,12 +12,10 @@ is (B, T) bool or None. Both return y in v's dtype and the final state in
 f32, and are differentiable: the input gradients come back in the input
 dtypes, the per-head ones as (H, 64) f32 and the state's in f32.
 
-``wkv7``'s backward kernel steps the state back through the decay (see
-csrc/wkv7_core.cuh), which is exact only while every w_raw <= -0.5, as
-the model's soft clamp keeps it (models/rwkv7.py): w_raw above that is
-outside the contract of that kernel. The fused pair works in chunks of 16
-steps (csrc/wkv7_chunk.cuh) and recomputes each chunk forward from its
-saved entry state; ``fused_plan`` is its launch arithmetic.
+Both backward kernels work in chunks of 16 steps (csrc/wkv7_chunk.cuh)
+and recompute each chunk forward from its saved entry state, so they are
+exact for any decay whose chunk sum stays in f32's range; ``bwd_plan``
+and ``fused_plan`` are their launch arithmetic.
 
 Tensors on the CPU take the plain versions under autograd
 (``ops/wkv7.py::wkv7_scan`` and ``wkv7_fused_plain``). Tensors on a CUDA
@@ -35,6 +33,7 @@ from rwkvtts_torch.ops.wkv7 import wkv7_fused_plain, wkv7_scan
 
 HEAD = 64
 CHUNK = 16  # steps between the states the training forward saves (csrc/wkv7_core.cuh)
+THREADS = 256  # threads a CTA of the chunked kernels (csrc/wkv7_chunk.cuh NT)
 SMEM_LIMIT = 232448  # shared memory bytes a CTA may take on the H100
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -101,34 +100,57 @@ def _device(what: str, t: torch.Tensor) -> str:
     return dev
 
 
+def _chunk_tiles():
+    """Floats of csrc/wkv7_chunk.cuh's tiles: a chunk's [16][64] vectors,
+    a [64][64] state and a 16 x 16 matrix, rows padded by 4."""
+    ld, ldm = HEAD + 4, CHUNK + 4
+    return CHUNK * ld, HEAD * ld, CHUNK * ldm
+
+
+def _plan(what: str, B: int, T: int, H: int, smem: dict) -> dict:
+    if T < 1 or B < 1 or H < 1:
+        raise ValueError(f"{what}: B={B}, T={T}, H={H}: every size must be >= 1")
+    if B * H > 2**31 - 1:
+        raise ValueError(f"{what}: B * H = {B * H} CTAs, more than a grid holds")
+    for name, n in smem.items():
+        if n > SMEM_LIMIT:
+            raise ValueError(f"{what}: the {name} takes {n} bytes of shared memory, "
+                             f"the card gives {SMEM_LIMIT}")
+    return {"chunk": CHUNK, "n_chunks": -(-T // CHUNK), "grid": B * H, "threads": THREADS}
+
+
 def fused_plan(B: int, T: int, H: int) -> dict:
     """The launch arithmetic of csrc/wkv7_fused.cu (its constants in
     csrc/wkv7_chunk.cuh): one CTA of 256 threads a (b, h) walking
     ceil(T / 16) chunks, and the shared memory bytes each kernel's CTA takes
     (the library's ``wkv7_fused_smem_bytes`` gives the same on the card).
     Raises ValueError for what the kernels cannot take."""
-    if T < 1 or B < 1 or H < 1:
-        raise ValueError(f"wkv7_fused: B={B}, T={T}, H={H}: every size must be >= 1")
-    if B * H > 2**31 - 1:
-        raise ValueError(f"wkv7_fused: B * H = {B * H} CTAs, more than a grid holds")
-    ld, ldm = HEAD + 4, CHUNK + 4  # padded row strides (floats)
-    vec, st, mat = CHUNK * ld, HEAD * ld, CHUNK * ldm
+    vec, st, mat = _chunk_tiles()
     fwd = 4 * (12 * vec + st + 5 * mat + 5 * HEAD + 2 * CHUNK)
     bwd = 4 * (20 * vec + 4 * st + 9 * mat + 6 * HEAD + 3 * CHUNK)
-    for name, n in (("forward", fwd), ("backward", bwd)):
-        if n > SMEM_LIMIT:
-            raise ValueError(f"wkv7_fused: the {name} takes {n} bytes of shared memory, "
-                             f"the card gives {SMEM_LIMIT}")
-    return {"chunk": CHUNK, "n_chunks": -(-T // CHUNK), "grid": B * H, "threads": 256,
-            "fwd_smem_bytes": fwd, "bwd_smem_bytes": bwd}
+    plan = _plan("wkv7_fused", B, T, H, {"forward": fwd, "backward": bwd})
+    return {**plan, "fwd_smem_bytes": fwd, "bwd_smem_bytes": bwd}
 
 
-def _saved_states(B: int, T: int, H: int, like: torch.Tensor):
-    """anchors (B, H, ceil(T/16), 64, 64) and sa (B, T, H, 64), f32."""
-    nc = -(-T // CHUNK)
-    f32 = dict(dtype=torch.float32, device=like.device)
-    return (torch.empty(B, H, nc, HEAD, HEAD, **f32),
-            torch.empty(B, T, H, HEAD, **f32))
+def bwd_plan(B: int, T: int, H: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The launch arithmetic of csrc/wkv7_bwd.cu (its constants in
+    csrc/wkv7_chunk.cuh, UNFUSED_BWD_*): one CTA of 256 threads a (b, h)
+    walking ceil(T / 16) chunks backward, and its shared memory bytes for
+    inputs of `dtype`: the f32 tiles and the 7 step inputs of two chunks
+    (the library's ``wkv7_bwd_smem_bytes`` gives the same on the card).
+    Raises ValueError for what the kernel cannot take."""
+    vec, st, mat = _chunk_tiles()
+    esize = torch.empty(0, dtype=dtype).element_size()
+    smem = 4 * (19 * vec + 4 * st + 9 * mat + 6 * HEAD + 2 * CHUNK) + 2 * 7 * CHUNK * HEAD * esize
+    return {**_plan("wkv7_bwd", B, T, H, {"backward": smem}), "smem_bytes": smem}
+
+
+def _saved_states(B: int, T: int, H: int, like: torch.Tensor) -> torch.Tensor:
+    """What the training forward saves for the backward: the anchors, the
+    state after every 16th step and after the last, (B, H, ceil(T/16), 64,
+    64) f32. Nothing is saved a step."""
+    return torch.empty(B, H, -(-T // CHUNK), HEAD, HEAD, dtype=torch.float32,
+                       device=like.device)
 
 
 # ---------------------------------------------------------------------------
@@ -154,35 +176,37 @@ def _fwd(r, w_raw, k, v, z, b, state, resets, save: bool):
     B, T, H, N = r.shape
     y = torch.empty_like(v)
     s_out = torch.empty(B, H, N, N, dtype=torch.float32, device=r.device)
-    anchors, sa = _saved_states(B, T, H, r) if save else (None, None)
+    anchors = _saved_states(B, T, H, r) if save else None
     _launch("wkv7_fwd", r, _DTYPES[r.dtype], B, T, H,
-            *map(_ptr, (r, w_raw, k, v, z, b, state, resets, y, s_out, anchors, sa)))
-    return y, s_out, anchors, sa
+            *map(_ptr, (r, w_raw, k, v, z, b, state, resets, y, s_out, anchors)))
+    return y, s_out, anchors
 
 
 class WKV7(torch.autograd.Function):
     """``wkv7`` on CUDA tensors: the forward kernel, saving the chunk-boundary
-    states and sa when a gradient is needed, and the backward kernel."""
+    states when a gradient is needed, and the chunked backward kernel, which
+    recomputes each chunk from them."""
 
     @staticmethod
     def forward(ctx, r, w_raw, k, v, z, b, state, resets):
         save = any(ctx.needs_input_grad[:7])
-        y, s_out, anchors, sa = _fwd(r, w_raw, k, v, z, b, state, resets, save)
+        y, s_out, anchors = _fwd(r, w_raw, k, v, z, b, state, resets, save)
         if save:
-            ctx.save_for_backward(r, w_raw, k, v, z, b, state, resets, anchors, sa)
+            ctx.save_for_backward(r, w_raw, k, v, z, b, state, resets, anchors)
         ctx.set_materialize_grads(False)
         return y, s_out
 
     @staticmethod
     def backward(ctx, dy, dsfin):
-        r, w_raw, k, v, z, b, state, resets, anchors, sa = ctx.saved_tensors
+        r, w_raw, k, v, z, b, state, resets, anchors = ctx.saved_tensors
         B, T, H, N = r.shape
+        bwd_plan(B, T, H, r.dtype)
         dy = torch.zeros_like(v) if dy is None else dy.to(v.dtype).contiguous()
         dsfin = None if dsfin is None else dsfin.float().contiguous()
         grads = [torch.empty_like(x) for x in (r, w_raw, k, v, z, b)]
         ds0 = torch.empty_like(state) if ctx.needs_input_grad[6] else None
         _launch("wkv7_bwd", r, _DTYPES[r.dtype], B, T, H,
-                *map(_ptr, (r, w_raw, k, v, z, b, state, resets, anchors, sa, dy, dsfin,
+                *map(_ptr, (r, w_raw, k, v, z, b, state, resets, anchors, dy, dsfin,
                             *grads, ds0)))
         return (*grads, ds0, None)
 

@@ -245,3 +245,107 @@ def test_cosy_prefill_matches_jax():
                                   np.asarray(jcosy.decode_embed(params, jcfg, jnp.asarray(ids))))
     reset = tcosy.reset_shift_states(st_t)
     assert not reset["att_x"].any() and not reset["ffn_x"].any() and reset["wkv"] is st_t["wkv"]
+
+
+def _b1_source():
+    """csrc/decode_b1.cu: its integer constants (those that evaluate, in
+    order) and each product's tile bytes."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tdm.__file__).resolve().parents[1] / "csrc" / "decode_b1.cu").read_text()
+    env = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;,]+);", src):
+        try:
+            env[name] = eval(expr, {}, dict(env))
+        except (NameError, SyntaxError):
+            pass
+    default = int(re.search(r"struct Prod \{\s*static constexpr int lhs = LHS_BF16, TB = (\d+);",
+                            src).group(1))
+    special = {p: int(tb) for p, tb in re.findall(
+        r"struct Prod<P_(\w+)> \{ static constexpr int lhs = \w+, TB = (\d+); \}", src)}
+    tb = {name: special.get(name.upper(), default) for name in tdm.PRODUCTS}
+    return env, tb
+
+
+@pytest.mark.parametrize("C", [1024, 2048])
+def test_b1_launch_plan_fits_the_card(C):
+    """The B=1 step's launch plan mirrors csrc/decode_b1.cu: each product cut
+    into tiles of its tile bytes and K pieces of whole 8 KB boxes, at most
+    64 KB a CTA and 8 pieces (one cluster); the shared memory of a product
+    CTA and of a glue CTA as the source computes it, within the 227 KB a
+    block may use; the workspace as the kernel carves it; at C = 2048 every
+    product has 256 CTAs or more."""
+    c, tile_bytes = _b1_source()
+    assert (tdm.BOX, tdm.PIECE_BYTES, tdm.MAX_PIECES, tdm.THREADS) == (
+        c["BOX"], c["PIECE_BYTES"], c["MAX_PIECES"], c["RT"])
+    plan = tdm.launch_plan(C)
+    shapes = {"rkv_li": (C, 3 * C + 512), "out": (C, C), "fk": (C, 4 * C), "fv": (4 * C, C)}
+    assert list(plan["products"]) == list(tdm.PRODUCTS) == list(shapes)
+    for name, pr in plan["products"].items():
+        K, N = shapes[name]
+        tb, kp = pr["tile_bytes"], pr["k_piece"]
+        assert tb == tile_bytes[name] and pr["tiles"] * tb == N, name
+        assert pr["pieces"] in (1, 2, 4, 8) and kp * pr["pieces"] == K, name
+        assert kp * tb % c["BOX"] == 0 and kp * tb <= c["PIECE_BYTES"], name
+        assert pr["ctas"] == pr["tiles"] * pr["pieces"], name
+        smem = (128 + kp * tb + 4 * kp + c["RW"] * tb * 4 + tb * 4
+                + 8 * (c["MAX_BOXES"] + 1))
+        assert pr["smem_bytes"] == smem <= 232448, name
+        if C == 2048:
+            assert pr["ctas"] >= 256, name
+    glue = 128 + 4 * c["LO_BOX"] + 4 * (c["NLI"] + 2 * 4 * c["NH"] + 7 * c["NH"] + c["RW"]) + 8
+    assert plan["glue_smem_bytes"] == glue <= 232448
+    sizes = (4 * C, 12 * C, 4 * 512, 8 * C, 4 * C, 2 * C, 4 * C, 4 * C)
+    assert plan["workspace_bytes"] == sum(-(-n // 256) * 256 for n in sizes)
+
+
+def test_b1_launch_plan_refuses_what_the_kernel_cannot_cut():
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tdm.launch_plan(1000)
+    with pytest.raises(ValueError, match="does not cut"):
+        tdm.launch_plan(4096)  # FFN value K = 16384: 16 pieces of 64 KB
+
+
+@pytest.mark.parametrize("L", [1, 2, 24])
+def test_b1_launches_a_step(L):
+    """A step launches 5 L + 1 kernels: per layer r/k/v with lora-in, the
+    glue, output, FFN key and FFN value; then ln_out. The counts are by
+    kernel, in the order of decode_b1_step's counts."""
+    n = tdm.launches_per_step(L)
+    assert list(n) == list(tdm.KERNELS)
+    assert n == {"ln_out": 1, "gemv": 4 * L, "glue": L} and sum(n.values()) == 5 * L + 1
+
+
+def test_b1_pack_check_runs_once_and_refuses_a_malformed_pack(monkeypatch):
+    """The wrapper checks a pack's tensors on its first step: a second step
+    does not check again, a new pack or a replaced entry is checked, a
+    malformed pack is refused (and not remembered), and a dict that is not
+    a MegaPack is refused."""
+    tcfg = trwkv7.RWKV7Config(vocab_size=32, hidden_size=C, num_layers=1, head_size=64,
+                              gate_lora=64, dtype=torch.float32)
+    params = trwkv7.init_params(torch.Generator().manual_seed(0), tcfg)
+    mega = tdm.pack_mega(params, tcfg)
+    calls = []
+    real = tdm._check_tensors
+    monkeypatch.setattr(tdm, "_check_tensors", lambda *a: (calls.append(1), real(*a)))
+    dev = torch.device("cpu")
+    for _ in range(3):
+        tdm._check_pack(mega, 1, C, dev)
+    assert len(calls) == 1
+    bad = tdm.pack_mega(params, tcfg)
+    bad["lo"] = bad["lo"].float()
+    with pytest.raises(ValueError, match=r"mega\['lo'\]"):
+        tdm._check_pack(bad, 1, C, dev)
+    with pytest.raises(ValueError, match=r"mega\['lo'\]"):
+        tdm._check_pack(bad, 1, C, dev)  # a refused pack is not remembered
+    assert len(calls) == 3
+    # replacing an entry of a checked pack makes the next step check it
+    mega["fv_q"] = mega["fv_q"][:, :-64].contiguous()
+    with pytest.raises(ValueError, match=r"mega\['fv_q'\]"):
+        tdm._check_pack(mega, 1, C, dev)
+    assert len(calls) == 4
+    # a plain dict is refused before any check
+    with pytest.raises(ValueError, match="MegaPack"):
+        tdm._check_pack(dict(bad), 1, C, dev)
+    assert len(calls) == 4

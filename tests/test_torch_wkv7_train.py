@@ -229,3 +229,35 @@ def test_fused_plan_fits_the_card(T):
 def test_fused_plan_refuses_what_the_kernels_cannot_take(B, T, H):
     with pytest.raises(ValueError):
         wkv7_cuda.fused_plan(B, T, H)
+
+
+@pytest.mark.parametrize("T", [1, 200, 2048])
+@pytest.mark.parametrize("dtype,esize", [(torch.bfloat16, 2), (torch.float32, 4)])
+def test_bwd_plan_fits_the_card(T, dtype, esize):
+    """The chunked backward's launch arithmetic (csrc/wkv7_bwd.cu) at the
+    training shape's B and H: one CTA of 256 threads a (b, h), ceil(T / 16)
+    chunks, shared memory within the card's 227 KB and equal to what the
+    kernel source's constants give (the f32 tiles, then the step inputs of
+    two chunks in the input dtype)."""
+    plan = wkv7_cuda.bwd_plan(8, T, 16, dtype)
+    c = _chunk_header_constants()
+    assert plan["grid"] == 8 * 16 and plan["threads"] == c["NT"] == 256
+    assert plan["chunk"] == c["L"] == 16 and plan["n_chunks"] == -(-T // 16)
+    staged = 2 * c["UNFUSED_BWD_INPUTS"] * c["L"] * c["N"] * esize
+    assert plan["smem_bytes"] == 4 * c["UNFUSED_BWD_FLOATS"] + staged <= 232448
+
+
+@pytest.mark.parametrize("B,T,H", [(8, 0, 16), (0, 200, 16), (8, 200, 0), (2**16, 1, 2**16)])
+def test_bwd_plan_refuses_what_the_kernel_cannot_take(B, T, H):
+    with pytest.raises(ValueError):
+        wkv7_cuda.bwd_plan(B, T, H)
+
+
+@pytest.mark.parametrize("T", [1, 16, 70])
+def test_training_forward_saves_only_the_anchors(T):
+    """The training forward saves the state after every 16th step and after
+    the last, which is all the chunked backward reads: nothing a step (the
+    per-step sa of the step-back backward is gone)."""
+    saved = wkv7_cuda._saved_states(2, T, 3, torch.empty(0))
+    assert isinstance(saved, torch.Tensor)
+    assert saved.shape == (2, 3, -(-T // 16), 64, 64) and saved.dtype == torch.float32
