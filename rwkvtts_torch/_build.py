@@ -200,11 +200,10 @@ def library() -> ctypes.CDLL:
     lib.decode_b1_workspace_bytes.restype = ctypes.c_size_t
     lib.decode_b1_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.decode_b1_smem_bytes.restype = ctypes.c_int
-    for name in ("decode_b64_gemm_smem_bytes", "wkv7_fused_smem_bytes"):
+    for name in ("decode_b64_gemm_smem_bytes", "wkv7_fused_smem_bytes", "wkv7_bwd_smem_bytes",
+                 "wkv7_fwd_smem_bytes"):
         getattr(lib, name).argtypes = [ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_int
-    lib.wkv7_bwd_smem_bytes.argtypes = [ctypes.c_int]
-    lib.wkv7_bwd_smem_bytes.restype = ctypes.c_int
     return lib
 
 

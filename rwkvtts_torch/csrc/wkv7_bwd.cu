@@ -45,16 +45,6 @@ constexpr int bwd_smem_bytes() {
     return UNFUSED_BWD_FLOATS * (int)sizeof(float) + 2 * UNFUSED_BWD_INPUTS * L * N * (int)sizeof(T);
 }
 
-// 4 lanes of one input (8 or 16 bytes) into shared memory, asynchronously
-template <typename T>
-__device__ __forceinline__ void cp_async_lanes(T* dst, const T* src) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-    if constexpr (sizeof(T) == 4)
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src));
-    else
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(s), "l"(src));
-}
-
 template <typename T>
 __global__ void __launch_bounds__(NT, 1) wkv7_bwd_kernel(
     int T_len, int H,

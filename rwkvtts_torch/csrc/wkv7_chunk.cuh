@@ -1,5 +1,6 @@
-// The chunked form of the WKV7 recurrence, for the training backward
-// (wkv7_bwd.cu) and the fused training pair (wkv7_fused.cu). It follows ops/wkv7.py::_chunk_body (the port of
+// The chunked form of the WKV7 recurrence, for the forward (wkv7_fwd.cu),
+// the training backward (wkv7_bwd.cu) and the fused training pair
+// (wkv7_fused.cu). It follows ops/wkv7.py::_chunk_body (the port of
 // rwkvtts_tpu/ops/wkv7.py::_chunk_body and of wkv7_pallas.py::_pair_chunk):
 // per (b, h) and chunk of L = 16 steps, with c_t the count of resets up to
 // t, logw_t = -exp(w_raw_t) (0 at a reset) and g its inclusive cumsum,
@@ -38,13 +39,16 @@ constexpr int MAT = L * LDM;
 static_assert(L == 16 && N == 64 && NW == 8, "the tiling assumes L = 16, N = 64, 8 warps");
 
 // shared floats of each kernel: the fused forward and backward
-// (ops/wkv7_cuda.py::fused_plan mirrors these) and wkv7_bwd.cu's backward
+// (ops/wkv7_cuda.py::fused_plan mirrors these), wkv7_bwd.cu's backward
 // (ops/wkv7_cuda.py::bwd_plan), which also stages its 7 step inputs (r,
-// w_raw, k, v, z, b, dy) of two chunks in their own dtype
+// w_raw, k, v, z, b, dy) of two chunks in their own dtype; wkv7_fwd.cu's
+// forward (ops/wkv7_cuda.py::fwd_plan) takes FWD_FLOATS and stages its 6
+// the same way
 constexpr int FWD_FLOATS = 12 * VEC + ST + 5 * MAT + (N + 4 * N + 2 * L);
 constexpr int BWD_FLOATS = 20 * VEC + 4 * ST + 9 * MAT + (2 * N + 4 * N + 3 * L);
 constexpr int UNFUSED_BWD_FLOATS = 19 * VEC + 4 * ST + 9 * MAT + (2 * N + 4 * N + 2 * L);
 constexpr int UNFUSED_BWD_INPUTS = 7;
+constexpr int UNFUSED_FWD_INPUTS = 6;
 
 // passes of each product: 1x TF32 for bf16 inputs, 3xTF32 for f32
 template <typename T> struct Passes { static constexpr int value = 3; };
@@ -180,6 +184,16 @@ template <> __device__ __forceinline__ void st2<bf16>(bf16* p, float a, float b)
     *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// 4 lanes of one input (8 or 16 bytes) into shared memory, asynchronously
+template <typename T>
+__device__ __forceinline__ void cp_async_lanes(T* dst, const T* src) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    if constexpr (sizeof(T) == 4)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src));
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(s), "l"(src));
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
     const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem));
@@ -247,7 +261,7 @@ __device__ __forceinline__ Pro prologue(const float (&r)[4], const float (&k)[4]
 // k_eff, b, LG holds logw (0 at resets and past the end) and RS the reset
 // flags; on exit QT.. BT hold the decayed qt, zt, kt, bt, Q0 / Z0 their rows
 // with c = 0, BF / KF bf, kf, LG e^g (when keep_eg; else untouched), DL
-// e^{g_L} and CS the segment counters. Two barriers inside; the caller
+// e^{g_L} and CS the segment counters. One barrier inside; the caller
 // synchronises before and after.
 struct Tiles {
     float *QT, *ZT, *KT, *BT, *Q0, *Z0, *BF, *KF, *LG, *DL, *QSUM;

@@ -1,8 +1,9 @@
 """WKV7 through the hand-written CUDA kernels (counterpart of
-rwkvtts_tpu/ops/wkv7_pallas.py): ``wkv7`` over ``csrc/wkv7_fwd.cu`` and
-``csrc/wkv7_bwd.cu``, which replace the TPU kernels ``_fwd_kernel`` and
-``_bwd_kernel``; ``wkv7_fused`` over ``csrc/wkv7_fused.cu``, which
-replaces ``_fwd_kernel_fused`` and ``_bwd_kernel_fused``.
+rwkvtts_tpu/ops/wkv7_pallas.py): ``wkv7_fwd`` and ``wkv7`` over
+``csrc/wkv7_fwd.cu`` and ``csrc/wkv7_bwd.cu``, which replace the TPU kernels
+``_fwd_kernel`` and ``_bwd_kernel``; ``wkv7_fused`` over
+``csrc/wkv7_fused.cu``, which replaces ``_fwd_kernel_fused`` and
+``_bwd_kernel_fused``.
 
 Contracts (those of ``wkv7_pallas`` and ``wkv7_pallas_fused``): r, w_raw,
 k, v, z, b (or r, w_raw, k_raw, v, a) are (B, T, H, 64) in one dtype
@@ -12,10 +13,12 @@ is (B, T) bool or None. Both return y in v's dtype and the final state in
 f32, and are differentiable: the input gradients come back in the input
 dtypes, the per-head ones as (H, 64) f32 and the state's in f32.
 
-Both backward kernels work in chunks of 16 steps (csrc/wkv7_chunk.cuh)
-and recompute each chunk forward from its saved entry state, so they are
-exact for any decay whose chunk sum stays in f32's range; ``bwd_plan``
-and ``fused_plan`` are their launch arithmetic.
+All four kernels work in chunks of 16 steps on the tensor cores
+(csrc/wkv7_chunk.cuh), a CTA a (b, h). The forwards save, for
+training, only the state after every 16th step (the anchors); the
+backwards recompute each chunk from it, so they are exact for any decay
+whose chunk sum stays in f32's range. ``fwd_plan``, ``bwd_plan`` and
+``fused_plan`` are their launch arithmetic.
 
 Tensors on the CPU take the plain versions under autograd
 (``ops/wkv7.py::wkv7_scan`` and ``wkv7_fused_plain``). Tensors on a CUDA
@@ -119,6 +122,20 @@ def _plan(what: str, B: int, T: int, H: int, smem: dict) -> dict:
     return {"chunk": CHUNK, "n_chunks": -(-T // CHUNK), "grid": B * H, "threads": THREADS}
 
 
+def fwd_plan(B: int, T: int, H: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The launch arithmetic of csrc/wkv7_fwd.cu (its constants in
+    csrc/wkv7_chunk.cuh): one CTA of 256 threads a (b, h) walking
+    ceil(T / 16) chunks, and its shared memory bytes for inputs of `dtype`:
+    the f32 tiles of the fused forward (FWD_FLOATS) and the 6 step inputs of
+    two chunks (the library's ``wkv7_fwd_smem_bytes`` gives the same on the
+    card); two CTAs fit an SM in bf16. Raises ValueError for what the kernel
+    cannot take."""
+    vec, st, mat = _chunk_tiles()
+    esize = torch.empty(0, dtype=dtype).element_size()
+    smem = 4 * (12 * vec + st + 5 * mat + 5 * HEAD + 2 * CHUNK) + 2 * 6 * CHUNK * HEAD * esize
+    return {**_plan("wkv7_fwd", B, T, H, {"forward": smem}), "smem_bytes": smem}
+
+
 def fused_plan(B: int, T: int, H: int) -> dict:
     """The launch arithmetic of csrc/wkv7_fused.cu (its constants in
     csrc/wkv7_chunk.cuh): one CTA of 256 threads a (b, h) walking
@@ -174,6 +191,7 @@ def wkv7_fwd(
 def _fwd(r, w_raw, k, v, z, b, state, resets, save: bool):
     _check("wkv7_fwd", dict(r=r, w_raw=w_raw, k=k, v=v, z=z, b=b), state, resets)
     B, T, H, N = r.shape
+    fwd_plan(B, T, H, r.dtype)  # refuses what the kernel cannot take
     y = torch.empty_like(v)
     s_out = torch.empty(B, H, N, N, dtype=torch.float32, device=r.device)
     anchors = _saved_states(B, T, H, r) if save else None

@@ -1,12 +1,16 @@
-"""Per-phase clock profile of the chunked fused WKV7 kernels on the card.
+"""Per-phase clock profile of the chunked WKV7 kernels on the card: the fused
+pair (csrc/wkv7_fused.cu) and the unfused forward (csrc/wkv7_fwd.cu).
 
 Builds an instrumented copy of rwkvtts_torch/csrc, in which thread 0 of each
 CTA reads clock64() after every barrier of the chunk loop (and at its end)
 and CTA 0's sums are read back, into rwkvtts_torch/csrc/build/phase_clock/.
 Then it runs, at the training shape (8, 2048, 16) bf16 on phase 8's inputs,
-the saving forward and the backward once under autograd and the primal
-forward once, and prints the cycles a chunk by phase and their sum, with
-the instrumented build's ms (chip_smoke.fused_times). The stamps cost a
+the fused saving forward and backward once under autograd and the fused
+primal once; and the unfused forward once at each shape of
+chip_smoke.WKV_FWD_SHAPES (generation prefill, Cosy prefill, one admission
+bucket, the saving forward of training). It prints the cycles a chunk by
+phase and their sum, with the instrumented build's ms
+(chip_smoke.fused_times, chip_smoke.wkv7_fwd_times). The stamps cost a
 little; compare phases, not the ms, with the uninstrumented kernels.
 
     python3 scripts/profile_wkv7_fused.py
@@ -27,13 +31,31 @@ import chip_smoke  # noqa: E402
 from rwkvtts_torch import _build  # noqa: E402
 
 PHASES = {
-    "forward": ["prologue", "decays", "pairwise A Kz QB QK",
-                "inverse; z0 S, Kz v, q0 S, QK v", "sa, y, state update, anchors",
-                "GroupNorm, bonus, y out"],
-    "backward": ["prologue", "decays", "pairwise", "inverse; z0 S, Kz v, q0 S, QK v",
-                 "sa, y", "GroupNorm adjoint", "state gradient chain",
-                 "pairwise gradients", "qt zt bt kt gradients", "dlogw scan, sums",
-                 "dlogw scan", "prologue adjoint, writes"],
+    "fused forward": ["prologue", "decays", "pairwise A Kz QB QK",
+                      "inverse; z0 S, Kz v, q0 S, QK v", "sa, y, state update, anchors",
+                      "GroupNorm, bonus, y out"],
+    "fused backward": ["prologue", "decays", "pairwise", "inverse; z0 S, Kz v, q0 S, QK v",
+                       "sa, y", "GroupNorm adjoint", "state gradient chain",
+                       "pairwise gradients", "qt zt bt kt gradients", "dlogw scan, sums",
+                       "dlogw scan", "prologue adjoint, writes"],
+    "forward": ["inputs to tiles", "decays", "pairwise A Kz QB QK",
+                "inverse; z0 S, Kz v, q0 S, QK v", "sa, y out, state update, anchors"],
+}
+
+# each instrumented kernel: its source, where its body starts and ends, the
+# head and the tail of its chunk loop, and its slot in the file's clock table
+KERNELS = {
+    "fused forward": ("wkv7_fused.cu", "wkv7_fused_fwd_kernel(",
+                      "template <typename T>\n__global__",
+                      "    for (int ci = 0; ci < nc; ++ci) {\n",
+                      "        if (valid) st4<T>(y + base + tt * step, out);\n    }\n", 0),
+    "fused backward": ("wkv7_fused.cu", "wkv7_fused_bwd_kernel(", "template <typename K>",
+                       "    for (int ci = nc - 1; ci >= 0; --ci) {\n",
+                       "        cur ^= 1;\n    }\n", 1),
+    "forward": ("wkv7_fwd.cu", "wkv7_fwd_kernel(",
+                "template <typename T, bool SAVE>\nint launch_fwd",
+                "    for (int c = 0; c < nc; ++c) {\n",
+                "S, i0);\n        }\n    }\n", 0),
 }
 
 PRE = r'''
@@ -47,15 +69,11 @@ __device__ unsigned long long g_prof[2][16];
 '''
 
 
-def instrument(src: str) -> str:
-    """wkv7_fused.cu with a stamp after each barrier of the two chunk loops."""
+def instrument(src: str, stem: str, kernels: list) -> str:
+    """A source with a stamp after each barrier of the given kernels' chunk
+    loops, and `<stem>_prof` to read CTA 0's sums back."""
     src = src.replace("using namespace wkv7c;\n", "using namespace wkv7c;\n" + PRE, 1)
-    for k, (start, end, loop, tail) in enumerate((
-            ("wkv7_fused_fwd_kernel(", "template <typename T>\n__global__",
-             "    for (int ci = 0; ci < nc; ++ci) {\n",
-             "        if (valid) st4<T>(y + base + tt * step, out);\n    }\n"),
-            ("wkv7_fused_bwd_kernel(", "template <typename K>",
-             "    for (int ci = nc - 1; ci >= 0; --ci) {\n", "        cur ^= 1;\n    }\n"))):
+    for _, start, end, loop, tail, k in kernels:
         i = src.index(start)
         j = src.index(end, i)
         body = src[i:j]
@@ -67,10 +85,10 @@ def instrument(src: str) -> str:
                 raise RuntimeError(f"instrument: {old!r} not found in {start}")
             body = body.replace(old, new, 1) if old != "__syncthreads();" else body.replace(old, new)
         src = src[:i] + body + src[j:]
-    return src + '''
-extern "C" int wkv7_fused_prof(unsigned long long* out) {
+    return src + f'''
+extern "C" int {stem}_prof(unsigned long long* out) {{
     return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
-}
+}}
 '''
 
 
@@ -80,42 +98,56 @@ def main() -> None:
     dst = _build.BUILD_DIR / "phase_clock"
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(_build.CSRC, dst, ignore=shutil.ignore_patterns("build"))
-    (dst / "wkv7_fused.cu").write_text(instrument((dst / "wkv7_fused.cu").read_text()))
+    for name in ("wkv7_fused.cu", "wkv7_fwd.cu"):
+        spots = [v for v in KERNELS.values() if v[0] == name]
+        (dst / name).write_text(instrument((dst / name).read_text(), Path(name).stem, spots))
     _build.CSRC, _build.BUILD_DIR = dst, dst / "build"
     lib = _build.library()
-    lib.wkv7_fused_prof.argtypes = [ctypes.c_void_p]
+    for name in ("wkv7_fused_prof", "wkv7_fwd_prof"):
+        getattr(lib, name).argtypes = [ctypes.c_void_p]
     from rwkvtts_torch.ops import wkv7_cuda
 
     print(chip_smoke.subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip())
     times = chip_smoke.fused_times_of_tree("instrumented")
+    fwd_times = chip_smoke.wkv7_fwd_times("instrumented wkv7 fwd")
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(8)
     B, T, H = chip_smoke.TRAIN_B, chip_smoke.TRAIN_T, chip_smoke.TRAIN_H
     seq, prm, _, _ = chip_smoke.fused_inputs(g, B, T, H, torch.bfloat16)
-    n_chunks = -(-T // wkv7_cuda.CHUNK)
     buf = (ctypes.c_ulonglong * 32)()
 
-    def report(what: str, kernel: int) -> list:
+    def report(what: str, kernel: str, n_chunks: int) -> list:
         torch.cuda.synchronize()
-        chip_smoke.check(lib.wkv7_fused_prof(ctypes.cast(buf, ctypes.c_void_p)) == 0,
+        reader = lib.wkv7_fwd_prof if kernel == "forward" else lib.wkv7_fused_prof
+        chip_smoke.check(reader(ctypes.cast(buf, ctypes.c_void_p)) == 0,
                          "reading the phase clock")
-        names = PHASES["forward" if kernel == 0 else "backward"]
-        cyc = [x / n_chunks for x in list(buf)[16 * kernel:16 * kernel + len(names)]]
+        names, k = PHASES[kernel], KERNELS[kernel][-1]
+        cyc = [x / n_chunks for x in list(buf)[16 * k:16 * k + len(names)]]
         print(f"{what}: {sum(cyc):.0f} cycles a chunk (CTA 0, {n_chunks} chunks): "
               + "; ".join(f"{n} {c:.0f}" for n, c in zip(names, cyc)))
         return cyc
 
+    n_chunks = -(-T // wkv7_cuda.CHUNK)
     ins = [x.detach().clone().requires_grad_() for x in seq + prm]
     y, s = wkv7_cuda.wkv7_fused(*ins)
-    report("saving forward", 0)
+    report("fused saving forward", "fused forward", n_chunks)
     torch.autograd.grad((y, s), ins, (torch.ones_like(y), torch.zeros_like(s)))
-    report("backward", 1)
+    report("fused backward", "fused backward", n_chunks)
     with torch.no_grad():
         wkv7_cuda.wkv7_fused(*seq, *prm)
-    report("primal forward", 0)
+    report("fused primal forward", "fused forward", n_chunks)
     print(f"instrumented build: {times}")
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    for name, Bn, T, H, saving in chip_smoke.WKV_FWD_SHAPES:
+        ins, _, _ = chip_smoke.wkv_inputs(g, Bn, T, H, torch.bfloat16)
+        state = None if saving else torch.zeros(Bn, H, 64, 64, device=dev)
+        wkv7_cuda._fwd(*ins, state, None, save=saving)
+        report(f"wkv7 fwd {name} ({Bn}, {T}, {H})", "forward",
+               -(-T // wkv7_cuda.CHUNK))
+    print(f"instrumented wkv7 fwd: {fwd_times}")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,10 @@
 """Parity of the port's chunked WKV7 algebra (``ops/wkv7.py::wkv7_chunked``,
-the statement the chunked CUDA kernels of csrc/wkv7_fused.cu follow) with
-the JAX package on the CPU: y and the final state against JAX
+the statement the chunked CUDA kernels of csrc/wkv7_{fwd,bwd,fused}.cu
+follow) with the JAX package on the CPU: y and the final state against JAX
 ``wkv7_chunked`` and ``wkv7_scan``, and every gradient through torch
-autograd against ``jax.grad`` of both, f32, within 1e-4 of max |ref|."""
+autograd against ``jax.grad`` of both; in the kernels' 16-step chunks also
+against the TPU forward kernel (``wkv7_pallas``, interpret mode), with every
+w_raw at -0.5 too; f32, within 1e-4 of max |ref|."""
 import functools
 
 import jax
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 from rwkvtts_tpu.ops import wkv7 as jwkv7
+from rwkvtts_tpu.ops.wkv7_pallas import wkv7_pallas
 from rwkvtts_torch.ops import wkv7 as twkv7
 
 torch.set_num_threads(2)
@@ -26,14 +29,17 @@ def _rel(a, b):
 
 
 @functools.lru_cache(maxsize=None)
-def _inputs(T, with_state, with_resets):
+def _inputs(T, with_state, with_resets, minus_half=False):
     """The model's ranges (w_raw <= -0.5, z = -kk, b = kk a with kk
-    unit-norm); resets at a 16-step chunk boundary, mid-chunk and at two
+    unit-norm), or every w_raw at -0.5 (the fastest decay the model's clamp
+    allows); resets at a 16-step chunk boundary, mid-chunk and at two
     adjacent positions."""
     rng = np.random.default_rng(T)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)
     r, k, v = f(B, T, H, N), 0.3 * f(B, T, H, N), f(B, T, H, N)
     w_raw = -0.5 - np.abs(f(B, T, H, N))
+    if minus_half:
+        w_raw = np.full_like(w_raw, -0.5)
     kk = f(B, T, H, N)
     kk /= np.linalg.norm(kk, axis=-1, keepdims=True)
     a = 1 / (1 + np.exp(-f(B, T, H, N)))
@@ -87,6 +93,20 @@ def test_wkv7_chunked_matches_jax(T, chunk, with_state, with_resets):
         assert len(grads) == len(g_j) == (7 if with_state else 6)
         for name, a, b in zip(NAMES, grads, g_j):
             assert _rel(a, b) <= 1e-4, (ref, name)
+
+
+@pytest.mark.parametrize("minus_half", [False, True])
+def test_wkv7_chunked_matches_the_tpu_kernel(minus_half):
+    """In the kernels' 16-step chunks (a partial last chunk, resets inside
+    and at a boundary, an initial state): y and the final state against the
+    TPU forward kernel in interpret mode and the JAX scan."""
+    ins, state, resets, _, _ = _inputs(70, True, True, minus_half)
+    y_t, s_t = twkv7.wkv7_chunked(*(torch.from_numpy(x) for x in ins), torch.from_numpy(state),
+                                  torch.from_numpy(resets), chunk=16)
+    j = [jnp.asarray(x) for x in ins] + [jnp.asarray(state), jnp.asarray(resets)]
+    for y_ref, s_ref in (jwkv7.wkv7_scan(*j), wkv7_pallas(*j, chunk=16, interpret=True)):
+        assert _rel(y_t, y_ref) <= 1e-4
+        assert _rel(s_t, s_ref) <= 1e-4
 
 
 def test_wkv7_chunked_matches_the_plain_scan_in_bf16_inputs():
