@@ -14,7 +14,11 @@ decode, CosyVoice2 flow + HiFT), the configuration of
 ``benchmarks/bench_streaming_latency.py``; and the Spark continuous-batching
 server through its launcher at 1024 x 24 with the launcher's defaults (96
 slots, 32-step chunks, the in-place WKV step), the traffic of
-``benchmarks/bench_serving_continuous.py``.
+``benchmarks/bench_serving_continuous.py``; then the Spark text->wav route
+on it: BiCodec at the published Spark-TTS-0.5B widths and the
+wav2vec2-large-xlsr-53 frontend's shape (random weights from a seed),
+``SparkPipeline.synthesize`` / ``design_voice`` and the server's answers
+with audio.
 
 Phases, each printing its own lines; any failure raises, so the run exits
 non-zero and prints no result:
@@ -84,6 +88,20 @@ non-zero and prints no result:
              launch.build_pipeline), 96 slots, chunk 32: 4 requests over HTTP,
              then 192 at once; tokens, sustained tok/s, occupancy, ms a step,
              latency, launches, peak memory, a profile of two chunks
+ 17. spark wav small  BiCodec at the golden's reduced config with its state
+             dict (tests/goldens/bicodec.npz): mel, semantic and global
+             tokens and the wav on the card vs the CPU, and vs the
+             reference's recorded outputs
+ 18. spark wav main  BiCodec at BiCodecConfig() (f32, TF32 off) with the
+             xlsr-53-shaped frontend: phase 6's 64 x 256 tokens to wav in
+             row batches (every wav finite, tokens x 320 samples), one
+             50-token row vs the CPU, a zero-shot tokenize of a 6 s clip (the
+             share of tokens equal to the CPU's), SparkPipeline.synthesize
+             at 1024 x 24, B=1, 256 new tokens with global tokens, with
+             properties (design_voice) and with a prompt wav + text, then 4
+             requests through ContinuousTTSService with the codec; ms a
+             detokenize batch and per audio second, tokenize ms, synthesize
+             wall and tok/s, design ms, launches, peak memory
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -129,6 +147,14 @@ COSY_TEXT, COSY_PROMPT, COSY_NEW = 200, 75, 400
 # the serving main path: Spark 0.4B behind the launcher's defaults
 SERVE_HIDDEN, SERVE_LAYERS, SERVE_H = 1024, 24, 16
 SERVE_SLOTS, SERVE_CHUNK, SERVE_MAX_NEW, SERVE_REQUESTS = 96, 32, 256, 192
+
+# the Spark text->wav route: the LM of phase 6 with BiCodec, the detokenize
+# row batch, the row held against the CPU, the zero-shot clip, synthesize's
+# new tokens, the requests served with the codec
+WAV_HIDDEN, WAV_LAYERS = 1024, 24
+WAV_ROWS, WAV_CHECK_TOKENS, WAV_PROMPT_S, WAV_NEW, WAV_REQUESTS = 16, 50, 6.0, 256, 4
+GOLDEN_BICODEC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens",
+                              "bicodec.npz")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FMA, and bf16
 # and TF32 tensor-core FLOP/s; the bound of a kernel is the larger of its
@@ -610,7 +636,8 @@ def phase_main(dev, card: str, per_step: dict) -> dict:
     print(f"main: launches {launches}, decode by kernel {by_kernel}")
     print(f"main: B={B}, {PROMPT} + {NEW_TOKENS} tokens: {seconds:.4f} s, "
           f"{tps:.1f} audio tok/s on {card}; mean length {lengths.float().mean().item():.1f}")
-    return {"launches": launches, "by_kernel": by_kernel, "tok_per_s": tps}
+    return {"launches": launches, "by_kernel": by_kernel, "tok_per_s": tps, "toks": toks,
+            "lengths": lengths}
 
 
 def end_to_end_of_tree(what: str = "e2e") -> dict:
@@ -632,6 +659,19 @@ def end_to_end_of_tree(what: str = "e2e") -> dict:
            "unfused_step_ms": train["unfused_step_ms"], "cosy_ttfa_ms": cosy["ttfa_ms"],
            "cosy_rtf": cosy["rtf"], "cosy_lm_ms_per_token": cosy["lm_ms_per_token"],
            "serve_tok_per_s": serve["tok_per_s"]}
+    print(f"{what}: " + json.dumps(out))
+    return out
+
+
+def spark_wav_of_tree(what: str = "spark wav") -> dict:
+    """The text->wav route's numbers (phase 18, on phase 6's tokens) with
+    whichever rwkvtts_torch is imported, without the kernel phases' checks;
+    prints them as one JSON line."""
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    out = phase_spark_wav_main(dev, card, phase_main(dev, card, {}))
     print(f"{what}: " + json.dumps(out))
     return out
 
@@ -2027,6 +2067,258 @@ def profile_pool(cb, pipe, reqs) -> dict:
             "step_kernel_share_of_busy": step_t / busy}
 
 
+# ---------------------------------------------------------------------------
+# 17-18. The Spark text->wav route: BiCodec small on card vs CPU (the golden),
+# then the route at full width
+# ---------------------------------------------------------------------------
+
+
+def golden_bicodec_config():
+    """tests/golden_configs.py's reduced BiCodec, in the port's types."""
+    from rwkvtts_torch.codecs import bicodec as bc
+
+    return bc.BiCodecConfig(
+        mel=bc.MelParams(sample_rate=16000, n_fft=256, win_length=160, hop_length=80,
+                         mel_fmin=10.0, mel_fmax=None, num_mels=32),
+        encoder=bc.VocosStackConfig(12, 16, 32, 2, 10, sample_ratios=(2, 2)),
+        quantizer_codebook_size=32, quantizer_codebook_dim=4, quantizer_input_dim=10,
+        prenet=bc.VocosStackConfig(10, 16, 32, 2, 12, sample_ratios=(2, 2), condition_dim=12),
+        postnet=bc.VocosStackConfig(12, 16, 32, 2, 32),
+        wave=bc.WaveGeneratorConfig(input_channel=12, channels=16, rates=(4, 2),
+                                    kernel_sizes=(8, 4)),
+        speaker=bc.SpeakerEncoderConfig(input_dim=32, out_dim=12, latent_dim=16, token_num=4,
+                                        fsq_levels=(4, 4, 4, 4, 4, 4), fsq_num_quantizers=1))
+
+
+def phase_spark_wav_small(dev) -> None:
+    """The golden's reduced BiCodec on the card vs the CPU: tokens equal, mel
+    within 1e-5 and wav within 1e-4 relative (both f32 with TF32 off: only
+    the summation order differs), and vs the reference's recorded outputs
+    at the JAX package's golden gates (mel 2e-4, wav 2e-3 absolute)."""
+    from rwkvtts_torch.codecs import bicodec, torch_import
+    from rwkvtts_torch.utils import fixtures
+
+    sd, io = fixtures.load_golden(GOLDEN_BICODEC)
+    cfg = golden_bicodec_config()
+    out = {}
+    for where in ("cpu", dev):
+        p = torch_import.bicodec_from_state_dict(sd, cfg, where)
+        ref = torch.from_numpy(io["ref_wav"]).to(where)
+        mel = bicodec.ref_mel(cfg, ref)
+        sem, glob = bicodec.tokenize(p, cfg, torch.from_numpy(io["feat"]).to(where), ref)
+        out[str(where)] = [t.cpu() for t in (mel, sem, glob, bicodec.detokenize(p, cfg, sem, glob))]
+    (mel_c, sem_c, glob_c, wav_c), (mel_g, sem_g, glob_g, wav_g) = out["cpu"], out[str(dev)]
+    mel_ref = torch.from_numpy(io["mel"]).transpose(1, 2)
+    wav_ref = torch.from_numpy(io["wav"][:, 0])
+    print(f"spark wav small: golden BiCodec, card vs CPU: mel {rel(mel_g, mel_c):.3e} "
+          f"(limit 1e-5), wav {rel(wav_g, wav_c):.3e} (limit 1e-4), semantic "
+          f"{sem_g.tolist()} / {sem_c.tolist()}, global {glob_g.flatten().tolist()} / "
+          f"{glob_c.flatten().tolist()}; card vs the reference: mel {max_abs(mel_g, mel_ref):.3e} "
+          f"(limit 2e-4), wav {max_abs(wav_g, wav_ref):.3e} (limit 2e-3)")
+    check(torch.equal(sem_g, sem_c) and torch.equal(glob_g, glob_c),
+          "spark wav small: tokens differ between the card and the CPU")
+    check(rel(mel_g, mel_c) <= 1e-5 and rel(wav_g, wav_c) <= 1e-4,
+          "spark wav small: the card disagrees with the CPU")
+    check(sem_g.tolist() == io["semantic"].tolist()
+          and glob_g.flatten().tolist() == io["global_tokens"].flatten().tolist(),
+          "spark wav small: tokens differ from the reference's")
+    check(max_abs(mel_g, mel_ref) <= 2e-4 and max_abs(wav_g, wav_ref) <= 2e-3,
+          "spark wav small: outputs differ from the reference's")
+
+
+def wav_codec_config():
+    """The published Spark-TTS-0.5B BiCodec."""
+    from rwkvtts_torch.codecs import bicodec
+
+    return bicodec.BiCodecConfig()
+
+
+def xlsr53_config():
+    """wav2vec2-large-xlsr-53's shape (its conv stack and positional
+    convolution are transformers' defaults)."""
+    from transformers import Wav2Vec2Config
+
+    return Wav2Vec2Config(hidden_size=1024, num_hidden_layers=24, num_attention_heads=16,
+                          intermediate_size=4096, feat_extract_norm="layer",
+                          do_stable_layer_norm=True, conv_bias=True)
+
+
+def _wav_ok(wav, n_tokens: int, hop: int) -> bool:
+    import numpy as np
+
+    return wav.shape == (n_tokens * hop,) and bool(np.isfinite(wav).all())
+
+
+def phase_spark_wav_main(dev, card: str, gen_run: dict) -> dict:
+    import copy
+
+    import numpy as np
+
+    from rwkvtts_torch.codecs import bicodec
+    from rwkvtts_torch.codecs.spark_tokenizer import SparkAudioTokenizer, Wav2Vec2Frontend
+    from rwkvtts_torch.infer.spark_pipeline import SparkPipeline
+    from rwkvtts_torch.models import rwkv7, spark
+    from rwkvtts_torch.ops import wkv7_cuda
+    from rwkvtts_torch.ops import wkv7_step_packed as sp
+    from rwkvtts_torch.serving import service as svc
+    from rwkvtts_torch.utils import tokenizer
+
+    cfg = wav_codec_config()
+    hop, sr = cfg.latent_hop_length, cfg.mel.sample_rate
+    t0 = time.perf_counter()
+    codec = SparkAudioTokenizer(cfg, bicodec.init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg),
+        Wav2Vec2Frontend.from_config(xlsr53_config(), seed=0, device=dev))
+    torch.cuda.synchronize()
+    n_codec = sum(t.numel() for t in _leaves(codec.params))
+    n_w2v = sum(t.numel() for t in codec.wav2vec2.model.parameters())
+    print(f"spark wav main: BiCodec {n_codec / 1e6:.1f} M and wav2vec2 {n_w2v / 1e6:.1f} M "
+          f"random parameters (seed 0) on the card in {time.perf_counter() - t0:.1f} s")
+
+    # 1. phase 6's 64 x 256 generated tokens -> wav, rows of one length in
+    # batches of WAV_ROWS
+    toks, lens = gen_run["toks"], gen_run["lengths"].tolist()
+    voices = torch.randint(0, 4096, (len(lens), 1, 32), generator=torch.Generator().manual_seed(1))
+    full = [i for i, n in enumerate(lens) if n == max(lens)][:WAV_ROWS]
+    codec.detokenize_rows(voices[full], toks[full], [lens[i] for i in full], WAV_ROWS)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wavs = codec.detokenize_rows(voices, toks, lens, WAV_ROWS)
+    torch.cuda.synchronize()
+    detok_s = time.perf_counter() - t0
+    detok_peak = torch.cuda.max_memory_allocated()
+    batches = sum(-(-lens.count(n) // WAV_ROWS) for n in set(lens) if n > 0)
+    audio_s = sum(lens) * hop / sr
+    bad = [i for i, (w, n) in enumerate(zip(wavs, lens)) if not _wav_ok(w, n, hop)]
+    print(f"spark wav main: detokenize {len(lens)} rows x <= {toks.shape[1]} tokens "
+          f"({sum(lens)} tokens, {audio_s:.2f} s of audio) in {batches} batches of <= "
+          f"{WAV_ROWS} rows: {1e3 * detok_s:.2f} ms, {1e3 * detok_s / batches:.2f} ms a batch, "
+          f"{1e3 * detok_s / audio_s:.4f} ms per audio second on {card}; peak memory "
+          f"{detok_peak / 2**30:.2f} GiB; rows not finite or not tokens x {hop}: {bad}")
+    check(not bad and batches > 0, f"spark wav main: bad wavs in rows {bad}")
+
+    # 2. one WAV_CHECK_TOKENS-token row on the card vs the CPU, full width
+    row = next(i for i, n in enumerate(lens) if n >= WAV_CHECK_TOKENS)
+    sem = toks[row:row + 1, :WAV_CHECK_TOKENS]
+    cpu_codec = SparkAudioTokenizer(cfg, rwkv7.tree_map(lambda t: t.cpu(), codec.params))
+    w_g = torch.from_numpy(codec.detokenize(voices[row:row + 1], sem))
+    w_c = torch.from_numpy(cpu_codec.detokenize(voices[row:row + 1], sem.cpu()))
+    print(f"spark wav main: a {WAV_CHECK_TOKENS}-token row, card vs CPU (f32, TF32 off): "
+          f"max|d| {max_abs(w_g, w_c):.3e} (limit 1e-3), relative {rel(w_g, w_c):.3e}, "
+          f"max|wav| {w_c.abs().max().item():.3f}")
+    check(w_g.shape == (1, WAV_CHECK_TOKENS * hop) and max_abs(w_g, w_c) <= 1e-3,
+          "spark wav main: the full-width row disagrees with the CPU")
+
+    # 3. zero-shot tokenize of a WAV_PROMPT_S clip through the frontend
+    n = int(WAV_PROMPT_S * sr)
+    rng = np.random.default_rng(2)
+    clip = (0.3 * np.sin(2 * np.pi * 220.0 * np.arange(n) / sr)
+            + 0.05 * rng.standard_normal(n)).astype(np.float32)
+    codec.tokenize(clip)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    glob, sem = codec.tokenize(clip)
+    tok_ms = 1e3 * (time.perf_counter() - t0)
+    cpu_codec.wav2vec2 = Wav2Vec2Frontend(copy.deepcopy(codec.wav2vec2.model).cpu())
+    glob_c, sem_c = cpu_codec.tokenize(clip)
+    del cpu_codec
+    sem_eq, glob_eq = float((sem == sem_c).mean()), float((glob == glob_c).mean())
+    print(f"spark wav main: tokenize {WAV_PROMPT_S} s: {tok_ms:.2f} ms on {card}; global "
+          f"{glob.shape}, semantic {sem.shape}; equal to the CPU's: semantic {sem_eq:.4f}, "
+          f"global {glob_eq:.4f}")
+    check(glob.shape == (1, 1, 32) and sem.shape == (1, n // hop - 1)
+          and 0 <= sem.min() and sem.max() < cfg.quantizer_codebook_size
+          and 0 <= glob.min() and glob.max() < 4096, "spark wav main: tokenize shapes or ids")
+
+    # 4. SparkPipeline at WAV_HIDDEN x WAV_LAYERS, B=1
+    lm_cfg = spark.default_config(hidden_size=WAV_HIDDEN, num_layers=WAV_LAYERS,
+                                  decode_wkv_packed=True)
+    lm = spark.init_params(torch.Generator(device=dev).manual_seed(0), lm_cfg)
+    lm = rwkv7.tree_map(lambda t: t.to(torch.bfloat16) if t.ndim >= 2 else t, lm)
+    pipe = SparkPipeline(lm_cfg, lm, tokenizer.get_world_tokenizer(n_spct=48),
+                         audio_tokenizer=codec)
+    del lm
+    text = "The quick brown fox jumps over the lazy dog near the river at dawn."
+    voice = voices[0, 0].tolist()
+    props = {"gender": "female", "age": "youth-adult", "emotion": "HAPPY"}
+    pipe.synthesize(text, global_tokens=voice, max_new_tokens=8)  # warm
+    L = lm_cfg.backbone.num_layers
+    runs = {}
+    for name, kw in (("global_tokens", {"global_tokens": voice}),
+                     ("properties", {"properties": props}),
+                     ("prompt_wav", {"prompt_wav": clip, "prompt_text": "A prompt spoken."})):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wkv7_cuda.reset_launches()
+        sp.reset_launches()
+        t0 = time.perf_counter()
+        res = pipe.synthesize(text, max_new_tokens=WAV_NEW, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_tok = len(res.semantic_tokens)
+        launches = {"wkv7_fwd": wkv7_cuda.launches["wkv7_fwd"], "wkv7_step": sp.launches}
+        runs[name] = {"wall_s": wall, "tokens": n_tok, "generate_s": res.prefill_s,
+                      "tok_per_s": res.tokens_per_s, "detokenize_ms": 1e3 * res.decode_s,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "launches": launches}
+        prefills = 2 if name == "properties" else 1  # the design's prefill and the text's
+        print(f"spark wav main: synthesize ({name}): {wall:.3f} s wall, {n_tok} tokens, "
+              f"generate {res.prefill_s:.3f} s ({res.tokens_per_s:.1f} tok/s), detokenize "
+              f"{1e3 * res.decode_s:.2f} ms, launches {launches}, peak memory "
+              f"{runs[name]['peak_gib']:.2f} GiB on {card}")
+        check(n_tok > 0 and _wav_ok(res.wav, n_tok, hop),
+              f"spark wav main: synthesize ({name}) wav {res.wav.shape} for {n_tok} tokens")
+        check(launches["wkv7_fwd"] == prefills * L,
+              f"spark wav main: wkv7_fwd launched {launches['wkv7_fwd']} times, want "
+              f"{prefills} x {L}")
+        check(launches["wkv7_step"] >= L * n_tok and launches["wkv7_step"] % L == 0,
+              f"spark wav main: wkv7_step launched {launches['wkv7_step']} times for {n_tok} tokens")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    designed = pipe.design_voice(props)
+    torch.cuda.synchronize()
+    design_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"spark wav main: design_voice {design_ms:.2f} ms on {card}: {designed[:8]}...")
+    check(len(designed) == 32 and all(0 <= t < 4096 for t in designed),
+          "spark wav main: designed voice out of range")
+
+    # 5. requests through the slot pool with the codec attached
+    tts = svc.ContinuousTTSService(pipe, n_slots=8, chunk=32, max_new_tokens=128, top_k=50)
+    got = []
+    finish = tts._finish
+    tts._finish = lambda t, g: (got.append(len(t)), finish(t, g))[1]
+    wkv7_cuda.reset_launches()
+    sp.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        answers = [tts.synthesize(svc.TTSRequest(text=f"{text} {i}",
+                                                 global_tokens=voices[i + 1, 0].tolist(),
+                                                 max_new_tokens=32 * (i + 1)), timeout=600)
+                   for i in range(WAV_REQUESTS)]
+        served_s = time.perf_counter() - t0
+    finally:
+        tts.close()
+    served = {"wkv7_fwd": wkv7_cuda.launches["wkv7_fwd"], "wkv7_step": sp.launches}
+    print(f"spark wav main: {WAV_REQUESTS} requests through ContinuousTTSService with the "
+          f"codec: {served_s:.3f} s, tokens {got}, wav samples {[a.wav.size for a in answers]}, "
+          f"errors {[a.error for a in answers if a.error]}, launches {served}")
+    check(len(got) == WAV_REQUESTS and all(
+        a.error is None and _wav_ok(a.wav, n, hop) for a, n in zip(answers, got)),
+          "spark wav main: served answers without tokens x 320 finite samples")
+    check(served["wkv7_fwd"] > 0 and served["wkv7_step"] > 0,
+          f"spark wav main: the served route launched {served}")
+    return {"detokenize_ms": 1e3 * detok_s, "detokenize_batches": batches,
+            "detokenize_ms_per_batch": 1e3 * detok_s / batches,
+            "detokenize_ms_per_audio_s": 1e3 * detok_s / audio_s, "audio_s": audio_s,
+            "detokenize_peak_gib": detok_peak / 2**30, "row_max_abs": max_abs(w_g, w_c),
+            "tokenize_ms": tok_ms, "tokenize_equal": {"semantic": sem_eq, "global": glob_eq},
+            "synthesize": runs, "design_ms": design_ms, "served_s": served_s,
+            "served_launches": served,
+            "launches_b64_run": {k: gen_run["launches"][k] for k in ("wkv7_fwd",
+                                                                     "decode_b64_step")}}
+
+
 def build_log(log: str) -> None:
     """Print ptxas's registers, shared memory and spills of every kernel,
     and fail if a chunked WKV7 kernel (forward, backward, fused pair)
@@ -2079,6 +2371,8 @@ def main() -> None:
     rows["wkv7_step"] = phase_wkv7_step(dev)
     phase_serve_small(dev)
     serve_run = phase_serve_main(dev, card)
+    phase_spark_wav_small(dev)
+    wav_run = phase_spark_wav_main(dev, card, main_run)
 
     rows["wkv7_fwd"]["launches"] = main_run["launches"]["wkv7_fwd"]
     rows["wkv7_fwd"]["train_forward"] = train_fwd  # its training-shape numbers, unfused path
@@ -2098,6 +2392,7 @@ def main() -> None:
                                   if k not in ("launches", "unfused")}))
     print("cosy: " + json.dumps({k: v for k, v in cosy_run.items() if k != "launches"}))
     print("serve: " + json.dumps({k: v for k, v in serve_run.items() if k != "launches"}))
+    print("spark wav: " + json.dumps(wav_run))
     print(json.dumps({"kernels": [rows[k] for k in ("wkv7_fwd", "decode_b64_step", "wkv7_bwd",
                                                     "wkv7_fused_fwd", "wkv7_fused_bwd",
                                                     "decode_b1_step", "wkv7_step")]}))

@@ -1,6 +1,6 @@
 """Bridge between the JAX package's arrays and the port's tensors, in numpy
-(no JAX import): parameters name for name (both ways), the flow and HiFT
-trees with their convolution weights in PyTorch's layout, the default
+(no JAX import): parameters name for name (both ways), the flow, HiFT and
+BiCodec trees with their convolution weights in PyTorch's layout, the default
 optimizer's Adam moments, and the decode states (B=64 and B=1) between
 the TPU kernels' layouts and the port's natural one.
 
@@ -55,12 +55,16 @@ def conv_from_jax(w) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(np.asarray(w), (2, 1, 0)))
 
 
-def conv_transpose_from_jax(w) -> np.ndarray:
+def conv_transpose_from_jax(w, groups: int = 1) -> np.ndarray:
     """A JAX transposed-conv kernel, stored as the forward conv over the
-    dilated input (K, in, out) with the taps flipped -> PyTorch's
-    ConvTranspose1d weight (in, out, K): w_torch[i, o, k] = w[K-1-k, i, o]
-    (groups = 1)."""
-    return np.ascontiguousarray(np.transpose(np.asarray(w)[::-1], (1, 2, 0)))
+    dilated input (K, in/g, out) with the taps flipped -> PyTorch's
+    ConvTranspose1d weight (in, out/g, K): input channel gi·(in/g) + i and
+    output o of group gi take w[K-1-k, i, gi·(out/g) + o]."""
+    w = np.asarray(w)[::-1]
+    K, cin_g, cout = w.shape
+    w = w.reshape(K, cin_g, groups, cout // groups)       # (k, i, gi, o)
+    w = np.transpose(w, (2, 1, 3, 0))                     # (gi, i, o, k)
+    return np.ascontiguousarray(w.reshape(groups * cin_g, cout // groups, K))
 
 
 def codec_params_from_numpy(tree, device=None, _transposed=False):
@@ -80,6 +84,32 @@ def codec_params_from_numpy(tree, device=None, _transposed=False):
         return out
     if isinstance(tree, (list, tuple)):
         return [codec_params_from_numpy(v, device, _transposed) for v in tree]
+    return to_tensor(tree, device)
+
+
+def bicodec_params_from_numpy(tree, device=None, _transposed=None):
+    """A JAX BiCodec parameter tree (rwkvtts_tpu/codecs/bicodec.py) -> the
+    port's: every 3-D "w" is a convolution kernel (the Vocos stacks' and
+    ECAPA's convolutions) and goes to Conv1d's layout, except under "up"
+    (the wave generator's ConvTranspose1d, groups 1) and "deconv" (the
+    sampling blocks' depthwise ConvTranspose1d, a group a channel).
+    Linears, codebooks, latents and batch-norm statistics keep their
+    layout."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            if k == "w" and np.ndim(v) == 3:
+                if _transposed is None:
+                    w = conv_from_jax(v)
+                else:
+                    w = conv_transpose_from_jax(v, np.shape(v)[2] if _transposed == "deconv" else 1)
+                out[k] = to_tensor(w, device)
+            else:
+                out[k] = bicodec_params_from_numpy(
+                    v, device, k if k in ("up", "deconv") else _transposed)
+        return out
+    if isinstance(tree, (list, tuple)):
+        return [bicodec_params_from_numpy(v, device, _transposed) for v in tree]
     return to_tensor(tree, device)
 
 

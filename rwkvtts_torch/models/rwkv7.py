@@ -82,9 +82,12 @@ class RWKV7Config:
 
 
 def tree_map(fn: Callable, tree):
-    """Apply fn to every tensor leaf of a tree of dicts."""
+    """Apply fn to every tensor leaf of a tree of dicts (and lists, as the
+    codec trees have)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 

@@ -5,15 +5,21 @@ Ported endpoints:
   POST /api/rwkv_tts   {text, speaker? | global_tokens:[int]* | audio (b64
                        wav) + prompt_text?, seed?, temperature?, top_p?,
                        max_new_tokens?} -> audio/wav
+  POST /api/rwkv_tts_instruct  {text, properties: {age, gender, emotion,
+                       pitch, speed}, seed?, ...} -> audio/wav (a voice
+                       designed from the properties)
+  POST /api/voice_design {properties, name?, seed?, global_tokens?} ->
+                       {"global_tokens": [32 ids], "name"}; with name and
+                       global_tokens it saves that designed voice as is
   GET  /api/speakers   -> {"speakers": [...]}
   GET  /api/properties -> the SPCT dropdown vocabularies
   GET  /api/stats      -> engine counters (occupancy, chunk / admit / host
                        seconds, chunk ms a step, queue)
   GET  /health
-The others answer 501 with what is not ported yet: voice design, the
-streaming and instruct endpoints, the studio page, mp3 output. Handler
-threads only queue requests and wait; the service's worker thread alone
-runs the model.
+The others answer 501 with what is not ported yet: the streaming
+endpoint, the studio page, mp3 output. Handler threads only queue
+requests and wait; the service's worker thread alone runs the model
+(voice design runs on the handler's thread, as in the JAX server).
 """
 from __future__ import annotations
 
@@ -28,9 +34,6 @@ from rwkvtts_torch.serving import service as svc
 log = logging.getLogger("rwkvtts_torch.serving")
 
 _NOT_PORTED = {
-    "/api/voice_design": "voice design (spark_global_generate) is not ported yet",
-    "/api/rwkv_tts_instruct": "the instruct endpoint needs voice design "
-                              "(spark_global_generate), which is not ported yet",
     "/api/rwkv_tts_stream": "the streaming endpoint is not ported yet",
     "/": "the voice-design studio page is not ported yet",
     "/demo": "the voice-design studio page is not ported yet",
@@ -74,7 +77,9 @@ def _make_handler(tts: svc.BatchedTTSService):
                 return self._json(400, {"error": "bad json"})
             if self.path in _NOT_PORTED:
                 return self._json(501, {"error": _NOT_PORTED[self.path]})
-            if self.path != "/api/rwkv_tts":
+            if self.path == "/api/voice_design":
+                return self._voice_design(payload)
+            if self.path not in ("/api/rwkv_tts", "/api/rwkv_tts_instruct"):
                 return self._json(404, {"error": "not found"})
             if str(payload.get("audio_format", "wav")).lower() != "wav":
                 return self._json(501, {"error": "only wav output is ported (no mp3 encoder)"})
@@ -91,7 +96,9 @@ def _make_handler(tts: svc.BatchedTTSService):
                     max_new_tokens=(int(payload["max_new_tokens"])
                                     if payload.get("max_new_tokens") else None),
                 )
-                if payload.get("speaker"):
+                if self.path == "/api/rwkv_tts_instruct":
+                    req.properties = payload.get("properties", {})
+                elif payload.get("speaker"):
                     req.speaker = payload["speaker"]
                 elif payload.get("global_tokens"):
                     req.global_tokens = [int(t) for t in payload["global_tokens"]]
@@ -111,6 +118,24 @@ def _make_handler(tts: svc.BatchedTTSService):
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
+
+        def _voice_design(self, payload):
+            properties = payload.get("properties")
+            if not isinstance(properties, dict):
+                return self._json(400, {"error": "missing properties"})
+            name = payload.get("name")
+            try:
+                if name and payload.get("global_tokens"):
+                    # save a voice designed earlier, as it is
+                    tokens = [int(t) for t in payload["global_tokens"]]
+                    tts.speakers.register(name, tokens)
+                else:
+                    tokens = tts.design_voice(properties, name=name,
+                                              seed=int(payload.get("seed", 0)))
+            except Exception as e:  # noqa: BLE001 — the server must answer
+                log.exception("voice design failed")
+                return self._json(500, {"error": str(e)})
+            return self._json(200, {"global_tokens": tokens, "name": name})
 
     return Handler
 

@@ -3,15 +3,19 @@
 
 Loads an RWKV7ForSpeech checkpoint (HF safetensors, torch .pt, BlinkDL
 .pth through convert/rwkv7_ckpt), casts the matrices to bf16, packs the
-decode weights and serves /api/rwkv_tts from the continuous batcher on the
-card (``--device cpu`` runs the plain versions instead):
+decode weights, loads the BiCodec codec of a Spark-TTS model directory
+(``--codec-dir``: BiCodec/ and wav2vec2-large-xlsr-53/) and serves
+/api/rwkv_tts, /api/rwkv_tts_instruct and /api/voice_design from the
+continuous batcher on the card (``--grouped``: the same-voice grouping
+dispatcher; ``--device cpu`` runs the plain versions instead):
 
-    python -m rwkvtts_torch.serving.launch --ckpt model.safetensors --port 8000
+    python -m rwkvtts_torch.serving.launch --ckpt model.safetensors \
+        --codec-dir Spark-TTS-0.5B --port 8000
 
 Defaults are the JAX launcher's: 96 slots, 32-step chunks, fused decode
 projections, the in-place WKV step with an f32 carry, top-k 50 / top-p
-0.95. Not ported yet: the BiCodec codec (--codec-dir; answers carry no
-audio until it is), int4, --family cosy, --grouped and --dp.
+0.95. Without --codec-dir the answers carry no audio. Not ported yet:
+int4, --family cosy and --dp.
 """
 from __future__ import annotations
 
@@ -44,8 +48,6 @@ def build_pipeline(ckpt: str, codec_dir: Optional[str] = None, packed_wkv: bool 
     from rwkvtts_torch.utils import tokenizer
 
     dev = _device(device)
-    if codec_dir:
-        raise NotImplementedError("the BiCodec codec (--codec-dir) is not ported yet")
     sd = rwkv7_ckpt.load_torch_or_safetensors(ckpt)
     kw = rwkv7_ckpt.infer_config_kwargs(sd)
     cfg = spark.default_config(
@@ -56,9 +58,14 @@ def build_pipeline(ckpt: str, codec_dir: Optional[str] = None, packed_wkv: bool 
     params = bridge.params_from_numpy(speech_init.spark_from_pretrained_sd(sd, cfg), dev)
     del sd
     params = rwkv7.tree_map(lambda t: t.to(torch.bfloat16) if t.dim() >= 2 else t, params)
+    codec = None
+    if codec_dir:
+        from rwkvtts_torch.codecs.spark_tokenizer import SparkAudioTokenizer
+
+        codec = SparkAudioTokenizer.from_pretrained(codec_dir, device=dev)
     tok = tokenizer.get_world_tokenizer(n_spct=48)
-    return SparkPipeline(cfg, params, tok, quantize_int8=int8, quantize_int4=int4,
-                         fuse_projections=fuse_projections)
+    return SparkPipeline(cfg, params, tok, audio_tokenizer=codec, quantize_int8=int8,
+                         quantize_int4=int4, fuse_projections=fuse_projections)
 
 
 def build_service(pipeline, demo_dir: Optional[str] = None, continuous: bool = True,
@@ -68,9 +75,9 @@ def build_service(pipeline, demo_dir: Optional[str] = None, continuous: bool = T
                   overlap: bool = False, megakernel: bool = False):
     from rwkvtts_torch.serving import service as svc
 
-    if not continuous:
-        raise NotImplementedError("the grouped dispatcher (--grouped) is not ported yet")
     speakers = svc.SpeakerLibrary(demo_dir, codec=pipeline.codec)
+    if not continuous:
+        return svc.BatchedTTSService(pipeline, speakers, max_new_tokens=max_new_tokens)
     return svc.ContinuousTTSService(
         pipeline, speakers, n_slots=n_slots, chunk=chunk, max_new_tokens=max_new_tokens,
         top_k=top_k, top_p=top_p, temperature=temperature, warmup=warmup,
@@ -104,7 +111,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--top-p", type=float, default=None)
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--grouped", action="store_true",
-                    help="same-voice grouping dispatcher (not ported)")
+                    help="same-voice grouping dispatcher instead of the slot pool")
     ap.add_argument("--dp", type=int, default=1, help="slot pool over dp devices (not ported)")
     ap.add_argument("--overlap", action="store_true",
                     help="dispatch chunk N+1 before reading chunk N's tokens")
@@ -132,8 +139,9 @@ def main(argv=None):
     top_k, top_p = sampling_defaults(args.family, args.top_k, args.top_p)
     if args.family == "cosy":
         raise SystemExit("--family cosy waits for serving/cosy_pool.py, which is not ported yet")
-    if args.grouped:
-        raise SystemExit("--grouped: the same-voice dispatcher is not ported yet")
+    if args.grouped and args.mega:
+        raise SystemExit("--grouped decodes through the pipeline, not the B=64 pool: "
+                         "drop --mega")
     if args.dp > 1:
         raise SystemExit("--dp: a slot pool over several devices is not ported yet")
     if args.int4:
@@ -153,7 +161,7 @@ def main(argv=None):
         state_bf16=args.state_bf16, fuse_projections=not args.mega, device=args.device,
     )
     tts = build_service(
-        pipeline, args.demo_dir, n_slots=n_slots, chunk=args.chunk,
+        pipeline, args.demo_dir, continuous=not args.grouped, n_slots=n_slots, chunk=args.chunk,
         max_new_tokens=args.max_new_tokens, top_k=top_k, top_p=top_p,
         temperature=args.temperature, warmup=not args.no_warmup,
         warmup_widths=([int(w) for w in args.warmup_widths.split(",")]

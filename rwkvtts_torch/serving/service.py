@@ -1,18 +1,19 @@
 """TTS serving core (counterpart of rwkvtts_tpu/serving/service.py): the
-request and response types, the speaker library, the worker-thread service
-base, and ``ContinuousTTSService``, which admits every request into a
-``ContinuousBatcher`` slot.
+request and response types, the speaker library, ``BatchedTTSService``
+(the grouped same-voice dispatcher: queued requests that share a voice
+go through one batched ``SparkPipeline.synthesize``) and
+``ContinuousTTSService``, which admits every request into a
+``ContinuousBatcher`` slot and detokenizes each finished row through the
+pipeline's BiCodec codec.
 
-One worker thread owns the pool and is the only thread that touches the
+One worker thread owns the model and is the only thread that touches the
 card; client threads (the HTTP handlers) put a request on a queue and wait
 on an event. ``torch.inference_mode`` and the current CUDA device are
 thread-local, so the worker sets both itself.
 
-Not ported yet: the grouped same-voice dispatcher (``BatchedTTSService``'s
-own ``_run`` / ``_process``), streaming (``stream``), the Cosy service, and
-audio: until BiCodec is ported a finished request is answered with its
-tokens counted and an empty wav, as the JAX service answers when no codec
-is loaded.
+Not ported yet: streaming (``stream``) and the Cosy service. Without a
+codec a finished request is answered with an empty wav, as the JAX
+service answers.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import os
 import queue
 import struct
 import threading
+import time
 import wave
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -105,19 +107,20 @@ def _error(msg: str, sample_rate: int = 16000) -> TTSResponse:
 
 
 class BatchedTTSService:
-    """The worker-thread service base: a request queue, one worker thread,
-    ``synthesize`` (the blocking client API), ``close`` and ``stats``.
-    Subclasses give the worker's loop (``_run``); the grouped same-voice
-    dispatcher of the JAX package, this class's own loop, is not ported
-    yet."""
+    """A request queue and one worker thread, with ``synthesize`` (the
+    blocking client API), ``design_voice``, ``close`` and ``stats``. Its
+    own worker is the grouped dispatcher: it takes the first queued
+    request, gathers for up to `max_wait_ms` the next ones that share its
+    voice (at most `max_batch`), and runs them as one batched
+    ``pipeline.synthesize``; a request of another voice goes back on the
+    queue for the next round."""
 
     def __init__(self, pipeline, speakers: Optional[SpeakerLibrary] = None,
-                 max_new_tokens: int = 1024):
-        if type(self) is BatchedTTSService:
-            raise NotImplementedError(
-                "the grouped same-voice dispatcher is not ported yet; use ContinuousTTSService")
+                 max_batch: int = 8, max_wait_ms: float = 30.0, max_new_tokens: int = 1024):
         self.pipeline = pipeline
         self.speakers = speakers or SpeakerLibrary(None)
+        self.max_batch = max_batch
+        self.max_wait_ms = max_wait_ms
         self.max_new_tokens = max_new_tokens
         self._q: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
@@ -132,15 +135,85 @@ class BatchedTTSService:
             return _error("timeout")
         return box["resp"]
 
+    def design_voice(self, properties: Dict[str, Any], name: Optional[str] = None,
+                     seed: int = 0) -> List[int]:
+        """SPCT properties -> 32 global speaker tokens; with `name`, saved in
+        the speaker library for later requests."""
+        tokens = self.pipeline.design_voice(properties, seed=seed)
+        if name:
+            self.speakers.register(name, tokens)
+        return tokens
+
     def close(self):
         self._stop.set()
         self._worker.join(timeout=5)
 
     def stats(self) -> Dict[str, Any]:
-        raise NotImplementedError
+        """The grouped dispatcher reports its queue depth only."""
+        return {"mode": "grouped", "queued": self._q.qsize()}
+
+    # -- the grouped dispatcher ----------------------------------------------
+
+    def _voice_key(self, req: TTSRequest):
+        if req.speaker:
+            return ("spk", req.speaker)
+        if req.global_tokens:
+            return ("glob", tuple(req.global_tokens))
+        if req.properties:
+            return ("props", tuple(sorted(req.properties.items())))
+        return ("unique", id(req))
 
     def _run(self):
-        raise NotImplementedError
+        dev = getattr(self.pipeline, "device", None)
+        if dev is not None and dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        while not self._stop.is_set():
+            try:
+                first = self._q.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            batch = [first]
+            deadline = time.perf_counter() + self.max_wait_ms / 1e3
+            key0 = self._voice_key(first[0])
+            while len(batch) < self.max_batch and time.perf_counter() < deadline:
+                try:
+                    item = self._q.get(timeout=max(deadline - time.perf_counter(), 0.001))
+                except queue.Empty:
+                    break
+                if self._voice_key(item[0]) != key0:
+                    self._q.put(item)  # another voice: the next round
+                    break
+                batch.append(item)
+            self._process(batch)
+
+    def _process(self, batch):
+        reqs = [b[0] for b in batch]
+        try:
+            r0 = reqs[0]
+            # the batch decodes to its longest cap, rounded up to whole chunks
+            cap = max(min(r.max_new_tokens or self.max_new_tokens, self.max_new_tokens)
+                      for r in reqs)
+            cap = min(-(-cap // 64) * 64, self.max_new_tokens)
+            kw: Dict[str, Any] = {"max_new_tokens": cap, "seed": r0.seed,
+                                  "temperature": r0.temperature, "top_k": r0.top_k,
+                                  "top_p": r0.top_p}
+            if r0.speaker:
+                kw["global_tokens"] = self.speakers.get(r0.speaker)["global_tokens"]
+            elif r0.global_tokens:
+                kw["global_tokens"] = list(r0.global_tokens)
+            elif r0.prompt_wav is not None:
+                kw["prompt_wav"], kw["prompt_text"] = r0.prompt_wav, r0.prompt_text
+            elif r0.properties is not None:
+                kw["properties"] = r0.properties
+            results = self.pipeline.synthesize([r.text for r in reqs], **kw)
+            for (_req, done, box), res in zip(batch, results):
+                box["resp"] = TTSResponse(res.wav, res.sample_rate)
+                done.set()
+        except Exception as e:  # noqa: BLE001 — the service must answer
+            log.exception("grouped synthesis failed")
+            for _req, done, box in batch:
+                box["resp"] = _error(str(e))
+                done.set()
 
 
 class ContinuousTTSService(BatchedTTSService):

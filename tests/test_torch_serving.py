@@ -305,9 +305,11 @@ def test_service_answers_concurrent_mixed_voices(service):
     assert all(r.error is None and r.wav.size == 0 for r in res)
     st = service.stats()
     assert st["mode"] == "continuous" and st["admitted"] >= 8 and 0 < st["occupancy"] <= 1
-    # a properties request needs voice design, which is not ported: an error says so
-    r = service.synthesize(tsvc.TTSRequest(text="x", properties={"gender": "male"}))
-    assert r.error and "spark_global_generate" in r.error
+    # a properties request is answered through voice design (no codec here:
+    # an empty wav, as for the others)
+    r = service.synthesize(tsvc.TTSRequest(text="x", properties={"gender": "male"},
+                                           max_new_tokens=4))
+    assert r.error is None and r.wav.size == 0
 
 
 def _http(port, path, body=None):
@@ -333,11 +335,17 @@ def test_http_endpoints(service):
                                    "max_new_tokens": 6})
         assert (code, ctype) == (200, "audio/wav") and body[:4] == b"RIFF"
         assert _http(port, "/api/rwkv_tts", {"text": "no voice"})[0] == 400
-        for path, body in (("/api/voice_design", {"properties": {}}),
-                           ("/api/rwkv_tts_stream", {"text": "x"}),
-                           ("/api/rwkv_tts_instruct", {"text": "x"})):
-            code, _, msg = _http(port, path, body)
-            assert code == 501 and b"not ported" in msg, path
+        # voice design answers 32 global tokens; the instruct endpoint a wav
+        code, _, msg = _http(port, "/api/voice_design", {"properties": {}})
+        designed = json.loads(msg)["global_tokens"]
+        assert code == 200 and len(designed) == 32 and all(0 <= t < 4096 for t in designed)
+        assert _http(port, "/api/voice_design", {"name": "no properties"})[0] == 400
+        code, ctype, body = _http(port, "/api/rwkv_tts_instruct",
+                                  {"text": "x", "properties": {"gender": "male"},
+                                   "max_new_tokens": 4})
+        assert (code, ctype) == (200, "audio/wav") and body[:4] == b"RIFF"
+        code, _, msg = _http(port, "/api/rwkv_tts_stream", {"text": "x"})
+        assert code == 501 and b"not ported" in msg
         assert _http(port, "/")[0] == 501
         assert _http(port, "/nowhere")[0] == 404
     finally:
@@ -464,8 +472,8 @@ def test_checkpoint_readers_match_jax(naming, stacked_x):
     assert tckpt.infer_config_kwargs(sd) == jckpt.infer_config_kwargs(sd)
 
 
-@pytest.mark.parametrize("flags", [["--mega", "--int8"], ["--family", "cosy"], ["--grouped"],
-                                   ["--int4"], ["--dp", "2"]])
+@pytest.mark.parametrize("flags", [["--mega", "--int8"], ["--family", "cosy"],
+                                   ["--grouped", "--mega"], ["--int4"], ["--dp", "2"]])
 def test_launcher_refuses_what_it_cannot_serve(flags):
     with pytest.raises(SystemExit):
         launch.main(["--ckpt", "unused.safetensors", *flags])
