@@ -18,7 +18,12 @@ slots, 32-step chunks, the in-place WKV step), the traffic of
 on it: BiCodec at the published Spark-TTS-0.5B widths and the
 wav2vec2-large-xlsr-53 frontend's shape (random weights from a seed),
 ``SparkPipeline.synthesize`` / ``design_voice`` and the server's answers
-with audio.
+with audio; then CosyVoice zero-shot from a prompt wav at the 1.5B pairing
+with the S3 tokenizer and CAM++ at their published widths
+(``CosyPipeline.synthesize`` on both decode routes, cross-lingual,
+instruct, voice conversion), and Cosy B=64 offline generation at 2048 x
+24, the configuration of ``benchmarks/bench_generate_mega_ab.py --family
+cosy --hidden 2048``.
 
 Phases, each printing its own lines; any failure raises, so the run exits
 non-zero and prints no result:
@@ -102,6 +107,26 @@ non-zero and prints no result:
              requests through ContinuousTTSService with the codec; ms a
              detokenize batch and per audio second, tokenize ms, synthesize
              wall and tok/s, design ms, launches, peak memory
+ 19. cosy zs small  the four Cosy goldens (tests/goldens/{s3_onnx,
+             campplus_onnx,flow,hift}.npz) through the port's importers on the
+             card, at the JAX golden tests' gates; a zero-shot synthesize from
+             a prompt wav at LM 256 x 2 (bf16, head x 10) with tiny flow /
+             HiFT / S3 / CAM++ on both decode routes, card vs CPU (prompt
+             tokens, embedding, generated tokens); cosy_generate_mega_b64 at
+             256 x 2, B = 64, 4 steps, card vs CPU on one set of noise
+ 20. cosy zs main  the 1.5B pairing (RWKV-7 2048 x 24 bf16, FlowConfig(),
+             HiFTConfig(), S3TokenizerConfig(), CampplusConfig(), random
+             weights): frontend_zero_shot of a 6 s prompt (S3 and CAM++ ms,
+             150 tokens, 300 mel frames, the S3 tokens' share equal to the
+             CPU's), then synthesize (200 characters, 400 new tokens) on the
+             B=1 kernel route and on the rwkv7.decode_step route,
+             cross-lingual, instruct and voice conversion of a 6 s source,
+             each once warm and once timed: wall, LM and flow s, RTF, LM ms a
+             token, launches by kernel, samples = 960 x tokens, peak memory
+ 21. cosy b64  kernel 1 at 2048 x 24 vs decode_step_plain (2 steps), its ms
+             and bound; cosy_generate_mega_b64 at 2048 x 24 bf16, int8
+             decode, B = 64, 128 + 256 tokens at top-k 25 / top-p 0.8: audio
+             tok/s with the prefill, 8 L + 2 launches a token, peak memory
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -153,8 +178,16 @@ SERVE_SLOTS, SERVE_CHUNK, SERVE_MAX_NEW, SERVE_REQUESTS = 96, 32, 256, 192
 # new tokens, the requests served with the codec
 WAV_HIDDEN, WAV_LAYERS = 1024, 24
 WAV_ROWS, WAV_CHECK_TOKENS, WAV_PROMPT_S, WAV_NEW, WAV_REQUESTS = 16, 50, 6.0, 256, 4
-GOLDEN_BICODEC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens",
-                              "bicodec.npz")
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens")
+GOLDEN_BICODEC = os.path.join(GOLDEN_DIR, "bicodec.npz")
+
+# the Cosy zero-shot route: the 1.5B pairing with S3 and CAM++ at their
+# published widths, a 6 s prompt, 200-character texts, 400 new tokens (the
+# warm-up runs decode ZS_WARM_NEW); then Cosy B=64 offline generation at
+# 2048 x 24 (bench_generate_mega_ab.py --family cosy --hidden 2048), top-k
+# 25 / top-p 0.8
+ZS_PROMPT_S, ZS_NEW, ZS_WARM_NEW = 6.0, 400, 16
+COSY_B64_NEW = 256
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FMA, and bf16
 # and TF32 tensor-core FLOP/s; the bound of a kernel is the larger of its
@@ -640,25 +673,31 @@ def phase_main(dev, card: str, per_step: dict) -> dict:
             "lengths": lengths}
 
 
-def end_to_end_of_tree(what: str = "e2e") -> dict:
-    """The four main paths' end-to-end numbers (phases 6, 10, 13 and 16:
+def end_to_end_of_tree(what: str = "e2e",
+                       paths: tuple = ("gen", "train", "cosy", "serve")) -> dict:
+    """The main paths' end-to-end numbers (phases 6, 10, 13 and 16:
     generation tok/s, the fused and the unfused train step, Cosy TTFA, RTF
-    and LM ms a token, the server's sustained tok/s) with whichever
-    rwkvtts_torch is imported, without the kernel phases' checks: from the
-    root of another checkout, with this file copied there, it measures that
-    tree the same way, e.g. the parent, in turns with this one."""
+    and LM ms a token, the server's sustained tok/s; `paths` picks among
+    them) with whichever rwkvtts_torch is imported, without the kernel
+    phases' checks: from the root of another checkout, with this file
+    copied there, it measures that tree the same way, e.g. the parent, in
+    turns with this one."""
     dev = torch.device("cuda", 0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    gen = phase_main(dev, card, {})
-    train = phase_train_main(dev, card)
-    cosy = phase_cosy_main(dev, card, float("nan"))
-    serve = phase_serve_main(dev, card)
-    out = {"gen_tok_per_s": gen["tok_per_s"], "train_step_ms": train["step_ms"],
-           "unfused_step_ms": train["unfused_step_ms"], "cosy_ttfa_ms": cosy["ttfa_ms"],
-           "cosy_rtf": cosy["rtf"], "cosy_lm_ms_per_token": cosy["lm_ms_per_token"],
-           "serve_tok_per_s": serve["tok_per_s"]}
+    out = {}
+    if "gen" in paths:
+        out["gen_tok_per_s"] = phase_main(dev, card, {})["tok_per_s"]
+    if "train" in paths:
+        train = phase_train_main(dev, card)
+        out.update(train_step_ms=train["step_ms"], unfused_step_ms=train["unfused_step_ms"])
+    if "cosy" in paths:
+        cosy = phase_cosy_main(dev, card, float("nan"))
+        out.update(cosy_ttfa_ms=cosy["ttfa_ms"], cosy_rtf=cosy["rtf"],
+                   cosy_lm_ms_per_token=cosy["lm_ms_per_token"])
+    if "serve" in paths:
+        out["serve_tok_per_s"] = phase_serve_main(dev, card)["tok_per_s"]
     print(f"{what}: " + json.dumps(out))
     return out
 
@@ -672,6 +711,24 @@ def spark_wav_of_tree(what: str = "spark wav") -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     out = phase_spark_wav_main(dev, card, phase_main(dev, card, {}))
+    print(f"{what}: " + json.dumps(out))
+    return out
+
+
+def cosy_zs_of_tree(what: str = "cosy zs") -> dict:
+    """Phases 19-21 alone (the Cosy goldens, the small zero-shot and B=64
+    checks against the CPU, the zero-shot route at the 1.5B pairing, Cosy
+    B=64 at 2048 x 24) with whichever rwkvtts_torch is imported, TF32 off;
+    prints their numbers as one JSON line."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(card)
+    phase_cosy_zs_small(dev)
+    out = {"zs": phase_cosy_zs_main(dev, card), "b64": phase_cosy_b64(dev, card)}
+    out["b64"].pop("by_kernel")
     print(f"{what}: " + json.dumps(out))
     return out
 
@@ -1378,7 +1435,8 @@ def phase_cosy_small(dev) -> None:
                                   lm_chunk=4)
     out = {}
     for where in ("cpu", dev):
-        pipe = CosyPipeline(cfg, params, CharTok(), fcfg, fparams, hcfg, hparams, device=where)
+        pipe = CosyPipeline(cfg, params, CharTok(), fcfg, fparams, hcfg, hparams,
+                            decode_megakernel=True, device=where)
         toks = []
         with _Tap(gen, "cosy_decode_chunk", lambda o, *_: toks.append(o[1].cpu())):
             wav = list(streaming.stream_synthesize(pipe, "hello streaming", stream_cfg=scfg,
@@ -2319,6 +2377,375 @@ def phase_spark_wav_main(dev, card: str, gen_run: dict) -> dict:
                                                                      "decode_b64_step")}}
 
 
+# ---------------------------------------------------------------------------
+# 19-21. Cosy zero-shot from a prompt wav, then Cosy B=64 offline generation
+# ---------------------------------------------------------------------------
+
+
+def golden_cosy_configs():
+    """tests/golden_configs.py's reduced flow and HiFT and the reduced S3 /
+    CAM++ of tests/test_goldens.py's ONNX goldens, in the port's types."""
+    from rwkvtts_torch.codecs import campplus as cp
+    from rwkvtts_torch.codecs import conformer, flow, hift
+    from rwkvtts_torch.codecs import s3_tokenizer as s3
+
+    fcfg = flow.FlowConfig(
+        input_size=512, output_size=80, spk_embed_dim=24, vocab_size=50, token_mel_ratio=2,
+        pre_lookahead_len=3,
+        encoder=conformer.UpsampleConformerConfig(input_size=512, output_size=512,
+                                                  attention_heads=8, linear_units=64,
+                                                  num_blocks=1, num_up_blocks=4),
+        estimator=flow.EstimatorConfig(in_channels=320, out_channels=80, channels=(16,),
+                                       n_blocks=1, num_mid_blocks=1, num_heads=2,
+                                       attention_head_dim=4, static_chunk_size=0),
+        cfm=flow.CFMConfig(inference_cfg_rate=0.7))
+    hcfg = hift.HiFTConfig(in_channels=16, base_channels=32, sampling_rate=24000,
+                           upsample_rates=(8, 5, 3), upsample_kernel_sizes=(16, 11, 7),
+                           source_resblock_kernel_sizes=(7, 7, 11),
+                           source_resblock_dilation_sizes=((1, 3, 5),) * 3, f0_cond_channels=24)
+    s3cfg = s3.S3TokenizerConfig(n_mels=16, d_model=32, layers=2, heads=2, ffn_dim=64, fsq_dim=8)
+    ccfg = cp.CampplusConfig(feat_dim=16, embedding_size=24, m_channels=4, init_channels=16,
+                             growth_rate=4, bn_size=2, block_layers=(2, 2),
+                             block_dilations=(1, 2), seg_len=8)
+    return fcfg, hcfg, s3cfg, ccfg
+
+
+def prompt_clip(seconds: float, sr: int = 16000, seed: int = 0):
+    """A voiced-looking synthetic clip: a 180 Hz tone with a slow vibrato
+    and its second harmonic, plus noise."""
+    import numpy as np
+
+    t = np.arange(int(seconds * sr)) / sr
+    ph = 2 * np.pi * (180.0 * t + 3.0 * np.sin(2 * np.pi * 0.7 * t))
+    rng = np.random.default_rng(seed)
+    return (0.3 * np.sin(ph) + 0.1 * np.sin(2 * ph)
+            + 0.02 * rng.standard_normal(t.size)).astype(np.float32)
+
+
+def phase_cosy_zs_small(dev) -> None:
+    """The four Cosy goldens through the port's importers on the card, at the
+    JAX golden tests' gates; a zero-shot synthesize at LM 256 x 2 (bf16,
+    head x 10) with tiny flow / HiFT / S3 / CAM++ on both decode routes,
+    card vs CPU; cosy_generate_mega_b64 at 256 x 2 (f32), B = 64, 4 steps,
+    card vs CPU on the same noise."""
+    import numpy as np
+
+    from rwkvtts_torch.codecs import campplus as cp
+    from rwkvtts_torch.codecs import cosy_import, flow, hift
+    from rwkvtts_torch.codecs import s3_tokenizer as s3
+    from rwkvtts_torch.infer import generate as gen
+    from rwkvtts_torch.infer.cosy_pipeline import CosyPipeline
+    from rwkvtts_torch.models import cosy, rwkv7
+    from rwkvtts_torch.ops import decode_mega_b64 as dmb
+    from rwkvtts_torch.ops import sampling
+    from rwkvtts_torch.utils import fixtures
+
+    # 1. the goldens
+    fcfg, hcfg, s3cfg, ccfg = golden_cosy_configs()
+    with tempfile.TemporaryDirectory() as tmp:
+        onnx = {}
+        for name in ("s3_onnx", "campplus_onnx"):
+            g = np.load(os.path.join(GOLDEN_DIR, f"{name}.npz"))
+            onnx[name] = (os.path.join(tmp, f"{name}.onnx"), g)
+            with open(onnx[name][0], "wb") as f:
+                f.write(g["onnx"].tobytes())
+        path, g = onnx["s3_onnx"]
+        tokens, _ = s3.encode_mel(s3.s3_from_onnx(path, s3cfg, dev), s3cfg,
+                                  torch.from_numpy(g["mel"]).to(dev))
+        s3_same = tokens.cpu().numpy().tolist() == g["tokens"].tolist()
+        path, g = onnx["campplus_onnx"]
+        emb = cp.apply(cp.load_campplus_onnx(path, ccfg, dev), ccfg,
+                       torch.from_numpy(g["feat"]).to(dev))
+        emb_err = max_abs(emb.cpu(), torch.from_numpy(g["emb"]))
+    sd, io = fixtures.load_golden(os.path.join(GOLDEN_DIR, "flow.npz"))
+    tok = torch.from_numpy(np.concatenate([io["prompt_token"], io["token"]], 1)).to(dev)
+    mel = flow.inference(cosy_import.flow_from_state_dict(sd, fcfg, dev), fcfg, tok,
+                         torch.ones(tok.shape, device=dev),
+                         torch.from_numpy(io["prompt_feat"]).to(dev), io["prompt_feat"].shape[1],
+                         torch.from_numpy(io["embedding"]).to(dev),
+                         torch.from_numpy(io["noise"]).transpose(1, 2).to(dev))
+    mel_err = max_abs(mel.cpu(), torch.from_numpy(io["mel"]).transpose(1, 2))
+    sd, io = fixtures.load_golden(os.path.join(GOLDEN_DIR, "hift.npz"))
+    hp = cosy_import.hift_from_state_dict(sd, hcfg, dev)
+    hmel = torch.from_numpy(io["mel"]).transpose(1, 2).to(dev)
+    f0_err = max_abs(hift.f0_predict(hp["f0_predictor"], hmel).cpu(), torch.from_numpy(io["f0"]))
+    wav_err = max_abs(hift.decode(hp, hcfg, hmel, torch.from_numpy(io["source"]).to(dev)).cpu(),
+                      torch.from_numpy(io["wav"]))
+    print(f"cosy zs small: goldens on the card vs the reference's outputs: S3 tokens equal "
+          f"{s3_same}; CAM++ embedding max|d| {emb_err:.3e} (limit 1e-4); flow mel {mel_err:.3e} "
+          f"(limit 5e-3); HiFT f0 {f0_err:.3e} (limit 1e-4), wav {wav_err:.3e} (limit 2e-3)")
+    check(s3_same and emb_err <= 1e-4 and mel_err <= 5e-3 and f0_err <= 1e-4
+          and wav_err <= 2e-3, "cosy zs small: a golden disagrees with the reference's outputs")
+
+    # 2. zero-shot synthesize on both decode routes, card vs CPU (bf16, the
+    # B=1 kernel's dtype; top-k 1 as phase 12, the RAS fallback on its noise)
+    cfg = cosy.default_config(hidden_size=256, num_layers=2)
+    g = torch.Generator().manual_seed(31)
+    params = cosy.init_params(g, cfg)
+    randomize(params, g)
+    params["head"] = 10.0 * params["head"]  # draws far from a near-tie
+    fcfg, fparams, hcfg, hparams = tiny_codecs()
+    s3cfg = s3.S3TokenizerConfig(d_model=64, layers=2, heads=2, ffn_dim=128)
+    ccfg = cp.CampplusConfig(embedding_size=fcfg.spk_embed_dim, m_channels=8, init_channels=32,
+                             growth_rate=8, block_layers=(2, 2, 2))
+    s3p = s3.init_params(torch.Generator().manual_seed(32), s3cfg)
+    cpp = cp.init_params(torch.Generator().manual_seed(33), ccfg)
+    clip = prompt_clip(2.0, seed=1)
+    out = {}
+    for where in ("cpu", dev):
+        for route in ("decode_step", "b1_kernel"):
+            pipe = CosyPipeline(cfg, params, CharTok(), fcfg, fparams, hcfg, hparams,
+                                s3_cfg=s3cfg, s3_params=s3p, campplus_cfg=ccfg,
+                                campplus_params=cpp, decode_megakernel=route == "b1_kernel",
+                                device=where)
+            front = pipe.frontend_zero_shot(clip)
+            res = pipe.synthesize("hello zero shot", prompt_wav=clip, prompt_text="a prompt",
+                                  max_new_tokens=24, seed=3, top_k=1)
+            out[(str(where), route)] = (front, res)
+    up = hcfg.total_upsample * fcfg.token_mel_ratio
+    for route in ("decode_step", "b1_kernel"):
+        (ft_c, fm_c, fe_c), r_c = out[("cpu", route)]
+        (ft_g, fm_g, fe_g), r_g = out[(str(dev), route)]
+        e_emb = float(np.abs(fe_g - fe_c).max() / np.abs(fe_c).max())
+        same_prompt = ft_g.tolist() == ft_c.tolist()
+        same = r_g.speech_tokens.tolist() == r_c.speech_tokens.tolist()
+        finite = bool(np.isfinite(r_g.wav).all() and np.isfinite(r_c.wav).all())
+        print(f"cosy zs small: LM 256 x 2 bf16, {route} route, card vs CPU: prompt tokens "
+              f"({len(ft_g)}) equal {same_prompt}, embedding rel {e_emb:.3e} (limit 1e-4), "
+              f"prompt mel max|d| {float(np.abs(fm_g - fm_c).max()):.3e}; generated tokens "
+              f"({len(r_g.speech_tokens)}) equal {same}; wav {r_g.wav.shape} finite {finite}")
+        if not same:
+            d = next(i for i, (a, b) in enumerate(zip(r_g.speech_tokens, r_c.speech_tokens))
+                     if a != b)
+            print(f"cosy zs small: {route}: first differing token at {d}: card "
+                  f"{r_g.speech_tokens[d:d + 4].tolist()} cpu {r_c.speech_tokens[d:d + 4].tolist()}")
+        check(same_prompt and e_emb <= 1e-4 and same and finite
+              and r_g.wav.shape == (len(r_g.speech_tokens) * up,),
+              f"cosy zs small: the {route} route on the card disagrees with the CPU")
+
+    # 3. Cosy B=64 generation through kernel 1, card vs CPU, one set of noise,
+    # f32 as phase 5
+    cfg = cosy.default_config(hidden_size=256, num_layers=2, dtype=torch.float32)
+    n_new, V = 4, cfg.speech_head_size
+    noise = sampling.ras_noise(torch.Generator().manual_seed(34), n_new, B, 25, V)
+    gp = torch.Generator().manual_seed(35)
+    tokens = torch.randint(0, 4000, (B, 16), generator=gp)
+    modality = torch.full((B, 16), cosy.MOD_TEXT)
+    mask = torch.ones(B, 16, dtype=torch.int32)
+    toks = {}
+    for where in ("cpu", dev):
+        p = rwkv7.tree_map(lambda t: t.to(where), params)
+        toks[str(where)], _ = gen.cosy_generate_mega_b64(
+            p, dmb.pack_mega_b64(p, cfg.backbone), cfg,
+            *(t.to(where) for t in (tokens, modality, mask)), max_new_tokens=n_new,
+            noise=tuple(t.to(where) for t in noise))
+    diff = (toks[str(dev)].cpu() != toks["cpu"]).nonzero().tolist()
+    print(f"cosy zs small: cosy_generate_mega_b64 at 256 x 2, B={B}, {n_new} steps, top-k 25 / "
+          f"top-p 0.8 on one set of noise: card vs CPU tokens differ at {diff}")
+    check(not diff, "cosy zs small: the B=64 Cosy generation disagrees with the CPU")
+
+
+def phase_cosy_zs_main(dev, card: str) -> dict:
+    """The zero-shot route at the 1.5B pairing: frontend_zero_shot of a 6 s
+    prompt (S3 and CAM++ ms, tokens, mel frames, the S3 tokens' share equal
+    to the CPU's), then synthesize on both decode routes, cross-lingual,
+    instruct and voice conversion, each once warm and once timed."""
+    import numpy as np
+
+    from rwkvtts_torch.codecs import campplus as cp
+    from rwkvtts_torch.codecs import flow, hift
+    from rwkvtts_torch.codecs import s3_tokenizer as s3
+    from rwkvtts_torch.infer.cosy_pipeline import CosyPipeline
+    from rwkvtts_torch.models import cosy, rwkv7
+    from rwkvtts_torch.ops import decode_mega as dm
+    from rwkvtts_torch.ops import wkv7_cuda
+    from rwkvtts_torch.ops import wkv7_step_packed as sp
+
+    t0 = time.perf_counter()
+    cfg = cosy.default_config(hidden_size=COSY_C, num_layers=COSY_L)
+    params = cosy.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    params = rwkv7.tree_map(lambda t: t.to(torch.bfloat16) if t.ndim >= 2 else t, params)
+    fcfg, hcfg = flow.FlowConfig(), hift.HiFTConfig()
+    s3cfg, ccfg = s3.S3TokenizerConfig(), cp.CampplusConfig()
+    gen_dev = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    common = (cfg, params, CharTok(), fcfg, flow.init_params(gen_dev(1), fcfg), hcfg,
+              hift.init_params(gen_dev(2), hcfg))
+    kw = dict(s3_cfg=s3cfg, s3_params=s3.init_params(gen_dev(3), s3cfg), campplus_cfg=ccfg,
+              campplus_params=cp.init_params(gen_dev(4), ccfg), device=dev)
+    # the default route of a bf16 LM on the card is the B=1 kernel's
+    pipes = {"b1_kernel": CosyPipeline(*common, **kw),
+             "decode_step": CosyPipeline(*common, decode_megakernel=False, **kw)}
+    del params, common
+    torch.cuda.synchronize()
+    n_s3 = sum(t.numel() for t in _leaves(kw["s3_params"]))
+    n_cp = sum(t.numel() for t in _leaves(kw["campplus_params"]))
+    print(f"cosy zs main: LM {COSY_C} x {COSY_L} bf16 + flow + HiFT (defaults) + S3 "
+          f"{n_s3 / 1e6:.1f} M + CAM++ {n_cp / 1e6:.2f} M random parameters, both decode routes "
+          f"packed, in {time.perf_counter() - t0:.1f} s")
+
+    # 1. the frontend of a 6 s prompt
+    pipe = pipes["b1_kernel"]
+    clip = prompt_clip(ZS_PROMPT_S, seed=2)
+
+    def timed(fn, *a):
+        fn(*a)  # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn(*a)
+        torch.cuda.synchronize()
+        return r, 1e3 * (time.perf_counter() - t)
+
+    s3_tok, s3_ms = timed(pipe.speech_tokenizer_fn, clip)
+    spk, cp_ms = timed(pipe.spk_embed_fn, clip)
+    (ptoks, pmel, pemb), front_ms = timed(pipe.frontend_zero_shot, clip)
+    cpu_s3 = rwkv7.tree_map(lambda t: t.cpu(), kw["s3_params"])
+    cpu_tok = s3.tokenize(cpu_s3, s3cfg, torch.from_numpy(clip)[None])[0].numpy()
+    cpu_emb = cp.embed_wav(rwkv7.tree_map(lambda t: t.cpu(), kw["campplus_params"]), ccfg,
+                           torch.from_numpy(clip)[None])[0].numpy()
+    del cpu_s3
+    s3_eq = float((s3_tok == cpu_tok).mean()) if s3_tok.shape == cpu_tok.shape else 0.0
+    emb_rel = float(np.abs(spk - cpu_emb).max() / np.abs(cpu_emb).max())
+    print(f"cosy zs main: frontend of a {ZS_PROMPT_S} s 16 kHz prompt on {card}: S3 {s3_ms:.2f} ms "
+          f"({len(s3_tok)} tokens, share equal to the CPU's {s3_eq:.4f}), CAM++ {cp_ms:.2f} ms "
+          f"(card vs CPU rel {emb_rel:.3e}), frontend_zero_shot {front_ms:.2f} ms: "
+          f"{len(ptoks)} tokens, mel {pmel.shape}, embedding {pemb.shape}")
+    n_prompt = int(ZS_PROMPT_S * 25)
+    check(len(ptoks) == n_prompt and pmel.shape == (2 * n_prompt, fcfg.output_size)
+          and pemb.shape == (ccfg.embedding_size,) and np.isfinite(pmel).all()
+          and np.isfinite(pemb).all() and 0 <= ptoks.min() and ptoks.max() < s3cfg.vocab_size,
+          "cosy zs main: frontend shapes or values")
+    check(emb_rel <= 1e-3, f"cosy zs main: CAM++ card vs CPU rel {emb_rel:.3e} (limit 1e-3)")
+
+    # 2. the modes, each once warm and once timed
+    rng = np.random.default_rng(3)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+    text = "".join(rng.choice(letters, COSY_TEXT))
+    source = prompt_clip(ZS_PROMPT_S, seed=4)
+    L = COSY_L
+    jobs = {
+        "synthesize_b1_kernel": (pipes["b1_kernel"].synthesize, (text,),
+                                 dict(prompt_wav=clip, prompt_text="A prompt spoken.")),
+        "synthesize_decode_step": (pipes["decode_step"].synthesize, (text,),
+                                   dict(prompt_wav=clip, prompt_text="A prompt spoken.")),
+        "cross_lingual": (pipe.synthesize_cross_lingual, (text,), dict(prompt_wav=clip)),
+        "instruct": (pipe.synthesize_instruct, (text, "Speak slowly and warmly."),
+                     dict(prompt_wav=clip)),
+        "voice_convert": (pipe.voice_convert, (source,), dict(prompt_wav=clip)),
+    }
+    runs = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name, (fn, args, kwargs) in jobs.items():
+        lm = name != "voice_convert"
+        fn(*args, **kwargs, **({"max_new_tokens": ZS_WARM_NEW} if lm else {}))  # warm
+        torch.cuda.synchronize()
+        dm.reset_launches()
+        sp.reset_launches()
+        wkv7_cuda.reset_launches()
+        t = time.perf_counter()
+        res = fn(*args, **kwargs, **({"max_new_tokens": ZS_NEW} if lm else {}))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        n_tok = len(res.speech_tokens)
+        launches = {"wkv7_fwd": wkv7_cuda.launches["wkv7_fwd"], "decode_b1_step": dm.launches,
+                    "wkv7_step": sp.launches}
+        audio_s = len(res.wav) / res.sample_rate
+        runs[name] = {"wall_s": wall, "rtf_wall": wall / audio_s, "rtf": res.rtf,
+                      "llm_s": res.llm_s, "flow_s": res.flow_s, "tokens": n_tok,
+                      "audio_s": audio_s, "launches": launches,
+                      "lm_ms_per_token": 1e3 * res.llm_s / n_tok if lm else None}
+        print(f"cosy zs main: {name}: {wall:.3f} s wall for {audio_s:.3f} s of audio (RTF "
+              f"{wall / audio_s:.4f} with the frontend, {res.rtf:.4f} without), LM "
+              f"{res.llm_s:.3f} s" + (f" ({1e3 * res.llm_s / n_tok:.3f} ms a token)" if lm else "")
+              + f", flow + HiFT {res.flow_s:.3f} s, {n_tok} tokens, {len(res.wav)} samples, "
+              f"launches {launches} on {card}")
+        up = hcfg.total_upsample * fcfg.token_mel_ratio
+        check(bool(np.isfinite(res.wav).all()) and res.wav.shape == (n_tok * up,),
+              f"cosy zs main: {name}: wav {res.wav.shape} for {n_tok} tokens")
+        want_tok = ZS_NEW if lm else n_prompt
+        check(n_tok == want_tok, f"cosy zs main: {name}: {n_tok} tokens, want {want_tok}")
+        want = {"wkv7_fwd": L if lm else 0,
+                "decode_b1_step": sum(dm.launches_per_step(L).values()) * ZS_NEW
+                if name in ("synthesize_b1_kernel", "cross_lingual", "instruct") else 0,
+                "wkv7_step": L * ZS_NEW if name == "synthesize_decode_step" else 0}
+        check(launches == want, f"cosy zs main: {name}: launches {launches}, want {want}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"cosy zs main: peak memory {peak / 2**30:.2f} GiB on {card}")
+    return {"s3_ms": s3_ms, "campplus_ms": cp_ms, "frontend_ms": front_ms,
+            "prompt_tokens": len(ptoks), "prompt_mel_frames": int(pmel.shape[0]),
+            "s3_equal_cpu": s3_eq, "campplus_rel_cpu": emb_rel, "runs": runs,
+            "peak_gib": peak / 2**30}
+
+
+def phase_cosy_b64(dev, card: str) -> dict:
+    """Kernel 1 at 2048 x 24 (2 chained steps vs decode_step_plain, ms a
+    step, its bound), then Cosy B=64 offline generation through it: 128 +
+    256 tokens, top-k 25 / top-p 0.8, audio tok/s with the prefill,
+    launches, peak memory."""
+    from rwkvtts_torch.infer.generate import cosy_generate_mega_b64
+    from rwkvtts_torch.models import cosy, rwkv7
+    from rwkvtts_torch.ops import decode_mega_b64 as dmb
+    from rwkvtts_torch.ops import wkv7_cuda
+
+    mega, st_k, x, err, bcfg = decode_vs_plain(dev, COSY_C, COSY_L, 41, 2)
+    L = COSY_L
+    ms = cuda_ms(lambda: dmb.decode_step_mega_b64(mega, bcfg, x, st_k), 20)
+    st_p = {k: v.clone() for k, v in st_k.items()}
+    plain_ms = cuda_ms(lambda: dmb.decode_step_plain(mega, bcfg, x, st_p), 2)
+    leaves = [t for t in _leaves(mega) if torch.is_tensor(t)]
+    q8 = sum(t.numel() for t in leaves if t.dtype == torch.int8)
+    bms, by = bound_ms(nbytes(*leaves) + 2 * nbytes(*st_k.values()) + 2 * nbytes(x),
+                       2 * B * q8, BF16_TC_FLOPS)
+    print(f"cosy b64: kernel 1 at {COSY_C} x {L}, B={B}: {ms:.4f} ms a step host-timed, plain "
+          f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), {nbytes(*leaves) / 1e9:.4f} GB packed "
+          f"on {card}")
+    del mega, st_k, st_p, leaves
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg = cosy.default_config(hidden_size=COSY_C, num_layers=COSY_L, decode_state_bf16=True)
+    params = cosy.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    params = rwkv7.tree_map(lambda t: t.to(torch.bfloat16) if t.ndim >= 2 else t, params)
+    mega = dmb.pack_mega_b64(params, cfg.backbone)
+    torch.cuda.synchronize()
+    print(f"cosy b64: Cosy {COSY_C} x {L} bf16 and its int8 pack built in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def run(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        tokens = torch.randint(0, 4000, (B, PROMPT), generator=g, device=dev)
+        modality = torch.full((B, PROMPT), cosy.MOD_TEXT, device=dev)
+        mask = torch.ones(B, PROMPT, dtype=torch.int32, device=dev)
+        return cosy_generate_mega_b64(params, mega, cfg, tokens, modality, mask,
+                                      max_new_tokens=COSY_B64_NEW, top_k=25, top_p=0.8,
+                                      generator=g)
+
+    run(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wkv7_cuda.reset_launches()
+    dmb.reset_launches()
+    t0 = time.perf_counter()
+    toks, lengths = run(2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"wkv7_fwd": wkv7_cuda.launches["wkv7_fwd"], "decode_b64_step": dmb.launches}
+    by_kernel = dict(dmb.kernel_launches)
+    tps = B * COSY_B64_NEW / seconds
+    print(f"cosy b64: B={B}, {PROMPT} + {COSY_B64_NEW} tokens: {seconds:.4f} s, {tps:.1f} audio "
+          f"tok/s on {card} ({1e3 * seconds / COSY_B64_NEW:.4f} ms a step with sampling and the "
+          f"prefill); launches {launches}, by kernel {by_kernel}; mean length "
+          f"{lengths.float().mean().item():.1f}; peak memory {peak / 2**30:.2f} GiB")
+    check(toks.shape == (B, COSY_B64_NEW) and lengths.shape == (B,), "cosy b64 output shapes")
+    check(bool(((toks >= 0) & (toks <= cfg.eos_token_id)).all()), "cosy b64 token out of range")
+    check(launches == {"wkv7_fwd": L, "decode_b64_step": (8 * L + 2) * COSY_B64_NEW},
+          f"cosy b64 launches {launches}, want {L} and {8 * L + 2} a token")
+    return {"kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "max_abs_err": err, "seconds": seconds, "tok_per_s": tps, "launches": launches,
+            "by_kernel": by_kernel, "peak_gib": peak / 2**30}
+
+
 def build_log(log: str) -> None:
     """Print ptxas's registers, shared memory and spills of every kernel,
     and fail if a chunked WKV7 kernel (forward, backward, fused pair)
@@ -2373,6 +2800,9 @@ def main() -> None:
     serve_run = phase_serve_main(dev, card)
     phase_spark_wav_small(dev)
     wav_run = phase_spark_wav_main(dev, card, main_run)
+    phase_cosy_zs_small(dev)
+    zs_run = phase_cosy_zs_main(dev, card)
+    b64_run = phase_cosy_b64(dev, card)
 
     rows["wkv7_fwd"]["launches"] = main_run["launches"]["wkv7_fwd"]
     rows["wkv7_fwd"]["train_forward"] = train_fwd  # its training-shape numbers, unfused path
@@ -2388,11 +2818,21 @@ def main() -> None:
     rows["wkv7_step"]["launches"] = serve_run["launches"]["wkv7_step"]
     rows["wkv7_step"]["decode_steps_serve_main"] = serve_run["decode_steps"]
     rows["wkv7_fwd"]["launches_serve_main"] = serve_run["launches"]["wkv7_fwd"]
+    zs_launches = lambda k: {n: r["launches"][k] for n, r in zs_run["runs"].items()}
+    rows["wkv7_fwd"]["launches_cosy_zs"] = zs_launches("wkv7_fwd")
+    rows["wkv7_fwd"]["launches_cosy_b64"] = b64_run["launches"]["wkv7_fwd"]
+    rows["decode_b64_step"]["cosy_b64_2048x24"] = {
+        k: b64_run[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+    rows["decode_b64_step"]["launches_cosy_b64"] = b64_run["launches"]["decode_b64_step"]
+    rows["decode_b1_step"]["launches_cosy_zs"] = zs_launches("decode_b1_step")
+    rows["wkv7_step"]["launches_cosy_zs"] = zs_launches("wkv7_step")
     print("train: " + json.dumps({k: v for k, v in train_run.items()
                                   if k not in ("launches", "unfused")}))
     print("cosy: " + json.dumps({k: v for k, v in cosy_run.items() if k != "launches"}))
     print("serve: " + json.dumps({k: v for k, v in serve_run.items() if k != "launches"}))
     print("spark wav: " + json.dumps(wav_run))
+    print("cosy zs: " + json.dumps(zs_run))
+    print("cosy b64: " + json.dumps({k: v for k, v in b64_run.items() if k != "by_kernel"}))
     print(json.dumps({"kernels": [rows[k] for k in ("wkv7_fwd", "decode_b64_step", "wkv7_bwd",
                                                     "wkv7_fused_fwd", "wkv7_fused_bwd",
                                                     "decode_b1_step", "wkv7_step")]}))

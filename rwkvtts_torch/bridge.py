@@ -1,8 +1,9 @@
 """Bridge between the JAX package's arrays and the port's tensors, in numpy
-(no JAX import): parameters name for name (both ways), the flow, HiFT and
-BiCodec trees with their convolution weights in PyTorch's layout, the default
-optimizer's Adam moments, and the decode states (B=64 and B=1) between
-the TPU kernels' layouts and the port's natural one.
+(no JAX import): parameters name for name (both ways), the flow, HiFT,
+S3 tokenizer, CAM++ and BiCodec trees with their convolution weights in
+PyTorch's layout, the default optimizer's Adam moments, and the decode
+states (B=64 and B=1) between the TPU kernels' layouts and the port's
+natural one.
 
 Parameter trees have the same names and shapes in both packages, so
 ``params_from_numpy`` copies leaf by leaf. The JAX decode-step state
@@ -67,18 +68,27 @@ def conv_transpose_from_jax(w, groups: int = 1) -> np.ndarray:
     return np.ascontiguousarray(w.reshape(groups * cin_g, cout // groups, K))
 
 
+def conv2d_from_jax(w) -> np.ndarray:
+    """A JAX conv2d kernel (kh, kw, in, out) -> PyTorch's (out, in, kh, kw)."""
+    return np.ascontiguousarray(np.transpose(np.asarray(w), (3, 2, 0, 1)))
+
+
 def codec_params_from_numpy(tree, device=None, _transposed=False):
-    """A JAX flow or HiFT parameter tree (dicts and lists) -> the port's:
-    every 3-D "w" is a convolution kernel and goes to PyTorch's layout;
-    those under "ups" (HiFT's upsampling stack, the only transposed
-    convolutions of either tree) to ConvTranspose1d's. The one place where
-    codec weights change layout (rwkvtts_torch/codecs/nn.py)."""
+    """A JAX flow, HiFT, S3 tokenizer or CAM++ parameter tree (dicts and
+    lists) -> the port's, name for name: every 3-D "w" is a convolution
+    kernel and goes to PyTorch's layout; those under "ups" (HiFT's
+    upsampling stack, the only transposed convolutions of these trees) to
+    ConvTranspose1d's; every 4-D "w" (CAM++'s 2-D front end) to Conv2d's.
+    The one place where codec weights change layout
+    (rwkvtts_torch/codecs/nn.py)."""
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
             if k == "w" and np.ndim(v) == 3:
                 conv = conv_transpose_from_jax if _transposed else conv_from_jax
                 out[k] = to_tensor(conv(v), device)
+            elif k == "w" and np.ndim(v) == 4:
+                out[k] = to_tensor(conv2d_from_jax(v), device)
             else:
                 out[k] = codec_params_from_numpy(v, device, _transposed or k == "ups")
         return out

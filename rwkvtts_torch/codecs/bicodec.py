@@ -11,7 +11,7 @@ prenet (a conditioned Vocos stack) and the DAC-style wave generator (the
 postnet is not on that path); ``tokenize`` runs the encoder and the VQ on
 wav2vec2 features and the speaker encoder on the mel of a reference clip.
 
-Precision: the codec computes in float32 with TF32 off (``f32`` below),
+Precision: the codec computes in float32 with TF32 off (``nn.f32``),
 for its convolutions and its products alike, as the JAX package computes
 it: on a card, PyTorch would otherwise run f32 convolutions as TF32 (10
 mantissa bits), and the nearest-code search and FSQ rounding would see it.
@@ -22,7 +22,6 @@ parameters with the JAX tree's names, in PyTorch's weight layouts
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
@@ -96,18 +95,6 @@ class BiCodecConfig:
     speaker: SpeakerEncoderConfig = SpeakerEncoderConfig()
     ref_segment_duration: float = 6.0
     latent_hop_length: int = 320
-
-
-@contextlib.contextmanager
-def f32():
-    """Convolutions and products in true float32 (TF32 off) for the block,
-    the codec's precision; the global settings come back afterwards."""
-    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
 
 
 # ---------------------------------------------------------------------------
@@ -344,7 +331,7 @@ def init_params(g: torch.Generator, cfg: BiCodecConfig) -> Params:
 def ref_mel(cfg: BiCodecConfig, ref_wav: torch.Tensor) -> torch.Tensor:
     """ref_wav (B, T) -> (B, frames, num_mels)."""
     m = cfg.mel
-    with f32():
+    with nn.f32():
         return dsp.mel_spectrogram(ref_wav, m.sample_rate, m.n_fft, m.win_length, m.hop_length,
                                    m.num_mels, m.mel_fmin, m.mel_fmax)
 
@@ -353,7 +340,7 @@ def tokenize(p: Params, cfg: BiCodecConfig, feat: torch.Tensor, ref_wav: torch.T
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """feat (B, T, 1024) wav2vec2 features; ref_wav (B, Tr) the reference
     clip. Returns (semantic tokens (B, T'), global tokens (B, Q, 32))."""
-    with f32():
+    with nn.f32():
         z = encoder_apply(p["encoder"], cfg.encoder, feat)
         semantic = quantizers.factorized_vq_tokenize(p["quantizer"], z)
         glob = speaker_encoder_tokenize(p["speaker_encoder"], cfg.speaker, ref_mel(cfg, ref_wav))
@@ -363,7 +350,7 @@ def tokenize(p: Params, cfg: BiCodecConfig, feat: torch.Tensor, ref_wav: torch.T
 def detokenize(p: Params, cfg: BiCodecConfig, semantic_tokens: torch.Tensor,
                global_tokens: torch.Tensor) -> torch.Tensor:
     """semantic (B, T); global (B, Q, 32) -> wav (B, T hop)."""
-    with f32():
+    with nn.f32():
         z_q = quantizers.factorized_vq_detokenize(p["quantizer"], semantic_tokens)
         d_vector = speaker_encoder_detokenize(p["speaker_encoder"], cfg.speaker, global_tokens)
         x = decoder_apply(p["prenet"], cfg.prenet, z_q, d_vector) + d_vector[:, None]

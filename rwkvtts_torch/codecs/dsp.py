@@ -3,9 +3,11 @@
 to n_fft when shorter), the analysis as products against windowed
 real-DFT bases (torch.stft(center=True, onesided=True) semantics), the
 synthesis with Hann-squared overlap-add normalisation (torch.istft(
-center=True) semantics), and the slaney mel filterbank (torchaudio's
-norm="slaney", mel_scale="slaney"); the JAX package's formulas, so the
-two agree to rounding.
+center=True) semantics), the mel filterbank (slaney-normalised on the
+slaney scale, torchaudio's norm="slaney", mel_scale="slaney", or kaldi's
+unnormalised HTK bins), the HiFi-GAN log-mel of the flow prompt, and the
+antialiased linear resize of jax.image.resize; the JAX package's formulas,
+so the two agree to rounding.
 """
 from __future__ import annotations
 
@@ -53,12 +55,13 @@ def _const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(a).to(device=like.device, dtype=like.dtype)
 
 
-def stft(x: torch.Tensor, n_fft: int, hop_length: int, win_length: Optional[int] = None
-         ) -> Tuple[torch.Tensor, torch.Tensor]:
+def stft(x: torch.Tensor, n_fft: int, hop_length: int, win_length: Optional[int] = None,
+         center: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, T) -> (real, imag), each (B, n_frames, n_fft // 2 + 1), centred
-    (reflect padding of n_fft // 2 each side); the window is win_length
-    long (default n_fft)."""
-    x = F.pad(x[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
+    (reflect padding of n_fft // 2 each side) unless `center` is off; the
+    window is win_length long (default n_fft)."""
+    if center:
+        x = F.pad(x[:, None], (n_fft // 2, n_fft // 2), mode="reflect")[:, 0]
     frames = x.unfold(-1, n_fft, hop_length)
     cos_b, sin_b = _dft_bases(n_fft, win_length)
     return frames @ _const(cos_b, x), frames @ _const(sin_b, x)
@@ -97,14 +100,26 @@ def _mel_to_hz_slaney(m):
     return np.where(m >= min_log_mel, min_log_hz * np.exp(logstep * (m - min_log_mel)), f_sp * m)
 
 
+def _hz_to_mel_htk(f):
+    return 2595.0 * np.log10(1.0 + np.asarray(f, np.float64) / 700.0)
+
+
+def _mel_to_hz_htk(m):
+    return 700.0 * (10.0 ** (np.asarray(m, np.float64) / 2595.0) - 1.0)
+
+
 @lru_cache(maxsize=16)
 def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int, fmin: float = 0.0,
-                   fmax: Optional[float] = None) -> np.ndarray:
-    """(n_fft // 2 + 1, n_mels) slaney-normalised triangles on the slaney mel
-    scale (librosa's and torchaudio's norm="slaney", mel_scale="slaney")."""
+                   fmax: Optional[float] = None, norm: str = "slaney",
+                   mel_scale: str = "slaney") -> np.ndarray:
+    """(n_fft // 2 + 1, n_mels) triangles on the slaney (or "htk") mel
+    scale, slaney-normalised unless norm="none": librosa's and
+    torchaudio's norm="slaney", mel_scale="slaney" (BiCodec, HiFT,
+    whisper), or kaldi's fbank bins (norm="none", mel_scale="htk")."""
     fmax = fmax or sample_rate / 2
-    mels = np.linspace(_hz_to_mel_slaney(fmin), _hz_to_mel_slaney(fmax), n_mels + 2)
-    f_pts = _mel_to_hz_slaney(mels)
+    to_mel, to_hz = ((_hz_to_mel_slaney, _mel_to_hz_slaney) if mel_scale == "slaney"
+                     else (_hz_to_mel_htk, _mel_to_hz_htk))
+    f_pts = to_hz(np.linspace(to_mel(fmin), to_mel(fmax), n_mels + 2))
     freqs = np.linspace(0, sample_rate / 2, n_fft // 2 + 1)
     fb = np.zeros((len(freqs), n_mels))
     for m in range(n_mels):
@@ -112,7 +127,8 @@ def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int, fmin: float = 0.0,
         up = (freqs - lo) / max(ctr - lo, 1e-10)
         down = (hi - freqs) / max(hi - ctr, 1e-10)
         fb[:, m] = np.maximum(0.0, np.minimum(up, down))
-    fb *= (2.0 / (f_pts[2:n_mels + 2] - f_pts[:n_mels]))[None, :]
+    if norm == "slaney":
+        fb *= (2.0 / (f_pts[2:n_mels + 2] - f_pts[:n_mels]))[None, :]
     return fb.astype(np.float32)
 
 
@@ -125,3 +141,36 @@ def mel_spectrogram(x: torch.Tensor, sample_rate: int, n_fft: int, win_length: i
     real, imag = stft(x, n_fft, hop_length, win_length)
     mag = torch.sqrt(real * real + imag * imag + 1e-24)
     return mag @ _const(mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax), x)
+
+
+def log_mel_hifigan(x: torch.Tensor, sample_rate: int = 24000, n_fft: int = 1920,
+                    win_length: int = 1920, hop_length: int = 480, n_mels: int = 80,
+                    fmin: float = 0.0, fmax: Optional[float] = 8000.0) -> torch.Tensor:
+    """The HiFi-GAN / matcha log-mel, the CosyVoice2 flow prompt's feature:
+    reflect padding of (n_fft - hop) / 2 each side, an uncentred STFT, the
+    magnitude (+1e-9 under the root), the slaney mel, ln(clamp(mel, 1e-5)).
+    x (B, T) -> (B, frames, n_mels)."""
+    pad = (n_fft - hop_length) // 2
+    x = F.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
+    real, imag = stft(x, n_fft, hop_length, win_length, center=False)
+    mag = torch.sqrt(real * real + imag * imag + 1e-9)
+    mel = mag @ _const(mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax), x)
+    return torch.log(torch.clamp_min(mel, 1e-5))
+
+
+def resize_linear(x: torch.Tensor, n_out: int) -> torch.Tensor:
+    """x (B, T, C) resized along T to n_out frames as jax.image.resize(...,
+    "linear") does it (antialias on): output frame i samples the input at
+    s = (i + 0.5) T / n_out - 0.5 through a triangle kernel widened by
+    T / n_out when shrinking; the weights of each output frame are
+    normalised over the input frames and zero where s falls outside
+    [-0.5, T - 0.5]. F.interpolate has no antialias for 1-D."""
+    T = x.shape[1]
+    inv = T / n_out
+    s = (np.arange(n_out) + 0.5) * inv - 0.5
+    w = np.maximum(0.0, 1.0 - np.abs(s[None, :] - np.arange(T)[:, None]) / max(inv, 1.0))
+    total = w.sum(0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    w = np.where((s >= -0.5) & (s <= T - 0.5), w, 0.0)  # (T, n_out)
+    return torch.einsum("btc,to->boc", x, torch.from_numpy(w.astype(np.float32)).to(x))

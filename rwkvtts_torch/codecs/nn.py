@@ -20,6 +20,7 @@ within 1/sqrt(fan_in); ConvNeXt's truncated normal of std 0.02).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict
 
@@ -27,6 +28,19 @@ import torch
 import torch.nn.functional as F
 
 Params = Dict[str, Any]
+
+
+@contextlib.contextmanager
+def f32():
+    """Convolutions and products in true float32 (TF32 off) for the block,
+    the codecs' precision (the JAX package computes them in XLA at f32);
+    the global settings come back afterwards."""
+    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
 
 
 def _uniform(g: torch.Generator, shape, bound: float) -> torch.Tensor:

@@ -23,7 +23,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from rwkvtts_torch.codecs import bicodec, torch_import
+from rwkvtts_torch.codecs import bicodec, nn, torch_import
 from rwkvtts_torch.convert import rwkv7_ckpt
 from rwkvtts_torch.utils import audio_io
 
@@ -117,7 +117,7 @@ class Wav2Vec2Frontend:
         x = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device)
         m, enc = self.model, self.model.encoder
         first = lambda out: out[0] if isinstance(out, tuple) else out
-        with bicodec.f32():
+        with nn.f32():
             h = first(m.feature_projection(m.feature_extractor(x).transpose(1, 2)))
             h = h + enc.pos_conv_embed(h)
             states = [h]

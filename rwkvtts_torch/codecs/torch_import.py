@@ -1,6 +1,8 @@
-"""BiCodec checkpoint importer (counterpart of the BiCodec half of
+"""Checkpoint import helpers and BiCodec's importer (counterpart of
 rwkvtts_tpu/codecs/torch_import.py): the reference's state dict, as
-{name: numpy array}, onto the port's parameter tree.
+{name: numpy array}, onto the port's parameter tree. The CosyVoice flow /
+HiFT importers (codecs/cosy_import.py), the S3 tokenizer's and CAM++'s
+build on the helpers here.
 
   * weight-norm pairs (weight_g, weight_v, or torch >= 2.1's
     parametrizations) are folded to g v / |v| (the reference folds them
@@ -198,11 +200,12 @@ def _speaker_encoder_p(sd: SD) -> Params:
             "fsq": fsq, "project": linear_p(sd, "speaker_encoder.project")}
 
 
-def _tensors(tree, device):
+def tensors(tree, device=None):
+    """A tree of numpy arrays (dicts and lists) -> f32 tensors on `device`."""
     if isinstance(tree, dict):
-        return {k: _tensors(v, device) for k, v in tree.items()}
+        return {k: tensors(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_tensors(v, device) for v in tree]
+        return [tensors(v, device) for v in tree]
     return torch.from_numpy(np.array(tree, np.float32)).to(device)
 
 
@@ -223,4 +226,4 @@ def bicodec_from_state_dict(sd: SD, cfg, device=None) -> Params:
         "postnet": _vocos_stack_p(sd, "postnet", cfg.postnet, is_encoder=False),
         "decoder": _wave_generator_p(sd, cfg.wave),
     }
-    return _tensors(tree, device)
+    return tensors(tree, device)

@@ -1,29 +1,67 @@
-"""CosyVoice2-style TTS orchestrator: RWKV-7 speech LM -> flow -> HiFT
-(counterpart of rwkvtts_tpu/infer/cosy_pipeline.py, the route that
-decodes through the whole-step kernel).
+"""CosyVoice2-style TTS orchestrator: frontend -> RWKV-7 speech LM -> flow
+-> HiFT (counterpart of rwkvtts_tpu/infer/cosy_pipeline.py).
 
-The constructor keeps the LM parameters for the prompt prefill and packs
-the int8 weights of the B=1 decode step (``ops/decode_mega.pack_mega``);
-every decode step goes through that step, the CUDA kernels on a card.
-``token2wav`` is the non-streaming flow + vocoder; the streaming path is
-``infer/streaming.stream_synthesize``. Prompt features (speech tokens, the
-prompt mel, the speaker embedding) are passed in precomputed: the S3
-tokenizer and CAM++ frontends are not ported yet, nor is the non-kernel
-decode route of ``generate_speech_tokens`` / ``synthesize``.
+  * zero-shot prompt (``frontend_zero_shot``): the S3 tokenizer's speech
+    tokens and CAM++'s x-vector of the 16 kHz clip, the HiFi-GAN log-mel of
+    the clip at the output rate, trimmed to 2 frames a token; the two
+    frontends are the port's (``s3_params`` / ``campplus_params``) or
+    callables the caller passes;
+  * LM (``generate_speech_tokens``): [SOS][prompt text + text][TASK][prompt
+    speech] prefill, RAS sampling, min / max length from the content
+    length, through ``generate.cosy_generate`` on one of two decode
+    routes: the B=1 whole-step kernel on ``decode_mega.pack_mega``'s int8
+    weights (the default for a bf16 LM on a card), or the model's
+    ``rwkv7.decode_step`` on ``pack_decode_params``'s tree (the default
+    for an f32 LM or on the CPU, the JAX package's; the WKV step kernel on
+    a card); ``decode_megakernel`` True / False picks one;
+  * ``token2wav``: the flow (10 Euler CFM steps) over prompt + tokens, an
+    optional speed resize of the mel, HiFT;
+  * the modes: ``synthesize`` (zero-shot), ``synthesize_cross_lingual``,
+    ``synthesize_instruct``, ``voice_convert`` (no LM) and
+    ``synthesize_streaming`` (``infer/streaming.stream_synthesize``, on the
+    same decode route).
+
+Not ported: int4 decode weights and the sampler's bf16 candidate ranking
+(the constructor refuses them), the SFM flow (``token2wav`` refuses it)
+and ``synthesize_long``.
 
 Everything runs on `device`, a CUDA device unless the caller asks for
-the CPU (where the kernels' plain versions run).
+the CPU (where the kernels' plain versions run). Random draws come from the
+seed: the LM's from a CPU generator (the same tokens on the CPU and the
+card), the flow's noise from ``seed`` and HiFT's from ``seed + 1``.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import dataclasses
+import functools
+import time
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from rwkvtts_torch.codecs import campplus as cp
+from rwkvtts_torch.codecs import dsp
 from rwkvtts_torch.codecs import flow as flow_lib
 from rwkvtts_torch.codecs import hift as hift_lib
+from rwkvtts_torch.codecs import s3_tokenizer as s3
+from rwkvtts_torch.data import cosy_collator
+from rwkvtts_torch.data.spark_collator import pad_prompts_left
+from rwkvtts_torch.infer import generate as gen
+from rwkvtts_torch.models import rwkv7
 from rwkvtts_torch.ops import decode_mega as dm
+from rwkvtts_torch.utils import audio_io
+
+
+@dataclasses.dataclass
+class CosyTTSResult:
+    wav: np.ndarray
+    sample_rate: int
+    speech_tokens: np.ndarray
+    rtf: float
+    llm_s: float
+    flow_s: float
+    vocoder_s: float
 
 
 class CosyPipeline:
@@ -36,21 +74,82 @@ class CosyPipeline:
         flow_params=None,
         hift_cfg: Optional[hift_lib.HiFTConfig] = None,
         hift_params=None,
+        speech_tokenizer_fn: Optional[Callable] = None,  # 16 kHz wav -> token ids
+        spk_embed_fn: Optional[Callable] = None,  # 16 kHz wav -> (192,) x-vector
+        s3_cfg: Optional[s3.S3TokenizerConfig] = None,
+        s3_params=None,
+        campplus_cfg: Optional[cp.CampplusConfig] = None,
+        campplus_params=None,
+        quantize_int4: bool = False,
+        decode_megakernel: Optional[bool] = None,
+        sample_rank_bf16: bool = False,
         *,
         device="cuda",
     ):
-        self.device = torch.device(device)
-        to_dev = lambda tree: None if tree is None else _tree_to(tree, self.device)
+        if quantize_int4:
+            raise NotImplementedError("int4 decode weights are not ported yet")
+        if sample_rank_bf16:
+            raise NotImplementedError("the sampler's bf16 candidate ranking (sample_rank_bf16) "
+                                      "is not ported yet")
+        self.device = dev = torch.device(device)
+        bb = lm_cfg.backbone
         self.lm_cfg = lm_cfg
-        self.lm_params = to_dev(lm_params)
-        self.lm_mega = dm.pack_mega(self.lm_params, lm_cfg.backbone)
-        # the WKV state carried between decode steps: bf16, the deployed
-        # carry of the JAX package (pack_mega_state's default)
+        lm_params = _tree_to(lm_params, dev)
+        # decode route: the B=1 whole-step kernel on its int8 pack (the
+        # prefill reads the originals), or the model's decode step on the
+        # fused decode weights
+        kernel = _kernel_route(decode_megakernel, dev, bb)
+        self.lm_mega = dm.pack_mega(lm_params, bb) if kernel else None
+        self.lm_params = lm_params if kernel else rwkv7.pack_decode_params(lm_params, bb)
+        # the whole-step kernel's WKV carry: bf16, the JAX package's default
         self.wkv_dtype = torch.bfloat16
         self.tok = text_tokenizer
-        self.flow_cfg, self.flow_params = flow_cfg, to_dev(flow_params)
-        self.hift_cfg, self.hift_params = hift_cfg, to_dev(hift_params)
-        self.sample_rate = None if hift_cfg is None else hift_cfg.sampling_rate
+        self.flow_cfg, self.flow_params = flow_cfg, _tree_to(flow_params, dev)
+        self.hift_cfg, self.hift_params = hift_cfg, _tree_to(hift_params, dev)
+        self.sample_rate = (hift_cfg or hift_lib.HiFTConfig()).sampling_rate
+        # the port's frontends where no callable is given (closures over
+        # their weights, not over the pipeline: no reference cycle keeps a
+        # dropped pipeline's weights on the card)
+        self.s3_cfg = s3_cfg or s3.S3TokenizerConfig()
+        self.s3_params = _tree_to(s3_params, dev)
+        if speech_tokenizer_fn is None and s3_params is not None:
+            speech_tokenizer_fn = functools.partial(_on_wav, s3.tokenize, self.s3_params,
+                                                    self.s3_cfg, dev)
+        self.campplus_cfg = campplus_cfg or cp.CampplusConfig()
+        self.campplus_params = _tree_to(campplus_params, dev)
+        if spk_embed_fn is None and campplus_params is not None:
+            spk_embed_fn = functools.partial(_on_wav, cp.embed_wav, self.campplus_params,
+                                             self.campplus_cfg, dev)
+        self.speech_tokenizer_fn, self.spk_embed_fn = speech_tokenizer_fn, spk_embed_fn
+
+    # -- LM stage ---------------------------------------------------------
+
+    def generate_speech_tokens(
+        self,
+        text: str,
+        prompt_text: str = "",
+        prompt_speech_tokens: Sequence[int] = (),
+        max_new_tokens: int = 2048,
+        seed: int = 0,
+        top_p: float = 0.8,
+        top_k: int = 25,
+    ) -> np.ndarray:
+        """[SOS][prompt_text + text][TASK][prompt speech] -> speech ids: at
+        least 2x and at most 20x the content length (capped by
+        max_new_tokens) tokens, EOS excluded."""
+        text_ids = self.tok.encode(prompt_text) + self.tok.encode(text)
+        batch = pad_prompts_left([cosy_collator.build_prompt(text_ids, list(prompt_speech_tokens))])
+        content_len = cosy_collator.content_length(text_ids)
+        tokens, modality, mask = (torch.from_numpy(batch[k]).to(self.device)
+                                  for k in ("tokens", "modality", "attention_mask"))
+        toks, lengths = gen.cosy_generate(
+            self.lm_params, self.lm_cfg, tokens, modality, mask,
+            max_new_tokens=min(int(content_len * 20), max_new_tokens),
+            min_new_tokens=int(content_len * 2), top_k=top_k, top_p=top_p, mega=self.lm_mega,
+            generator=torch.Generator().manual_seed(seed))
+        return toks[0, :int(lengths[0])].cpu().numpy()
+
+    # -- token2wav ----------------------------------------------------------
 
     @torch.inference_mode()
     def token2wav(
@@ -61,12 +160,17 @@ class CosyPipeline:
         spk_embedding: Optional[np.ndarray] = None,  # (192,)
         n_timesteps: int = 10,
         seed: int = 0,
+        speed: float = 1.0,
     ) -> np.ndarray:
         """Speech tokens -> wav (non-streaming): the flow over prompt +
-        tokens, then HiFT; noise from `seed` (flow) and `seed + 1` (HiFT)."""
+        tokens (noise from `seed`), the mel resized to 1 / `speed` of its
+        frames (jax.image.resize's antialiased linear, ``dsp.resize_linear``),
+        then HiFT (noise from `seed + 1`)."""
         if self.flow_params is None or self.hift_params is None:
             raise RuntimeError("flow / HiFT parameters not loaded")
         fcfg, dev = self.flow_cfg, self.device
+        if fcfg.sfm:
+            raise NotImplementedError("the SFM flow (flow_cfg.sfm) is not ported yet")
         tokens = np.concatenate([np.asarray(prompt_tokens, np.int64),
                                  np.asarray(speech_tokens, np.int64)])[None]
         if spk_embedding is None:
@@ -80,15 +184,175 @@ class CosyPipeline:
             torch.from_numpy(np.asarray(prompt_mel, np.float32)[None]).to(dev),
             prompt_mel.shape[0], torch.from_numpy(np.asarray(spk_embedding, np.float32)[None]).to(dev),
             noise, n_timesteps=n_timesteps)
+        if speed != 1.0:  # the reference's speed control (cli/model.py:398-401)
+            mel = dsp.resize_linear(mel, int(mel.shape[1] / speed))
         wav, _ = hift_lib.inference(self.hift_params, self.hift_cfg, mel,
                                     generator=torch.Generator().manual_seed(seed + 1))
         return wav[0].cpu().numpy()
 
+    # -- zero-shot ----------------------------------------------------------
+
+    @torch.inference_mode()
+    def frontend_zero_shot(self, prompt_wav: np.ndarray, prompt_sr: int = 16000):
+        """(prompt speech tokens, prompt mel, speaker embedding) of a clip:
+        the S3 tokens and the x-vector of the clip at 16 kHz, the flow
+        prompt's log-mel of the clip at the output rate, trimmed to 2
+        frames a token (the reference frontend's contract)."""
+        if self.speech_tokenizer_fn is None or self.spk_embed_fn is None:
+            raise RuntimeError("the zero-shot frontend needs the speech tokenizer and the speaker "
+                               "embedding (s3_params / campplus_params or the callables), or "
+                               "pass precomputed prompt features")
+        wav = np.asarray(prompt_wav, np.float32)
+        wav16 = audio_io.resample(wav, prompt_sr, 16000)
+        tokens = np.asarray(self.speech_tokenizer_fn(wav16), np.int64)
+        emb = np.asarray(self.spk_embed_fn(wav16), np.float32)
+        n_mels = self.flow_cfg.output_size if self.flow_cfg is not None else 80
+        wav_out = torch.from_numpy(audio_io.resample(wav, prompt_sr, self.sample_rate))
+        mel = dsp.log_mel_hifigan(wav_out[None].to(self.device), sample_rate=self.sample_rate,
+                                  n_mels=n_mels)[0].cpu().numpy()
+        n = min(mel.shape[0] // 2, len(tokens))
+        return tokens[:n], mel[:2 * n], emb
+
+    def synthesize(
+        self,
+        text: str,
+        prompt_text: str = "",
+        prompt_wav: Optional[np.ndarray] = None,
+        prompt_speech_tokens: Sequence[int] = (),
+        prompt_mel: Optional[np.ndarray] = None,
+        spk_embedding: Optional[np.ndarray] = None,
+        seed: int = 0,
+        speed: float = 1.0,
+        lm_prompt_tokens: Optional[Sequence[int]] = None,
+        **gen_kw,
+    ) -> CosyTTSResult:
+        """Zero-shot synthesis, from a prompt wav (16 kHz) or precomputed
+        prompt features. `lm_prompt_tokens` replaces the speech prompt the
+        LM sees ([] for the cross-lingual and instruct modes); the flow
+        always gets the whole prompt condition."""
+        if prompt_wav is not None:
+            prompt_speech_tokens, prompt_mel, spk_embedding = self.frontend_zero_shot(prompt_wav)
+        if lm_prompt_tokens is None:
+            lm_prompt_tokens = prompt_speech_tokens
+        t0 = time.perf_counter()
+        tokens = self.generate_speech_tokens(text, prompt_text, lm_prompt_tokens, seed=seed,
+                                             **gen_kw)
+        t1 = time.perf_counter()
+        wav = self.token2wav(tokens, prompt_speech_tokens, prompt_mel, spk_embedding, seed=seed,
+                             speed=speed)
+        t2 = time.perf_counter()
+        return CosyTTSResult(wav=wav, sample_rate=self.sample_rate, speech_tokens=tokens,
+                             rtf=(t2 - t0) / max(len(wav) / self.sample_rate, 1e-9),
+                             llm_s=t1 - t0, flow_s=t2 - t1, vocoder_s=0.0)
+
+    def synthesize_cross_lingual(
+        self,
+        text: str,
+        prompt_wav: Optional[np.ndarray] = None,
+        prompt_speech_tokens: Sequence[int] = (),
+        prompt_mel: Optional[np.ndarray] = None,
+        spk_embedding: Optional[np.ndarray] = None,
+        **kw,
+    ) -> CosyTTSResult:
+        """Cross-lingual mode: the LM gets no prompt text and no prompt
+        speech (the target language is free); the flow keeps the prompt
+        condition for the voice."""
+        return self.synthesize(text, prompt_text="", prompt_wav=prompt_wav,
+                               prompt_speech_tokens=prompt_speech_tokens, prompt_mel=prompt_mel,
+                               spk_embedding=spk_embedding, lm_prompt_tokens=[], **kw)
+
+    def synthesize_instruct(
+        self,
+        text: str,
+        instruct_text: str,
+        prompt_wav: Optional[np.ndarray] = None,
+        prompt_text: Optional[str] = None,
+        prompt_speech_tokens: Sequence[int] = (),
+        prompt_mel: Optional[np.ndarray] = None,
+        spk_embedding: Optional[np.ndarray] = None,
+        **kw,
+    ) -> CosyTTSResult:
+        """Instruct mode: the instruction is LM prompt text ended by
+        <|endofprompt|>; without a prompt transcript the LM's speech prompt
+        is dropped, with one it is kept."""
+        lm_text = instruct_text + "<|endofprompt|>" + (prompt_text or "")
+        return self.synthesize(text, prompt_text=lm_text, prompt_wav=prompt_wav,
+                               prompt_speech_tokens=prompt_speech_tokens, prompt_mel=prompt_mel,
+                               spk_embedding=spk_embedding,
+                               lm_prompt_tokens=None if prompt_text is not None else [], **kw)
+
+    def voice_convert(
+        self,
+        source_wav: np.ndarray,
+        prompt_wav: Optional[np.ndarray] = None,
+        prompt_speech_tokens: Sequence[int] = (),
+        prompt_mel: Optional[np.ndarray] = None,
+        spk_embedding: Optional[np.ndarray] = None,
+        seed: int = 0,
+        speed: float = 1.0,
+    ) -> CosyTTSResult:
+        """Voice conversion: the S3 tokens of the source speech (16 kHz)
+        through flow + HiFT in the prompt's voice; no LM."""
+        if self.speech_tokenizer_fn is None:
+            raise RuntimeError("voice conversion needs the speech tokenizer")
+        if prompt_wav is not None:
+            prompt_speech_tokens, prompt_mel, spk_embedding = self.frontend_zero_shot(prompt_wav)
+        t0 = time.perf_counter()
+        source_tokens = np.asarray(self.speech_tokenizer_fn(source_wav), np.int64)
+        wav = self.token2wav(source_tokens, prompt_speech_tokens, prompt_mel, spk_embedding,
+                             seed=seed, speed=speed)
+        t2 = time.perf_counter()
+        return CosyTTSResult(wav=wav, sample_rate=self.sample_rate, speech_tokens=source_tokens,
+                             rtf=(t2 - t0) / max(len(wav) / self.sample_rate, 1e-9),
+                             llm_s=0.0, flow_s=t2 - t0, vocoder_s=0.0)
+
+    def synthesize_streaming(
+        self,
+        text: str,
+        prompt_text: str = "",
+        prompt_speech_tokens: Sequence[int] = (),
+        prompt_mel: Optional[np.ndarray] = None,
+        spk_embedding: Optional[np.ndarray] = None,
+        hop_tokens: int = 25,
+        seed: int = 0,
+        max_new_tokens: int = 2048,
+        **gen_kw,
+    ):
+        """Wav chunks while the LM decodes (``streaming.stream_synthesize``
+        with hops of `hop_tokens` tokens)."""
+        from rwkvtts_torch.infer import streaming
+
+        yield from streaming.stream_synthesize(
+            self, text, prompt_text, prompt_speech_tokens=prompt_speech_tokens,
+            prompt_mel=prompt_mel, spk_embedding=spk_embedding,
+            stream_cfg=streaming.StreamConfig(token_hop_len=hop_tokens), seed=seed,
+            max_new_tokens=max_new_tokens, **gen_kw)
+
+
+def _kernel_route(decode_megakernel: Optional[bool], device: torch.device, bb) -> bool:
+    """Whether the LM decodes through the B=1 whole-step kernel: as the
+    caller asks, else on a card for a bf16 LM (the kernel's CUDA form takes
+    bf16 products only); otherwise through ``rwkv7.decode_step``."""
+    bf16 = dm.matmul_dtype(bb) == torch.bfloat16
+    if decode_megakernel is None:
+        return device.type == "cuda" and bf16
+    if decode_megakernel and device.type == "cuda" and not bf16:
+        raise ValueError(f"decode_megakernel: the B=1 kernel takes a bf16 LM on a card "
+                         f"(the config's dtype is {bb.dtype})")
+    return decode_megakernel
+
+
+def _on_wav(fn, params, cfg, device, wav: np.ndarray) -> np.ndarray:
+    """fn(params, cfg, wav[None]) on `device` for one numpy wav -> numpy."""
+    wav = torch.from_numpy(np.asarray(wav, np.float32))[None].to(device)
+    return fn(params, cfg, wav)[0].cpu().numpy()
+
 
 def _tree_to(tree, device):
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_tree_to(v, device) for v in tree]
     return tree.to(device)
-

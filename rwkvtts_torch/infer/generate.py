@@ -3,9 +3,11 @@ Spark B=64 batched generation (``spark_generate_mega_b64``), Spark
 generation of any batch through the model's decode step with an early
 exit between chunks (``spark_prefill_carry`` + ``spark_decode_chunk``,
 ``spark_generate_early_exit``), the voice designer's global-token draw
-(``spark_global_generate``), and the Cosy B=1 chunked decode of the
-streaming path (``cosy_prefill_carry`` + ``cosy_decode_chunk`` on the
-whole-step decode route).
+(``spark_global_generate``); Cosy generation with RAS sampling on either
+decode route, the model's ``rwkv7.decode_step`` or the B=1 whole-step
+kernel (``cosy_prefill_carry`` + ``cosy_decode_chunk``, the streaming
+path's chunks, and ``cosy_generate``), and Cosy B=64 batched generation
+through the B=64 whole-step kernel (``cosy_generate_mega_b64``).
 
 Prefill runs the full-sequence model (the WKV7 kernel on a card), the
 state is packed for the decode step, then every step is: head product
@@ -34,6 +36,12 @@ from rwkvtts_torch.ops import sampling
 # repetition-aware sampling (reference cosy_llm.py): the window of recent
 # draws and the share of it that triggers the full-distribution fallback
 RAS_WINDOW, RAS_TAU = 10, 0.1
+
+
+def _eos_lengths(out: torch.Tensor, eos: int, max_new_tokens: int) -> torch.Tensor:
+    """Each row's length: the index of its first EOS, or max_new_tokens."""
+    is_eos = out == eos
+    return torch.where(is_eos.any(-1), torch.argmax(is_eos.int(), -1), max_new_tokens)
 
 
 @torch.inference_mode()
@@ -81,10 +89,7 @@ def spark_generate_mega_b64(
         h, state = dmb.decode_step_mega_b64(mega, bb, x, state)
         h = h.to(bb.dtype)
     out = torch.stack(toks, 1)
-    is_eos = out == eos_id
-    lengths = torch.where(is_eos.any(-1), torch.argmax(is_eos.int(), -1),
-                          max_new_tokens)
-    return out, lengths
+    return out, _eos_lengths(out, eos_id, max_new_tokens)
 
 
 @torch.inference_mode()
@@ -167,9 +172,7 @@ def spark_generate_early_exit(
     out = torch.cat(chunks, 1).cpu()
     out = torch.cat([out, torch.full((out.shape[0], max_new_tokens - n), eos,
                                      dtype=out.dtype)], 1)
-    is_eos = out == eos
-    lengths = torch.where(is_eos.any(-1), torch.argmax(is_eos.int(), -1), max_new_tokens)
-    return out, lengths
+    return out, _eos_lengths(out, eos, max_new_tokens)
 
 
 @torch.inference_mode()
@@ -206,54 +209,165 @@ def spark_global_generate(
                                             device=tokens.device)
 
 
-@torch.inference_mode()
-def cosy_prefill_carry(params, cfg: cosy.CosyConfig, tokens: torch.Tensor,
-                       modality: torch.Tensor, attention_mask: torch.Tensor, *,
-                       wkv_dtype: torch.dtype):
-    """Prefill a B=1 prompt and build the carry of ``cosy_decode_chunk``:
-    (h (1, C), decode state with the WKV state in `wkv_dtype`, done (1,),
-    recent (1, RAS_WINDOW) of -1, n (1,))."""
-    if tokens.shape[0] != 1:
-        raise ValueError(f"the Cosy decode step takes B=1, got {tokens.shape[0]}")
-    h, state = cosy.prefill(params, cfg, tokens, modality, attention_mask)
-    dev = tokens.device
-    return (h, dm.pack_state(state, wkv_dtype), torch.zeros(1, dtype=torch.bool, device=dev),
-            torch.full((1, RAS_WINDOW), -1, dtype=torch.long, device=dev),
-            torch.zeros(1, dtype=torch.long, device=dev))
-
-
-@torch.inference_mode()
-def cosy_decode_chunk(
-    params, mega, cfg: cosy.CosyConfig, carry,
-    noise: Tuple[torch.Tensor, torch.Tensor], *,
-    min_new_tokens: int = 0,
-    top_k: int = 25,
-    top_p: float = 0.8,
-):
-    """Decode a chunk of Cosy speech tokens from a carried state through
-    the B=1 decode step (``ops/decode_mega.decode_step_mega``), one a row
-    of `noise` = (nucleus (n, 1, k), fallback (n, 1, V)), the Gumbel noise
-    of the two RAS draws. Each step: logits = h @ head + bias (f32), EOS
-    masked while fewer than `min_new_tokens` were drawn, RAS sampling, the
-    EOS latch, the rolling window of recent draws. Returns (carry, toks
-    (1, n) on the device, done (1,)); the carry's state is updated in
-    place."""
-    bb = cfg.backbone
-    eos = cfg.eos_token_id
+def _cosy_loop(params, cfg: cosy.CosyConfig, carry, decode, n_steps: int, noise, generator, *,
+               min_new_tokens: int, top_k: int, top_p: float):
+    """`n_steps` Cosy decode steps (the body of rwkvtts_tpu's
+    _make_cosy_step): logits = h @ head (model dtype) -> f32 + bias, EOS
+    masked while fewer than `min_new_tokens` were drawn, RAS sampling (the
+    Gumbel noise of step i from noise[0][i] / noise[1][i], or drawn from
+    `generator`), the EOS latch (a finished row repeats EOS), the rolling
+    window of recent draws, the embedding, ``decode(x, state)``. carry =
+    (h, state, done, recent, n). Returns (carry, toks (B, n_steps))."""
+    bb, eos = cfg.backbone, cfg.eos_token_id
     h, state, done, recent, n = carry
     head = params["head"].to(bb.dtype)
     bias = params["head_bias"].float()
     toks = []
-    for i in range(noise[0].shape[0]):
+    for i in range(n_steps):
         logits = (h @ head).float() + bias
-        logits[:, eos] = torch.where(n < min_new_tokens, sampling.NEG_INF, logits[:, eos])
+        if min_new_tokens > 0:
+            logits[:, eos] = torch.where(n < min_new_tokens, sampling.NEG_INF, logits[:, eos])
         tok = sampling.ras_sample(logits, recent, top_p=top_p, top_k=top_k, win_size=RAS_WINDOW,
-                                  tau_r=RAS_TAU, noise=(noise[0][i], noise[1][i]))
+                                  tau_r=RAS_TAU, generator=generator,
+                                  noise=None if noise is None else (noise[0][i], noise[1][i]))
         tok = torch.where(done, eos, tok)
         done = done | (tok == eos)
         recent = torch.cat([recent[:, 1:], tok[:, None]], 1)
         toks.append(tok)
-        h, state = dm.decode_step_mega(mega, bb, cosy.decode_embed(params, cfg, tok), state)
+        h, state = decode(cosy.decode_embed(params, cfg, tok), state)
         h = h.to(bb.dtype)
         n = n + 1
-    return (h, state, done, recent, n), torch.stack(toks, 1), done
+    return (h, state, done, recent, n), torch.stack(toks, 1)
+
+
+def _b1_decoder(params, cfg: cosy.CosyConfig, mega):
+    """The backbone step of a Cosy decode: the B=1 whole-step kernel
+    (``decode_mega.decode_step_mega``) on `mega`, or, without it, the
+    model's ``rwkv7.decode_step`` (the WKV step kernel on a card) on the
+    per-layer views of `params` (``rwkv7.pack_decode_params``'s tree)."""
+    bb = cfg.backbone
+    if mega is not None:
+        return lambda x, st: dm.decode_step_mega(mega, bb, x, st)
+    views = rwkv7.layer_decode_views(params, bb)
+    return lambda x, st: rwkv7.decode_step(views, bb, x, st)
+
+
+@torch.inference_mode()
+def cosy_prefill_carry(params, cfg: cosy.CosyConfig, tokens: torch.Tensor,
+                       modality: torch.Tensor, attention_mask: torch.Tensor, *,
+                       mega_state: bool = False, wkv_dtype: torch.dtype = torch.bfloat16):
+    """Prefill a left-padded prompt (B, T) and build the carry of
+    ``cosy_decode_chunk``: (h (B, C), the decode state, done (B,), recent
+    (B, RAS_WINDOW) of -1, n (B,)). With `mega_state` the state is the B=1
+    whole-step kernel's (B must be 1; the WKV state in `wkv_dtype`, bf16
+    the deployed carry), otherwise ``rwkv7.pack_decode_state``'s."""
+    if mega_state and tokens.shape[0] != 1:
+        raise ValueError(f"the B=1 decode step takes B=1, got {tokens.shape[0]}")
+    h, state = cosy.prefill(params, cfg, tokens, modality, attention_mask)
+    B, dev = tokens.shape[0], tokens.device
+    state = (dm.pack_state(state, wkv_dtype) if mega_state
+             else rwkv7.pack_decode_state(state, cfg.backbone))
+    return (h, state, torch.zeros(B, dtype=torch.bool, device=dev),
+            torch.full((B, RAS_WINDOW), -1, dtype=torch.long, device=dev),
+            torch.zeros(B, dtype=torch.long, device=dev))
+
+
+@torch.inference_mode()
+def cosy_decode_chunk(
+    params, cfg: cosy.CosyConfig, carry, noise: Tuple[torch.Tensor, torch.Tensor], *,
+    mega=None,
+    min_new_tokens: int = 0,
+    top_k: int = 25,
+    top_p: float = 0.8,
+):
+    """Decode a chunk of Cosy speech tokens from a carried state
+    (``cosy_prefill_carry``'s, with ``mega_state`` iff `mega` is given):
+    through the B=1 whole-step kernel on `mega` (``decode_mega.pack_mega``),
+    or through ``rwkv7.decode_step`` on `params`; a step a row of `noise` =
+    (nucleus (n, B, k), fallback (n, B, V)), the Gumbel noise of the two
+    RAS draws. Returns (carry, toks (B, n) on the device, done (B,)); the
+    carry's state is updated in place where the step does so."""
+    carry, toks = _cosy_loop(params, cfg, carry, _b1_decoder(params, cfg, mega), noise[0].shape[0],
+                             noise, None, min_new_tokens=min_new_tokens, top_k=top_k, top_p=top_p)
+    return carry, toks, carry[2]
+
+
+@torch.inference_mode()
+def cosy_generate(
+    params, cfg: cosy.CosyConfig, tokens: torch.Tensor, modality: torch.Tensor,
+    attention_mask: torch.Tensor, *,
+    max_new_tokens: int = 1024,
+    min_new_tokens: int = 0,
+    top_k: int = 25,
+    top_p: float = 0.8,
+    mega=None,
+    chunk_len: int = 64,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CosyVoice speech-token generation (rwkvtts_tpu's cosy_generate):
+    RAS sampling, EOS suppressed below `min_new_tokens`. The decode runs
+    through ``rwkv7.decode_step`` on `params` (``rwkv7.pack_decode_params``'s
+    tree), or through the B=1 whole-step kernel on `mega` (B = 1, the WKV
+    state carried in bf16). It goes in chunks of `chunk_len` steps
+    and stops once every row has drawn EOS (one host read a chunk); the
+    rows are those of a run of all max_new_tokens steps. Draws: step i
+    takes noise[0][i] / noise[1][i] (shapes (max_new_tokens, B, k) and
+    (max_new_tokens, B, V)), or a chunk's noise is drawn from `generator`
+    on its own device (``sampling.ras_noise``) and moved to the prompt's.
+    Returns (generated (B, max_new_tokens), EOS after a row's end, and
+    lengths (B,)) on the device."""
+    if noise is None and generator is None:
+        raise ValueError("cosy_generate: pass the draws' `noise` or a `generator`")
+    eos, V = cfg.eos_token_id, cfg.speech_head_size
+    B, dev = tokens.shape[0], tokens.device
+    carry = cosy_prefill_carry(params, cfg, tokens, modality, attention_mask,
+                               mega_state=mega is not None)
+    chunks, n = [], 0
+    while n < max_new_tokens:
+        cl = min(chunk_len, max_new_tokens - n)
+        draws = ((noise[0][n:n + cl], noise[1][n:n + cl]) if noise is not None
+                 else sampling.ras_noise(generator, cl, B, min(top_k, V), V, dev))
+        carry, toks, done = cosy_decode_chunk(params, cfg, carry, draws, mega=mega,
+                                              min_new_tokens=min_new_tokens, top_k=top_k,
+                                              top_p=top_p)
+        chunks.append(toks)
+        n += cl
+        if bool(done.all()):
+            break
+    out = torch.cat(chunks, 1)
+    out = torch.cat([out, torch.full((B, max_new_tokens - n), eos, dtype=out.dtype, device=dev)], 1)
+    return out, _eos_lengths(out, eos, max_new_tokens)
+
+
+@torch.inference_mode()
+def cosy_generate_mega_b64(
+    params, mega, cfg: cosy.CosyConfig, tokens: torch.Tensor, modality: torch.Tensor,
+    attention_mask: torch.Tensor, *,
+    max_new_tokens: int = 1024,
+    min_new_tokens: int = 0,
+    top_k: int = 25,
+    top_p: float = 0.8,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``cosy_generate`` with the decode routed through the B=64 whole-step
+    kernel (``decode_mega_b64.decode_step_mega_b64`` on `mega`, what
+    ``pack_mega_b64`` returns): the Cosy layout of batched offline
+    generation. All max_new_tokens steps run. tokens/modality/
+    attention_mask: a left-padded prompt of exactly 64 rows. Returns
+    (generated (64, max_new_tokens), EOS after a row's end, and lengths
+    (64,)) on the device."""
+    eos, bb = cfg.eos_token_id, cfg.backbone
+    if tokens.shape[0] != dmb.B:
+        raise ValueError(f"the decode step takes B={dmb.B}, got {tokens.shape[0]}")
+    h, state = cosy.prefill(params, cfg, tokens, modality, attention_mask)
+    B, dev = tokens.shape[0], tokens.device
+    carry = (h, dmb.pack_state(state), torch.zeros(B, dtype=torch.bool, device=dev),
+             torch.full((B, RAS_WINDOW), -1, dtype=torch.long, device=dev),
+             torch.zeros(B, dtype=torch.long, device=dev))
+    _, out = _cosy_loop(params, cfg, carry,
+                        lambda x, st: dmb.decode_step_mega_b64(mega, bb, x, st),
+                        max_new_tokens, noise, generator, min_new_tokens=min_new_tokens,
+                        top_k=top_k, top_p=top_p)
+    return out, _eos_lengths(out, eos, max_new_tokens)

@@ -3,7 +3,8 @@ rwkvtts_tpu/infer/streaming.py; reference cli/model.py:330-446).
 
 Every stage is O(1) a hop:
   * LM: chunked decode with a carried state (``generate.cosy_decode_chunk``
-    through the B=1 decode step); tokens stream out while the flow
+    through the pipeline's decode route: the B=1 whole-step kernel, or the
+    model's ``rwkv7.decode_step``); tokens stream out while the flow
     consumes them, and decoding stops at EOS.
   * Flow: a window [prompt | last ctx tokens | hop + lookahead] through
     ``flow.inference_window``; the noise is indexed by absolute frame, so
@@ -70,9 +71,7 @@ class SessionNoise:
         """Noise of LM chunk `chunk` (dispatch order): (nucleus
         (n_steps, 1, k), fallback (n_steps, 1, vocab)), drawn step by step,
         so a step's noise does not depend on how steps fall into chunks."""
-        steps = [(sampling.gumbel((1, k), self.g_lm), sampling.gumbel((1, vocab), self.g_lm))
-                 for _ in range(n_steps)]
-        return tuple(torch.stack(t).to(self.device) for t in zip(*steps))
+        return sampling.ras_noise(self.g_lm, n_steps, 1, k, vocab, self.device)
 
     def flow_table(self, n_frames: int, channels: int) -> torch.Tensor:
         """(1, >= n_frames, channels) CFM noise over absolute frames."""
@@ -262,9 +261,10 @@ def stream_synthesize(
     min_len = int(content_len * 2)
     max_len = min(int(content_len * 20), max_new_tokens)
 
-    lm_cfg = pipeline.lm_cfg
+    lm_cfg, mega = pipeline.lm_cfg, pipeline.lm_mega
     carry = gen.cosy_prefill_carry(pipeline.lm_params, lm_cfg, batch["tokens"], batch["modality"],
-                                   batch["attention_mask"], wkv_dtype=pipeline.wkv_dtype)
+                                   batch["attention_mask"], mega_state=mega is not None,
+                                   wkv_dtype=pipeline.wkv_dtype)
     eos = lm_cfg.eos_token_id
     n_dispatched = 0
 
@@ -278,7 +278,7 @@ def stream_synthesize(
         draws = noise.lm(n_dispatched, n, min(top_k, lm_cfg.speech_head_size),
                          lm_cfg.speech_head_size)
         n_dispatched += 1
-        return gen.cosy_decode_chunk(pipeline.lm_params, pipeline.lm_mega, lm_cfg, carry, draws,
+        return gen.cosy_decode_chunk(pipeline.lm_params, lm_cfg, carry, draws, mega=mega,
                                      min_new_tokens=min_len, top_k=top_k, top_p=top_p)
 
     tokens = np.zeros((0,), np.int64)

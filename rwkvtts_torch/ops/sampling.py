@@ -56,6 +56,17 @@ def gumbel(shape, generator: torch.Generator, device=None) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
+def ras_noise(generator: torch.Generator, n_steps: int, batch: int, k: int, vocab: int,
+              device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Gumbel noise of `n_steps` RAS draws from `generator`, step by
+    step in the order ``ras_sample`` draws them (nucleus, then fallback):
+    (nucleus (n_steps, batch, k), fallback (n_steps, batch, vocab)) on
+    `device`. A CPU generator gives the same draws whatever the device."""
+    steps = [(gumbel((batch, k), generator, generator.device),
+              gumbel((batch, vocab), generator, generator.device)) for _ in range(n_steps)]
+    return tuple(torch.stack(t).to(device) for t in zip(*steps))
+
+
 def _categorical(logits, noise, generator):
     if noise is None:
         if generator is None:

@@ -280,10 +280,11 @@ def _recording(monkeypatch, module, name, out):
     monkeypatch.setattr(module, name, wrapped)
 
 
-def test_stream_synthesize_matches_jax(codecs, monkeypatch):
+def _stream_vs_jax(codecs, monkeypatch, decode_megakernel):
     """Greedy LM (head x 10, top_k 1; the RAS fallback fed JAX's noise) at
     hidden 128 x 2, f32, with a 4-token speech prompt, its mel and a speaker
-    embedding: identical tokens, as many chunks, wav within 1e-3."""
+    embedding, both pipelines on one decode route: identical tokens, as
+    many chunks, wav within 1e-3."""
     lm_cfg = jcosy.default_config(hidden_size=128, num_layers=2, dtype=jnp.float32,
                                   wkv_chunk=16, remat=False)
     tcfg = cosy.default_config(hidden_size=128, num_layers=2, dtype=torch.float32)
@@ -294,7 +295,7 @@ def test_stream_synthesize_matches_jax(codecs, monkeypatch):
                   prompt_mel=rng.standard_normal((8, 16)).astype(np.float32),
                   spk_embedding=rng.standard_normal(12).astype(np.float32))
     # two LM chunks of 2 (the carry crosses a chunk), a first hop of 1 token
-    # + 3 lookahead, then the final hop: 4 interpret-mode steps on the JAX side
+    # + 3 lookahead, then the final hop: 4 decode steps
     stream_kw = dict(token_hop_len=1, ctx_tokens=4, mel_cache_len=2, n_timesteps=2, lm_chunk=2)
     kw = dict(max_new_tokens=4, top_k=1, seed=1, **prompt)
 
@@ -303,13 +304,14 @@ def test_stream_synthesize_matches_jax(codecs, monkeypatch):
     _recording(monkeypatch, tgen, "cosy_decode_chunk", ttoks)
     jpipe = JCosyPipeline(lm_cfg, lm, FakeTok(), flow_cfg=codecs["jf"], flow_params=codecs["jfp"],
                           hift_cfg=codecs["jh"], hift_params=codecs["jhp"],
-                          decode_megakernel=True, mega_tile_n=128)
+                          decode_megakernel=decode_megakernel, mega_tile_n=128)
     want = list(jstreaming.stream_synthesize(
         jpipe, "hello", stream_cfg=jstreaming.StreamConfig(**stream_kw), **kw))
 
     tpipe = CosyPipeline(tcfg, bridge.params_from_numpy(lm), FakeTok(), flow_cfg=codecs["tf"],
                          flow_params=codecs["tfp"], hift_cfg=codecs["th"],
-                         hift_params=codecs["thp"], device="cpu")
+                         hift_params=codecs["thp"], decode_megakernel=decode_megakernel,
+                         device="cpu")
     got = list(streaming.stream_synthesize(
         tpipe, "hello", stream_cfg=streaming.StreamConfig(**stream_kw), noise=JaxNoise(1), **kw))
 
@@ -320,12 +322,25 @@ def test_stream_synthesize_matches_jax(codecs, monkeypatch):
     assert _rel(np.concatenate(got), np.concatenate(want)) <= 1e-3
 
 
+def test_stream_synthesize_matches_jax(codecs, monkeypatch):
+    """The B=1 whole-step route: the JAX side decodes through its B=1
+    kernel in interpret mode, the port through the plain version."""
+    _stream_vs_jax(codecs, monkeypatch, decode_megakernel=True)
+
+
+def test_stream_synthesize_on_the_decode_step_route_matches_jax(codecs, monkeypatch):
+    """The model's decode-step route (the pipelines' default on the CPU
+    and for an f32 LM): JAX's XLA step against the port's
+    rwkv7.decode_step."""
+    _stream_vs_jax(codecs, monkeypatch, decode_megakernel=False)
+
+
 def _tiny_port_pipeline(codecs):
     cfg = cosy.default_config(hidden_size=128, num_layers=2, dtype=torch.float32)
     params = cosy.init_params(torch.Generator().manual_seed(0), cfg)
     params["head"] = 10.0 * params["head"]
     return CosyPipeline(cfg, params, FakeTok(), codecs["tf"], codecs["tfp"], codecs["th"],
-                        codecs["thp"], device="cpu")
+                        codecs["thp"], decode_megakernel=True, device="cpu")
 
 
 def test_stream_ramps_keep_the_tokens_and_the_audio_length(codecs, monkeypatch):
