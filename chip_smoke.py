@@ -23,7 +23,10 @@ with the S3 tokenizer and CAM++ at their published widths
 (``CosyPipeline.synthesize`` on both decode routes, cross-lingual,
 instruct, voice conversion), and Cosy B=64 offline generation at 2048 x
 24, the configuration of ``benchmarks/bench_generate_mega_ab.py --family
-cosy --hidden 2048``.
+cosy --hidden 2048``; then the CosyVoice server at the 1.5B pairing through
+``launch.build_cosy_pipeline`` and ``CosyTTSService`` (one shared slot
+pool, the streaming endpoint, stored voices, mp3, the SFM levers), the
+traffic of ``benchmarks/bench_pooled_streaming.py``'s defaults.
 
 Phases, each printing its own lines; any failure raises, so the run exits
 non-zero and prints no result:
@@ -33,8 +36,9 @@ non-zero and prints no result:
              registers and spills (a spill in a chunked WKV7 kernel fails)
   3. wkv7    the chunked forward kernel's launch plan against the library;
              the kernel vs ops/wkv7.wkv7_scan (f32 reference) with and
-             without state and resets, at the Cosy prefill and one admission
-             bucket, and at every w_raw = -0.5 in f32; two calls
+             without state and resets, at the Cosy prefill, the Spark
+             server's admission bucket and the Cosy server's largest
+             admission (8, 256, 32), and at every w_raw = -0.5 in f32; two calls
              bit-identical (anchors included); ms, device ms and bound at
              the shapes of the paths that run it
   4. decode  the B=64 decode step's launch plan (shared memory a CTA, the
@@ -76,9 +80,10 @@ non-zero and prints no result:
              3 utterances of 200 characters, 75 prompt tokens, 400 new
              tokens (1 warm-up, 2 timed): TTFA, RTF, LM ms a token, flow and
              HiFT ms a hop, decode launches a token, peak memory
- 14. wkv7 step  the slot pool's in-place WKV step kernel vs wkv7_step_plain
-             at B = 96, H = 16: f32 and bf16 carry, 4 chained steps; ms a
-             layer over 24 layers' states, the bound from the bytes
+ 14. wkv7 step  the slot pools' in-place WKV step kernel vs wkv7_step_plain
+             at the Spark pool's B = 96, H = 16 and the Cosy pool's B = 8,
+             H = 32: f32 and bf16 carry, 4 chained steps; ms a layer over
+             24 layers' states, the bound from the bytes
  15. serve small a 256 x 2 Spark slot pool (8 slots; then the B=64 pool) on
              the card vs the same pool on the CPU's plain path: 12 requests,
              greedy and then top-k 50 / top-p 0.95 through the pool's noise,
@@ -128,6 +133,32 @@ non-zero and prints no result:
              decode, B = 64, 128 + 256 tokens at top-k 25 / top-p 0.8: audio
              tok/s with the prefill, 8 L + 2 launches a token, peak memory
 
+ 22. cosy serve small  the Cosy slot pool (serving/cosy_pool.py) at LM 256 x 2
+             f32: 3 requests, 2 slots, 4-step chunks, greedy and top-k 25 /
+             top-p 0.8 on the pool's hashed draws, card vs CPU identical,
+             overlap identical, the greedy tokens = each request alone
+             through cosy_generate fed the pool's draws; wkv7_step L a pool
+             step, wkv7_fwd L an admission; the SFM window hop of a tiny SFM
+             flow, card vs CPU within 1e-4; the LM as a checkpoint loaded by
+             launch.build_cosy_pipeline (bf16), greedy pool card vs CPU
+ 23. cosy serve main  the path cosy-1.5B-serve-8: a random Cosy LM 2048 x 24
+             through launch.cosy_pipeline with random FlowConfig(sfm=True),
+             HiFTConfig(), S3TokenizerConfig() and CampplusConfig() codecs,
+             CosyTTSService (8 slots, chunk 16, RAS 25 / 0.8, hop 50) behind
+             HTTP: 8 concurrent /api/rwkv_tts_stream requests of a
+             60-character text with 6 s prompt wavs under the bench's
+             400-token cap; then, capped at 100 tokens, the same 8 voices
+             stored (--voices-dir) under torch.profiler, one solo stream, 4
+             /api/rwkv_tts requests, one mp3 where libmp3lame is present;
+             then the SFM levers (sfm, 5 steps, ctx 50, vocode every 2) on 8
+             streams: TTFA p50 / p95 pooled and solo, RTF a stream and
+             aggregate, the gap between chunks after the first, pool ms a
+             step and a chunk, LM / flow / HiFT busy on the wall and on
+             their threads' CPU, the process's CPU share, the card's busy
+             share and the synchronising calls, wkv7_step 24 a pool step,
+             wkv7_fwd 24 an admission, peak memory, every wav finite with
+             960 samples a token
+
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
 
@@ -135,6 +166,7 @@ The line before the last is the kernel table as JSON; the last line is
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -180,6 +212,15 @@ WAV_HIDDEN, WAV_LAYERS = 1024, 24
 WAV_ROWS, WAV_CHECK_TOKENS, WAV_PROMPT_S, WAV_NEW, WAV_REQUESTS = 16, 50, 6.0, 256, 4
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens")
 GOLDEN_BICODEC = os.path.join(GOLDEN_DIR, "bicodec.npz")
+
+# the Cosy server (bench_pooled_streaming.py's defaults): 8 slots, 16-step
+# chunks, 50-token hops, 8 concurrent 60-character streams under the
+# bench's cap of SERVE_COSY_NEW tokens; random weights draw no EOS, so each
+# stream runs to the hub's maximum, min(20 x its content tokens, the cap):
+# 260 tokens for these texts; the other bursts cap their decode at
+# SERVE_COSY_SHORT tokens (a hop and the tail) to keep the phase short
+SERVE_COSY_STREAMS, SERVE_COSY_CHUNK, SERVE_COSY_HOP = 8, 16, 50
+SERVE_COSY_TEXT, SERVE_COSY_NEW, SERVE_COSY_SHORT = 60, 400, 100
 
 # the Cosy zero-shot route: the 1.5B pairing with S3 and CAM++ at their
 # published widths, a 6 s prompt, 200-character texts, 400 new tokens (the
@@ -315,8 +356,9 @@ def phase_wkv7(dev) -> dict:
             ins, state, resets = wkv_inputs(g, 4, 200, 16, dtype)
             st, rs = (state, resets) if with_state else (None, None)
             gate(f"B=4 T=200 H=16 state+resets={with_state}", ins, st, rs, tol)
-    # the Cosy prefill and one admission bucket, with state and resets
-    for name, Bn, T, H, _ in WKV_FWD_SHAPES[1:3]:
+    # the Cosy prefill and the Spark and Cosy servers' largest admissions,
+    # with state and resets
+    for name, Bn, T, H, _ in WKV_FWD_SHAPES[1:4]:
         for dtype, tol in tols:
             ins, state, resets = wkv_inputs(g, Bn, T, H, dtype)
             gate(f"{name} ({Bn}, {T}, {H}) state+resets", ins, state, resets, tol)
@@ -359,6 +401,7 @@ def phase_wkv7(dev) -> dict:
 # kernel 2's shapes on the paths that run it: (name, B, T, H, saving forward)
 WKV_FWD_SHAPES = (("prefill", B, PROMPT, 16, False), ("cosy", 1, 320, 32, False),
                   ("admission", 8, PROMPT, 16, False),
+                  ("cosy admission", SERVE_COSY_STREAMS, 256, COSY_C // 64, False),
                   ("train", TRAIN_B, TRAIN_T, TRAIN_H, True))
 
 
@@ -1623,14 +1666,15 @@ def phase_wkv7_step(dev) -> dict:
     from rwkvtts_torch.ops import wkv7_step_packed as sp
 
     g = torch.Generator(device=dev).manual_seed(5)
-    Bn, H = SERVE_SLOTS, SERVE_H
     err = 0.0
     # (carry, vectors, limit on y, limit on the state): y is rounded to the
-    # vectors' dtype, the state to the carry's
+    # vectors' dtype, the state to the carry's; at the Spark pool's shape
+    # and the Cosy pool's (8 slots, 2048 / 64 heads)
     cases = ((torch.float32, torch.float32, 1e-4, 1e-4),
-             (torch.float32, torch.bfloat16, 2e-2, 1e-4),   # the pool's default
+             (torch.float32, torch.bfloat16, 2e-2, 1e-4),   # the pools' default
              (torch.bfloat16, torch.bfloat16, 2e-2, 2e-2))
-    for carry, vdt, ytol, stol in cases:
+    for (Bn, H), (carry, vdt, ytol, stol) in itertools.product(
+            ((SERVE_SLOTS, SERVE_H), (SERVE_COSY_STREAMS, COSY_C // 64)), cases):
         s_k = (0.1 * torch.randn(Bn, H, 64, 64, generator=g, device=dev)).to(carry)
         s_p = s_k.clone()
         ey = 0.0
@@ -1651,11 +1695,14 @@ def phase_wkv7_step(dev) -> dict:
         check(ey <= ytol and es <= stol, "wkv7 step kernel disagrees with wkv7_step_plain")
 
     # time: one step a layer over 24 layers' states, as the pool steps them
-    # (each layer's state is cold in L2 when its turn comes), bf16 vectors
+    # (each layer's state is cold in L2 when its turn comes), bf16 vectors;
+    # the Spark pool's shape with both carries, the Cosy pool's with f32
     L = 24
-    vecs = step_inputs(g, Bn, H, torch.bfloat16)
     times = {}
-    for carry in (torch.float32, torch.bfloat16):
+    for Bn, H, carry in ((SERVE_SLOTS, SERVE_H, torch.float32),
+                         (SERVE_SLOTS, SERVE_H, torch.bfloat16),
+                         (SERVE_COSY_STREAMS, COSY_C // 64, torch.float32)):
+        vecs = step_inputs(g, Bn, H, torch.bfloat16)
         states = [torch.zeros(Bn, H, 64, 64, dtype=carry, device=dev) for _ in range(L)]
 
         def kernel():
@@ -1672,17 +1719,18 @@ def phase_wkv7_step(dev) -> dict:
         # bytes: the state read and written, the six vectors read and y written
         bms, by = bound_ms(2 * nbytes(states[0]) + 7 * nbytes(vecs[0]), 7 * Bn * H * 4096,
                            F32_FLOPS)
-        times[carry] = (ms, call_ms, plain_ms, bms, by)
+        times[Bn, carry] = (ms, call_ms, plain_ms, bms, by)
         print(f"wkv7 step: carry {str(carry)[6:]}, B={Bn} H={H}: kernel {ms:.4f} ms a layer "
               f"on the device ({call_ms:.4f} ms a call from the host), plain {plain_ms:.4f} ms, "
               f"bound {bms:.4f} ms ({by}); {1e-9 * 2 * nbytes(states[0]) / (ms / 1e3):.1f} GB/s "
               f"of state")
-    ms, call_ms, plain_ms, bms, by = times[torch.float32]
+    ms, call_ms, plain_ms, bms, by = times[SERVE_SLOTS, torch.float32]
+    keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
     return {"name": "wkv7_step", "route": "cuda", "source": STEP_SOURCE,
             "replaces": STEP_REPLACES, "max_abs_err": err, "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "bf16_carry": dict(zip(("ms", "call_ms", "plain_ms", "bound_ms", "bound_by"),
-                                   times[torch.bfloat16]))}
+            "bf16_carry": dict(zip(keys, times[SERVE_SLOTS, torch.bfloat16])),
+            "cosy_pool": dict(zip(keys, times[SERVE_COSY_STREAMS, torch.float32]))}
 
 
 def serve_prompts(n: int, seed: int):
@@ -2746,6 +2794,617 @@ def phase_cosy_b64(dev, card: str) -> dict:
             "by_kernel": by_kernel, "peak_gib": peak / 2**30}
 
 
+# ---------------------------------------------------------------------------
+# 22-23. The Cosy server: the slot pool and stream hub, card vs CPU, then
+# the launcher's pipeline behind HTTP at the 1.5B pairing
+# ---------------------------------------------------------------------------
+
+
+def sfm_codecs():
+    """tiny_codecs' flow as an SFM flow: a random SFM head whose t and
+    log-sigma outputs are biased low, so the SFM start's noise scale
+    sqrt((1 - t)^2 - sigma^2) is well away from 0 (above the clamp it is 0
+    up to rounding, and its sqrt turns f32 rounding into ~1e-4 of the
+    noise; tests/test_torch_cosy_sfm.py)."""
+    import dataclasses
+
+    from rwkvtts_torch.codecs import flow
+
+    fcfg, fparams, hcfg, hparams = tiny_codecs()
+    fcfg = dataclasses.replace(fcfg, sfm=True)
+    head = flow.sfm_head_init(torch.Generator().manual_seed(24), fcfg.encoder.output_size,
+                              fcfg.output_size)
+    head["proj"]["b"][fcfg.output_size:] = torch.tensor([-3.0, -4.0])
+    return fcfg, {**fparams, "sfm_head": head}, hcfg, hparams
+
+
+def phase_cosy_serve_small(dev) -> None:
+    """The Cosy slot pool at LM 256 x 2 (f32) on the card vs the CPU: 3
+    requests, 2 slots, 4-step chunks, greedy (also against each request's
+    solo cosy_generate on the card, fed the pool's draws) and sampled
+    (top-k 25 / top-p 0.8 on the pool's hashed draws), overlap; kernel 7 a
+    layer a pool step and kernel 2 a layer an admission; the SFM window hop
+    of a tiny SFM flow, card vs CPU; the LM through the launcher's
+    checkpoint loader, card vs CPU."""
+    import numpy as np
+
+    from rwkvtts_torch.data import cosy_collator
+    from rwkvtts_torch.data.spark_collator import pad_prompts_left
+    from rwkvtts_torch.infer import generate as gen
+    from rwkvtts_torch.infer import streaming
+    from rwkvtts_torch.models import cosy, rwkv7
+    from rwkvtts_torch.ops import sampling, wkv7_cuda
+    from rwkvtts_torch.ops import wkv7_step_packed as sp
+    from rwkvtts_torch.serving.cosy_pool import CosyPoolBatcher
+
+    t_phase = time.perf_counter()
+    cfg = cosy.default_config(hidden_size=256, num_layers=2, dtype=torch.float32)
+    g = torch.Generator().manual_seed(41)
+    params = cosy.init_params(g, cfg)
+    randomize(params, g)
+    params["head"] = 10.0 * params["head"]  # greedy gaps far above rounding noise
+    packed = rwkv7.pack_decode_params(params, cfg.backbone)
+    rng = np.random.default_rng(42)
+    reqs = [(pad_prompts_left([cosy_collator.build_prompt(
+                rng.integers(10, 6000, n_text).tolist(), rng.integers(0, 6561, n_sp).tolist())]),
+             cap, mn, seed)
+            for n_text, n_sp, cap, mn, seed in ((6, 4, 12, 4, 5), (9, 0, 20, 6, 6),
+                                                (4, 8, 16, 2, 7))]
+    L, V = cfg.backbone.num_layers, cfg.speech_head_size
+
+    def pool(where, top_k, top_p, overlap=False):
+        p = rwkv7.tree_map(lambda t: t.to(where), packed)
+        cb = CosyPoolBatcher(p, cfg, n_slots=2, chunk=4, prompt_cap=32, top_k=top_k,
+                             top_p=top_p, overlap=overlap)
+        counts = {"chunks": 0, "admissions": 0}
+        chunk, prefill = cb._chunk, cb._prefill
+
+        def counted(name, fn):
+            def wrapped(*a, **kw):
+                counts[name] += 1
+                return fn(*a, **kw)
+            return wrapped
+
+        cb._chunk, cb._prefill = counted("chunks", chunk), counted("admissions", prefill)
+        sp.reset_launches()
+        wkv7_cuda.reset_launches()
+        rids = [cb.add_request(pb, cap, min_new_tokens=mn, seed=s) for pb, cap, mn, s in reqs]
+        out = cb.drain()
+        counts.update(wkv7_step=sp.launches, wkv7_fwd=wkv7_cuda.launches["wkv7_fwd"])
+        return [out[r] for r in rids], counts, p
+
+    for top_k, top_p in ((1, 1.0), (25, 0.8)):
+        t_cpu, _, _ = pool("cpu", top_k, top_p)
+        t_gpu, counts, p_dev = pool(dev, top_k, top_p)
+        t_ovl, _, _ = pool(dev, top_k, top_p, overlap=True)
+        n = sum(len(t) for t in t_gpu)
+        print(f"cosy serve small: pool LM 256 x 2 f32, 3 requests, 2 slots, chunk 4, top-k "
+              f"{top_k} / top-p {top_p}: {n} tokens, card vs CPU identical {t_gpu == t_cpu}, "
+              f"overlap identical {t_ovl == t_gpu}; {counts['chunks']} chunks, "
+              f"{counts['admissions']} admissions, launches wkv7_step {counts['wkv7_step']}, "
+              f"wkv7_fwd {counts['wkv7_fwd']}")
+        check(n > 0 and t_gpu == t_cpu, f"cosy serve small tokens differ: card {t_gpu} cpu {t_cpu}")
+        check(t_ovl == t_gpu, f"cosy serve small: overlap tokens {t_ovl}, want {t_gpu}")
+        check(counts["wkv7_step"] == L * 4 * counts["chunks"],
+              f"cosy serve small: wkv7_step {counts['wkv7_step']}, want {L} a step")
+        check(counts["wkv7_fwd"] == L * counts["admissions"],
+              f"cosy serve small: wkv7_fwd {counts['wkv7_fwd']}, want {L} an admission")
+        if top_k == 1:  # each request alone through cosy_generate, fed the pool's draws
+            solo = []
+            for pb, cap, mn, s in reqs:
+                k = min(top_k, V)
+                nuc, fb = sampling.ras_row_noise(torch.full((cap,), s, device=dev),
+                                                 torch.arange(cap, device=dev), k, V)
+                t = {key: torch.from_numpy(np.asarray(v, np.int64)).to(dev)
+                     for key, v in pb.items()}
+                toks, length = gen.cosy_generate(
+                    p_dev, cfg, t["tokens"], t["modality"], t["attention_mask"],
+                    max_new_tokens=cap, min_new_tokens=mn, top_k=1,
+                    noise=(nuc[:, None], fb[:, None]))
+                solo.append(toks[0, :int(length[0])].tolist())
+            print(f"cosy serve small: each request alone through cosy_generate on the card: "
+                  f"the pool's tokens {solo == t_gpu}")
+            check(solo == t_gpu, f"cosy serve small: solo {solo}, pool {t_gpu}")
+
+    # the SFM window hop of a tiny SFM flow, card vs CPU (TF32 off)
+    from rwkvtts_torch.codecs import flow
+
+    fcfg, fparams, _, _ = sfm_codecs()
+    P, ctx, hop, la = 4, 8, 6, fcfg.pre_lookahead_len
+    cap = P + ctx + hop + la
+    gi = torch.Generator().manual_seed(44)
+    buf = torch.randint(0, 6561, (1, cap), generator=gi)
+    spk = torch.randn(1, fcfg.spk_embed_dim, generator=gi)
+    table = flow.NoiseTable(9, fcfg.output_size)(2 * (cap + 5))
+    mels = {}
+    for where in ("cpu", dev):
+        to = lambda t: t.to(where)
+        mels[str(where)] = streaming._flow_hop(
+            rwkv7.tree_map(to, fparams), fcfg, to(table), to(buf), cap - 2, None, P, 5, ctx,
+            hop + la, to(spk), 5, sfm=True).cpu()
+    err = rel(mels[str(dev)], mels["cpu"])
+    print(f"cosy serve small: SFM window hop (tiny SFM flow, 5 steps, window {cap} tokens): "
+          f"card vs CPU rel {err:.3e}, finite {bool(torch.isfinite(mels[str(dev)]).all())}")
+    check(err <= 1e-4 and bool(torch.isfinite(mels[str(dev)]).all()),
+          f"cosy serve small: SFM hop card vs CPU rel {err:.3e} (limit 1e-4)")
+
+    # the launcher's loader: the LM as a checkpoint written by the port's
+    # exporter, loaded by launch.build_cosy_pipeline (bf16 matrices) on the
+    # card and on the CPU; the two pools' greedy tokens
+    from rwkvtts_torch.convert import export_hf
+    from rwkvtts_torch.serving import launch
+
+    with tempfile.TemporaryDirectory() as d:
+        export_hf.save_pretrained(params, cfg, d, kind="cosy")
+        toks = {}
+        for where in ("cpu", dev):
+            pipe = launch.build_cosy_pipeline(os.path.join(d, "model.safetensors"), device=where)
+            cb = CosyPoolBatcher(pipe.lm_params, pipe.lm_cfg, n_slots=2, chunk=4, prompt_cap=32,
+                                 top_k=1)
+            rids = [cb.add_request(pb, cap, min_new_tokens=mn, seed=s) for pb, cap, mn, s in reqs]
+            out = cb.drain()
+            toks[str(where)] = [out[r] for r in rids]
+    same = toks[str(dev)] == toks["cpu"]
+    print(f"cosy serve small: launch.build_cosy_pipeline of a checkpoint the exporter wrote "
+          f"(bf16), greedy pool: card vs CPU tokens identical {same}; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    check(same, f"cosy serve small: launcher pools differ: card {toks[str(dev)]} cpu {toks['cpu']}")
+
+
+class _StreamReader:
+    """A POST whose answer is a chunked WAV, read from a raw socket as it
+    arrives: the seconds to the first PCM chunk and to the 0-chunk, the
+    PCM bytes, the number of PCM chunks and each one's (seconds, bytes) as
+    it arrived."""
+
+    def __init__(self, port: int, body: dict):
+        self.port, self.body = port, body
+        self.ttfa = self.wall = None
+        self.pcm, self.chunks, self.status, self.arrivals = b"", 0, None, []
+
+    def __call__(self):
+        import socket
+
+        data = json.dumps(self.body).encode()
+        t0 = time.perf_counter()
+        with socket.create_connection(("127.0.0.1", self.port), timeout=900) as s:
+            s.sendall(b"POST /api/rwkv_tts_stream HTTP/1.1\r\nHost: x\r\n"
+                      b"Content-Type: application/json\r\n"
+                      + f"Content-Length: {len(data)}\r\n\r\n".encode() + data)
+            buf = b""
+            while b"\r\n\r\n" not in buf:
+                buf += s.recv(65536)
+            head, buf = buf.split(b"\r\n\r\n", 1)
+            self.status = head.split(b"\r\n")[0].decode()
+            first = True
+            while True:
+                while b"\r\n" not in buf:
+                    buf += s.recv(65536)
+                size, buf = buf.split(b"\r\n", 1)
+                n = int(size, 16)
+                while len(buf) < n + 2:
+                    buf += s.recv(65536)
+                part, buf = buf[:n], buf[n + 2:]
+                if n == 0:
+                    break
+                if first:
+                    first = False  # the WAV header
+                    continue
+                if self.ttfa is None:
+                    self.ttfa = time.perf_counter() - t0
+                self.arrivals.append((time.perf_counter() - t0, n))
+                self.pcm += part
+                self.chunks += 1
+        self.wall = time.perf_counter() - t0
+
+
+def phase_cosy_serve_main(dev, card: str) -> dict:
+    """The Cosy server at the 1.5B pairing (path cosy-1.5B-serve-8): a
+    random Cosy LM 2048 x 24 through launch.cosy_pipeline with
+    FlowConfig(sfm=True) / HiFTConfig() / S3TokenizerConfig() /
+    CampplusConfig() random codecs, CosyTTSService
+    (8 slots, chunk 16, RAS 25 / 0.8, hop 50) behind HTTP: 8 concurrent
+    streams with 6 s prompt wavs under the bench's 400-token cap; then, at
+    100 tokens, the same 8 voices stored (under torch.profiler: the card's
+    busy share and the host's synchronising calls), one solo stream, 4
+    non-streaming requests and one mp3; then the SFM levers (sfm, 5 steps,
+    ctx 50, vocode every 2) on 8 stored-voice streams. Each flow hop, HiFT
+    call and pool step is timed on the wall and on its thread's CPU."""
+    from rwkvtts_torch.codecs import campplus as cp
+    from rwkvtts_torch.codecs import flow, hift
+    from rwkvtts_torch.codecs import s3_tokenizer as s3
+    from rwkvtts_torch.infer.voices import CosyVoiceLibrary
+    from rwkvtts_torch.models import cosy
+    from rwkvtts_torch.serving import launch
+
+    L, N = COSY_L, SERVE_COSY_STREAMS
+    torch.cuda.synchronize()
+    start_bytes = torch.cuda.memory_allocated()  # what earlier phases still hold
+    t0 = t_phase = time.perf_counter()
+    cfg = cosy.default_config(hidden_size=COSY_C, num_layers=L)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = cosy.init_params(g, cfg)
+    randomize(params, g)
+    gen_dev = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    fcfg, hcfg = flow.FlowConfig(sfm=True), hift.HiFTConfig()
+    s3cfg, ccfg = s3.S3TokenizerConfig(), cp.CampplusConfig()
+    # the launcher's pipeline of these weights (phase 22 loads one from a
+    # checkpoint file through launch.build_cosy_pipeline)
+    pipe = launch.cosy_pipeline(
+        cfg, params, dev, flow_cfg=fcfg, flow_params=flow.init_params(gen_dev(1), fcfg),
+        hift_cfg=hcfg, hift_params=hift.init_params(gen_dev(2), hcfg), s3_cfg=s3cfg,
+        s3_params=s3.init_params(gen_dev(3), s3cfg), campplus_cfg=ccfg,
+        campplus_params=cp.init_params(gen_dev(4), ccfg))
+    del params
+    torch.cuda.synchronize()
+    att = pipe.lm_params["blocks"]["att"]
+    check(pipe.lm_mega is None and "fused_a" in att and att["fused_a"].dtype == torch.bfloat16,
+          "cosy serve main: not the launcher's pipeline (fused bf16 decode weights)")
+    print(f"cosy serve main: Cosy {COSY_C} x {L} random weights through launch.cosy_pipeline "
+          f"with random FlowConfig(sfm=True) / HiFTConfig() / S3TokenizerConfig() / "
+          f"CampplusConfig() in {time.perf_counter() - t0:.1f} s")
+
+    clips = [prompt_clip(ZS_PROMPT_S, seed=10 + i) for i in range(N)]
+    with tempfile.TemporaryDirectory() as vdir:
+        voices = CosyVoiceLibrary(vdir)
+        for i, c in enumerate(clips):
+            voices.register_from_wav(pipe, f"v{i}", c)
+        out = _cosy_serve_traffic(card, pipe, voices, clips, start_bytes)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"cosy serve main: the phase took {out['phase_s']:.1f} s")
+    return out
+
+
+def trace_numbers(prof, wall_s: float) -> dict:
+    """From a torch.profiler run with CUDA activity: the device's busy
+    share (the union of its kernel, copy and fill intervals over `wall_s`)
+    and the host's synchronizing CUDA calls (their count and the
+    milliseconds the calling threads spent in them)."""
+    import collections
+
+    spans, syncs = [], collections.Counter()
+    sync_ms = 0.0
+    for e in prof.profiler.kineto_results.events():
+        dt, name = e.device_type(), e.name()
+        if getattr(dt, "name", str(dt)).endswith("CUDA"):
+            spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        elif "Synchronize" in name or name == "cudaMemcpy":
+            syncs[name] += 1
+            sync_ms += e.duration_ns() / 1e6
+    spans.sort()
+    busy_ns, end = 0, None
+    for a, b in spans:
+        if end is None or a >= end:
+            busy_ns, end = busy_ns + b - a, b
+        elif b > end:
+            busy_ns, end = busy_ns + b - end, b
+    return {"device_busy_share": busy_ns / 1e9 / wall_s, "device_busy_s": busy_ns / 1e9,
+            "device_ops": len(spans), "syncs": dict(syncs), "sync_ms": sync_ms}
+
+
+def _cosy_serve_traffic(card, pipe, voices, clips, start_bytes) -> dict:
+    """Phase 23's traffic on a built pipeline and its stored voices: 8
+    streams with prompt wavs at the bench's cap (SERVE_COSY_NEW tokens);
+    then, capped at SERVE_COSY_SHORT, 8 stored-voice streams under
+    torch.profiler, one solo stream, 4 non-streaming requests and an mp3;
+    then the SFM levers."""
+    import collections
+    import base64
+    import threading
+    import urllib.request
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from rwkvtts_torch.infer import streaming
+    from rwkvtts_torch.ops import wkv7_cuda
+    from rwkvtts_torch.ops import wkv7_step_packed as sp
+    from rwkvtts_torch.serving import http_server, launch
+    from rwkvtts_torch.serving import service as svc
+    from rwkvtts_torch.utils import mp3
+
+    L, N = COSY_L, SERVE_COSY_STREAMS
+    up = pipe.flow_cfg.token_mel_ratio * pipe.hift_cfg.total_upsample  # samples a token
+    text = "The quick brown fox jumped over the lazy dog near the river."
+    check(len(text) == SERVE_COSY_TEXT, "cosy serve main: text length")
+    wav_b64 = [base64.b64encode(svc.wav_bytes(c, 16000)).decode() for c in clips]
+
+    # what the server did, from its own side: wav finite, tokens a request,
+    # pool chunk and admission times, flow and HiFT hop times; each time as
+    # (wall seconds, seconds the calling thread ran on a CPU)
+    rec = {"finite": True, "tokens": {}, "step_s": [], "admit": 0, "flow_s": [], "hift_s": [],
+           "lock": threading.Lock()}
+    pcm16, wav_bytes = svc.pcm16, svc.wav_bytes
+
+    def finite_pcm(w):
+        rec["finite"] &= bool(np.isfinite(w).all())
+        return pcm16(w)
+
+    def finite_wav(w, sr):
+        rec["finite"] &= bool(np.isfinite(w).all())
+        return wav_bytes(w, sr)
+
+    def timed(name, fn):
+        def wrapped(*a, **kw):
+            t, c = time.perf_counter(), time.thread_time()
+            out = fn(*a, **kw)
+            with rec["lock"]:
+                rec[name].append((time.perf_counter() - t, time.thread_time() - c))
+            return out
+        return wrapped
+
+    flow_hop, hift_hop = streaming._flow_hop, streaming._hift_hop
+    svc.pcm16, svc.wav_bytes = finite_pcm, finite_wav
+    streaming._flow_hop, streaming._hift_hop = timed("flow_s", flow_hop), timed("hift_s", hift_hop)
+
+    def instrument(tts):
+        b = tts.hub.batcher
+        step, process, prefill = b.step, b._process, b._prefill
+
+        def timed_step():
+            t, c = time.perf_counter(), time.thread_time()
+            out = step()
+            if b._pending is not None or out:
+                rec["step_s"].append((time.perf_counter() - t, time.thread_time() - c))
+            return out
+
+        def counted_process(toks, owners):
+            events = process(toks, owners)
+            for rid, new, done in events:
+                rec["tokens"][rid] = rec["tokens"].get(rid, 0) + len(new)
+            return events
+
+        def counted_prefill(batch):
+            rec["admit"] += 1
+            return prefill(batch)
+
+        b.step, b._process, b._prefill = timed_step, counted_process, counted_prefill
+
+    def reset():
+        torch.cuda.synchronize()
+        for k in ("step_s", "flow_s", "hift_s"):
+            rec[k].clear()
+        rec["tokens"].clear()
+        rec["admit"] = 0
+        sp.reset_launches()
+        wkv7_cuda.reset_launches()
+
+    def burst(port, bodies):
+        readers = [_StreamReader(port, b) for b in bodies]
+        threads = [threading.Thread(target=r) for r in readers]
+        t0, c0 = time.perf_counter(), time.process_time()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        cpu_share = (time.process_time() - c0) / wall
+        bad = [r.status for r in readers if "200" not in (r.status or "")]
+        check(not bad, f"cosy serve main: stream answers {bad}")
+        samples = [len(r.pcm) // 2 for r in readers]
+        check(all(n > 0 and n % up == 0 for n in samples),
+              f"cosy serve main: stream samples {samples}, want a multiple of {up}")
+        audio = [n / pipe.sample_rate for n in samples]
+        # after the first chunk: the gaps between chunks, and each stream's
+        # seconds from its first chunk to its last over the audio after
+        # the first chunk (below 1: the stream keeps up once it plays)
+        gaps = [b[0] - a[0] for r in readers for a, b in zip(r.arrivals, r.arrivals[1:])]
+        steady = [(r.arrivals[-1][0] - r.arrivals[0][0])
+                  / (sum(n for _, n in r.arrivals[1:]) / 2 / pipe.sample_rate)
+                  for r in readers if len(r.arrivals) > 1]
+        return {"ttfa_ms": sorted(1e3 * r.ttfa for r in readers), "wall_s": wall,
+                "rtf": [r.wall / a for r, a in zip(readers, audio)],
+                "aggregate_realtime_x": sum(audio) / wall, "audio_s": sum(audio),
+                "chunks": sum(r.chunks for r in readers), "samples": samples,
+                "gap_ms_median": 1e3 * float(np.median(gaps)) if gaps else None,
+                "steady_rtf_median": float(np.median(steady)) if steady else None,
+                "cpu_share": cpu_share}
+
+    def pool_numbers(samples):
+        toks = collections.Counter(rec["tokens"].values())
+        check(not collections.Counter(n // up for n in samples) - toks,
+              f"cosy serve main: samples {sorted(samples)} for tokens {sorted(toks.elements())}"
+              f" ({up} samples a token)")
+        steps = SERVE_COSY_CHUNK * len(rec["step_s"])
+        launches = {"wkv7_step": sp.launches, "wkv7_fwd": wkv7_cuda.launches["wkv7_fwd"]}
+        per_step = launches["wkv7_step"] / max(steps, 1)
+        per_admit = launches["wkv7_fwd"] / max(rec["admit"], 1)
+        check(per_step == L, f"cosy serve main: wkv7_step {launches['wkv7_step']} over {steps} "
+                             f"pool steps, want {L} a step")
+        check(per_admit == L, f"cosy serve main: wkv7_fwd {launches['wkv7_fwd']} over "
+                              f"{rec['admit']} admissions, want {L} an admission")
+        wall = {k: sum(w for w, _ in rec[k]) for k in ("step_s", "flow_s", "hift_s")}
+        cpu = {k: sum(c for _, c in rec[k]) for k in ("step_s", "flow_s", "hift_s")}
+        lm, fl, hf = wall["step_s"], wall["flow_s"], wall["hift_s"]
+        per = lambda d, k: 1e3 * d[k] / max(len(rec[k]), 1)
+        return {"pool_ms_per_chunk": per(wall, "step_s"),
+                "pool_ms_per_step": 1e3 * lm / max(steps, 1),
+                "pool_cpu_ms_per_step": 1e3 * cpu["step_s"] / max(steps, 1),
+                "pool_steps": steps, "admissions": rec["admit"], "wkv7_step_per_step": per_step,
+                "wkv7_fwd_per_admission": per_admit, "launches": launches,
+                "lm_s": lm, "flow_s": fl, "hift_s": hf,
+                "lm_share": lm / (lm + fl + hf), "flow_share": fl / (lm + fl + hf),
+                "hift_share": hf / (lm + fl + hf), "flow_hops": len(rec["flow_s"]),
+                "flow_ms_per_hop": per(wall, "flow_s"), "flow_cpu_ms_per_hop": per(cpu, "flow_s"),
+                "hift_ms_per_call": per(wall, "hift_s"),
+                "hift_cpu_ms_per_call": per(cpu, "hift_s")}
+
+    kw = dict(voices=voices, n_slots=N, chunk=SERVE_COSY_CHUNK, top_k=25, top_p=0.8)
+    stream_body = lambda i, **x: {"text": text, "seed": i, "hop_tokens": SERVE_COSY_HOP, **x}
+
+    def serve(cap, **extra):
+        tts = svc.CosyTTSService(pipe, max_new_tokens=cap, **kw, **extra)
+        instrument(tts)
+        return (tts, *http_server.start_background(tts))
+
+    def stop(tts, server):
+        server.shutdown()
+        server.server_close()
+        tts.close()
+
+    def warm(tts):
+        """One short stream on this thread before the SFM levers' traffic
+        (their flow decode runs here first at these widths)."""
+        req = svc.TTSRequest(text=text, speaker="v0", seed=0, max_new_tokens=SERVE_COSY_SHORT)
+        check(len(list(tts.stream(req, hop_tokens=SERVE_COSY_HOP))) > 0,
+              "cosy serve main: the warm-up stream gave no audio")
+
+    def line(name, r):
+        print(f"cosy serve main: {name}: {len(r['samples'])} streams, TTFA p50 "
+              f"{np.percentile(r['ttfa_ms'], 50):.1f} ms, p95 "
+              f"{np.percentile(r['ttfa_ms'], 95):.1f} ms, RTF a stream "
+              f"{np.median(r['rtf']):.4f} (median), aggregate {r['aggregate_realtime_x']:.3f}"
+              f" x realtime, {r['audio_s']:.2f} s of audio in {r['wall_s']:.3f} s, "
+              f"{r['chunks']} chunks; after the first chunk: {r['gap_ms_median']} ms between "
+              f"chunks (median), {r['steady_rtf_median']} s a second of audio (median); "
+              f"process CPU {r['cpu_share']:.3f} of the wall")
+
+    def pool_line(name, x):
+        print(f"cosy serve main: {name}: pool {x['pool_ms_per_step']:.3f} ms a step "
+              f"({x['pool_cpu_ms_per_step']:.3f} ms of it on the pump thread's CPU), "
+              f"{x['pool_ms_per_chunk']:.2f} ms a chunk over {x['pool_steps']} steps; "
+              f"{x['admissions']} admissions; launches {x['launches']} = "
+              f"{x['wkv7_step_per_step']:.0f} a step, {x['wkv7_fwd_per_admission']:.0f} an "
+              f"admission; LM / flow / HiFT busy {x['lm_s']:.2f} / {x['flow_s']:.2f} / "
+              f"{x['hift_s']:.2f} s; flow {x['flow_ms_per_hop']:.1f} ms a hop "
+              f"({x['flow_cpu_ms_per_hop']:.1f} ms on its thread's CPU, {x['flow_hops']} hops), "
+              f"HiFT {x['hift_ms_per_call']:.1f} ms a call ({x['hift_cpu_ms_per_call']:.1f} "
+              f"ms CPU)")
+
+    summ = lambda r: {k: r[k] for k in ("aggregate_realtime_x", "audio_s", "wall_s",
+                                        "gap_ms_median", "steady_rtf_median", "cpu_share")} | {
+        "ttfa_ms_p50": float(np.percentile(r["ttfa_ms"], 50)),
+        "ttfa_ms_p95": float(np.percentile(r["ttfa_ms"], 95)),
+        "rtf_median": float(np.median(r["rtf"]))}
+    try:
+        # the bench's traffic: 8 streams with 6 s prompt wavs under its cap
+        # (the flow and HiFT ran at these widths in phases 11 and 21)
+        tts, server, port = serve(SERVE_COSY_NEW, warmup=True, warmup_widths=[128, 256])
+        try:
+            reset()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            pooled = burst(port, [stream_body(i, audio=wav_b64[i]) for i in range(N)])
+            numbers = pool_numbers(pooled["samples"])
+        finally:
+            stop(tts, server)
+        line(f"pooled, 6 s prompt wavs, {SERVE_COSY_NEW} tokens", pooled)
+        pool_line("pooled, 6 s prompt wavs", numbers)
+
+        # capped at SERVE_COSY_SHORT: stored voices under the profiler, solo,
+        # 4 non-streaming requests, an mp3
+        tts, server, port = serve(SERVE_COSY_SHORT, warmup=True, warmup_widths=[128, 256])
+        try:
+            reset()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                stored = burst(port, [stream_body(i, speaker=f"v{i}") for i in range(N)])
+                torch.cuda.synchronize()
+            stored_numbers = pool_numbers(stored["samples"])
+            trace = trace_numbers(prof, stored["wall_s"])
+            del prof
+            reset()
+            solo = burst(port, [stream_body(0, speaker="v0")])
+            solo_numbers = pool_numbers(solo["samples"])
+            reset()
+
+            answers = [None] * 4
+
+            def post(i, fmt="wav"):
+                body = json.dumps({"text": text, "speaker": f"v{i}", "seed": i,
+                                   "audio_format": fmt}).encode()
+                with urllib.request.urlopen(urllib.request.Request(
+                        f"http://127.0.0.1:{port}/api/rwkv_tts", data=body,
+                        headers={"Content-Type": "application/json"}), timeout=900) as r:
+                    return r.status, r.headers["Content-Type"], r.read()
+
+            threads = [threading.Thread(target=lambda i=i: answers.__setitem__(i, post(i)))
+                       for i in range(4)]
+            t1 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            plain_s = time.perf_counter() - t1
+            wav_samples = []
+            for code, ctype, body in answers:
+                check((code, ctype) == (200, "audio/wav") and body[:4] == b"RIFF",
+                      f"cosy serve main: /api/rwkv_tts answered {code} {ctype}")
+                wav_samples.append((len(body) - 44) // 2)
+            check(all(n > 0 and n % up == 0 for n in wav_samples),
+                  f"cosy serve main: wav samples {wav_samples}")
+            if mp3.available():
+                code, ctype, body = post(0, "mp3")
+                check((code, ctype) == (200, "audio/mpeg") and body[0] == 0xFF,
+                      f"cosy serve main: mp3 answered {code} {ctype}")
+                mp3_note = f"mp3 {len(body)} bytes"
+            else:
+                mp3_note = "mp3 skipped (no libmp3lame on this host)"
+            pool_numbers(wav_samples)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            total_s = time.perf_counter() - t0
+        finally:
+            stop(tts, server)
+        check(rec["finite"], "cosy serve main: a wav is not finite")
+        line(f"pooled, stored voices, {SERVE_COSY_SHORT} tokens, under torch.profiler", stored)
+        pool_line("pooled, stored voices", stored_numbers)
+        print(f"cosy serve main: the stored-voice burst's trace: device busy "
+              f"{trace['device_busy_s']:.3f} s of {stored['wall_s']:.3f} s "
+              f"({trace['device_busy_share']:.3f}), {trace['device_ops']} device ops; "
+              f"synchronizing calls {trace['syncs']}, {trace['sync_ms']:.1f} ms spent in them over "
+              f"{stored_numbers['flow_hops']} flow hops and "
+              f"{stored_numbers['pool_steps'] // SERVE_COSY_CHUNK} pool chunks")
+        line(f"solo, a stored voice, {SERVE_COSY_SHORT} tokens", solo)
+        pool_line("solo", solo_numbers)
+        print(f"cosy serve main: 4 /api/rwkv_tts answers in {plain_s:.3f} s ({wav_samples} "
+              f"samples), {mp3_note}; peak memory {peak / 2**30:.2f} GiB "
+              f"({(peak - start_bytes) / 2**30:.2f} over what the phase started with); "
+              f"{total_s:.1f} s of traffic on {card}")
+        out = {"pooled_wav_prompt": summ(pooled), "pooled_stored": summ(stored),
+               "solo": summ(solo), "trace_stored": trace, "plain_4_s": plain_s,
+               "mp3": mp3.available(), "wav_finite": rec["finite"], "samples_a_token": up,
+               "peak_gib": peak / 2**30, "peak_over_start_gib": (peak - start_bytes) / 2**30,
+               "solo_pool_ms_per_step": solo_numbers["pool_ms_per_step"],
+               "solo_flow_ms_per_hop": solo_numbers["flow_ms_per_hop"], **numbers}
+
+        # the SFM levers: sfm, 5 flow steps, ctx 50, vocode every 2
+        scfg = launch.stream_config(sfm=True, flow_timesteps=5, stream_ctx=50, vocode_every=2)
+        tts, server, port = serve(SERVE_COSY_SHORT, warmup=False, stream_cfg=scfg)
+        try:
+            warm(tts)
+            reset()
+            sfm = burst(port, [stream_body(i, speaker=f"v{i}") for i in range(N)])
+            sfm_numbers = pool_numbers(sfm["samples"])
+        finally:
+            stop(tts, server)
+        check(rec["finite"], "cosy serve main: an SFM wav is not finite")
+        line(f"SFM levers ({scfg}), stored voices, {SERVE_COSY_SHORT} tokens", sfm)
+        pool_line("SFM levers", sfm_numbers)
+        out["sfm"] = summ(sfm) | {k: sfm_numbers[k] for k in (
+            "flow_ms_per_hop", "flow_cpu_ms_per_hop", "hift_ms_per_call", "pool_ms_per_step",
+            "lm_share", "flow_share", "hift_share")}
+    finally:
+        svc.pcm16, svc.wav_bytes = pcm16, wav_bytes
+        streaming._flow_hop, streaming._hift_hop = flow_hop, hift_hop
+    return out
+
+
+def cosy_serve_of_tree(what: str = "cosy serve") -> dict:
+    """Phases 22-23 alone (the Cosy pool card vs CPU and the SFM hop, then
+    the Cosy server at the 1.5B pairing) with whichever rwkvtts_torch is
+    imported, TF32 off; prints their numbers as one JSON line."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(card)
+    phase_cosy_serve_small(dev)
+    out = phase_cosy_serve_main(dev, card)
+    print(f"{what}: " + json.dumps({k: v for k, v in out.items() if k != "launches"}))
+    return out
+
+
 def build_log(log: str) -> None:
     """Print ptxas's registers, shared memory and spills of every kernel,
     and fail if a chunked WKV7 kernel (forward, backward, fused pair)
@@ -2803,6 +3462,8 @@ def main() -> None:
     phase_cosy_zs_small(dev)
     zs_run = phase_cosy_zs_main(dev, card)
     b64_run = phase_cosy_b64(dev, card)
+    phase_cosy_serve_small(dev)
+    cs_run = phase_cosy_serve_main(dev, card)
 
     rows["wkv7_fwd"]["launches"] = main_run["launches"]["wkv7_fwd"]
     rows["wkv7_fwd"]["train_forward"] = train_fwd  # its training-shape numbers, unfused path
@@ -2826,6 +3487,8 @@ def main() -> None:
     rows["decode_b64_step"]["launches_cosy_b64"] = b64_run["launches"]["decode_b64_step"]
     rows["decode_b1_step"]["launches_cosy_zs"] = zs_launches("decode_b1_step")
     rows["wkv7_step"]["launches_cosy_zs"] = zs_launches("wkv7_step")
+    rows["wkv7_fwd"]["launches_cosy_serve"] = cs_run["launches"]["wkv7_fwd"]
+    rows["wkv7_step"]["launches_cosy_serve"] = cs_run["launches"]["wkv7_step"]
     print("train: " + json.dumps({k: v for k, v in train_run.items()
                                   if k not in ("launches", "unfused")}))
     print("cosy: " + json.dumps({k: v for k, v in cosy_run.items() if k != "launches"}))
@@ -2833,6 +3496,7 @@ def main() -> None:
     print("spark wav: " + json.dumps(wav_run))
     print("cosy zs: " + json.dumps(zs_run))
     print("cosy b64: " + json.dumps({k: v for k, v in b64_run.items() if k != "by_kernel"}))
+    print("cosy serve: " + json.dumps({k: v for k, v in cs_run.items() if k != "launches"}))
     print(json.dumps({"kernels": [rows[k] for k in ("wkv7_fwd", "decode_b64_step", "wkv7_bwd",
                                                     "wkv7_fused_fwd", "wkv7_fused_bwd",
                                                     "decode_b1_step", "wkv7_step")]}))

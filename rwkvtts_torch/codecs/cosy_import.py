@@ -7,7 +7,8 @@ kept as stored, linears transposed to (in, out)).
 
 Key layouts read (the reference's module names):
   * flow: input_embedding, spk_embed_affine_layer, encoder.*, encoder_proj,
-    decoder.estimator.*
+    decoder.estimator.*; the SFM variant's sfm_head.conv{1,2},
+    layernorm{1,2}, proj
   * conformer: embed.out.{0,1}, pre_lookahead_layer.conv{1,2},
     encoders.{i}.self_attn.linear_{q,k,v,out,pos} + pos_bias_{u,v},
     feed_forward.w_{1,2}, norm_mha / norm_ff, up_layer.conv,
@@ -23,7 +24,7 @@ Key layouts read (the reference's module names):
 
 The port's estimator is the deployed single-level causal one: a
 checkpoint with real Downsample1D / Upsample1D resamplers (more levels) is
-refused, and so is the SFM head (the SFM path is not ported yet).
+refused.
 """
 from __future__ import annotations
 
@@ -133,17 +134,26 @@ def estimator_from_sd(sd: SD, cfg) -> Params:
 
 
 def flow_from_state_dict(sd: SD, cfg, device=None) -> Params:
-    """A flow checkpoint (CausalMaskedDiffWithXvec) -> the port's tree for
-    codecs/flow.py, f32 tensors on `device`."""
-    if "sfm_head.conv1.weight" in sd:
-        raise NotImplementedError("the SFM flow (sfm_head.*) is not ported yet")
-    return ti.tensors({
+    """A flow checkpoint (CausalMaskedDiffWithXvec, or its SFM variant) ->
+    the port's tree for codecs/flow.py, f32 tensors on `device`; with
+    cfg.sfm the SFM head (model/flow/sfm_head.py) where the checkpoint has
+    one."""
+    p = {
         "input_embedding": np.asarray(sd["input_embedding.weight"]),
         "spk_affine": ti.linear_p(sd, "spk_embed_affine_layer"),
         "encoder": conformer_from_sd(_subdict(sd, "encoder."), cfg.encoder),
         "encoder_proj": ti.linear_p(sd, "encoder_proj"),
         "estimator": estimator_from_sd(_subdict(sd, "decoder.estimator."), cfg.estimator),
-    }, device)
+    }
+    if cfg.sfm and "sfm_head.conv1.weight" in sd:
+        p["sfm_head"] = {
+            "conv1": ti.conv1d_p(sd, "sfm_head.conv1"),
+            "ln1": ti.layer_norm_p(sd, "sfm_head.layernorm1"),
+            "conv2": ti.conv1d_p(sd, "sfm_head.conv2"),
+            "ln2": ti.layer_norm_p(sd, "sfm_head.layernorm2"),
+            "proj": ti.linear_p(sd, "sfm_head.proj"),
+        }
+    return ti.tensors(p, device)
 
 
 # ---------------------------------------------------------------------------

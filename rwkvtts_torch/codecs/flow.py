@@ -9,7 +9,9 @@ windowed hop sees at its frames exactly the noise the full sequence would.
 The JAX package folds the frame index into a key; the port draws a table
 over absolute frames once (``NoiseTable``) and indexes it with the same
 absolute-index formula. Every noise input can be passed in explicitly.
-The SFM fast path and the training losses are not ported yet.
+The SFM fast path (``sfm_inference`` and its windowed hop,
+model/flow/flow.py:132-180 of the reference) starts the ODE at the SFM
+head's coarse prediction. The training losses are not ported yet.
 Channels-last (B, T, C).
 """
 from __future__ import annotations
@@ -40,6 +42,7 @@ class EstimatorConfig:
 
 @dataclasses.dataclass(frozen=True)
 class CFMConfig:
+    sigma_min: float = 1e-6
     inference_cfg_rate: float = 0.7  # classifier-free guidance
 
 
@@ -55,9 +58,9 @@ class FlowConfig:
     estimator: EstimatorConfig = EstimatorConfig()
     cfm: CFMConfig = CFMConfig()
     n_timesteps: int = 10
-    # the SFM flow (an SFM head, the ODE started late): not ported yet, so
-    # the pipeline refuses a config that asks for it
+    # the SFM flow: an SFM head whose coarse prediction starts the ODE late
     sfm: bool = False
+    sfm_strength: float = 2.5
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +228,29 @@ def cfm_solve(p_est: Params, est_cfg: EstimatorConfig, cfm: CFMConfig, z, mu, ma
 
 
 # ---------------------------------------------------------------------------
+# SFM head
+# ---------------------------------------------------------------------------
+
+
+def sfm_head_init(g: torch.Generator, d_hidden: int, mel_channels: int) -> Params:
+    return {"conv1": nn.conv1d_init(g, d_hidden, d_hidden, 3),
+            "ln1": nn.layer_norm_init(d_hidden, g.device),
+            "conv2": nn.conv1d_init(g, d_hidden, d_hidden, 3),
+            "ln2": nn.layer_norm_init(d_hidden, g.device),
+            "proj": nn.linear_init(g, d_hidden, mel_channels + 2)}
+
+
+def sfm_head_apply(p: Params, h: torch.Tensor, mel_channels: int):
+    """h (B, T, C) -> (x_h (B, T, mel), t_h (B, 1), log_sigma_sq (B, 1))."""
+    x = F.relu(nn.layer_norm(p["ln1"], nn.conv1d(p["conv1"], h, padding=1), eps=1e-5))
+    x = F.relu(nn.layer_norm(p["ln2"], nn.conv1d(p["conv2"], x, padding=1), eps=1e-5))
+    x = nn.linear(p["proj"], x)
+    x_h = x[..., :mel_channels]
+    t_h = torch.sigmoid(x[..., mel_channels:mel_channels + 1]).mean(1)
+    return x_h, t_h, x[..., mel_channels + 1:].mean(1)
+
+
+# ---------------------------------------------------------------------------
 # Positional noise
 # ---------------------------------------------------------------------------
 
@@ -252,7 +278,7 @@ class NoiseTable:
 
 
 def init_params(g: torch.Generator, cfg: FlowConfig) -> Params:
-    return {
+    p = {
         "input_embedding": 0.02 * torch.randn(cfg.vocab_size, cfg.input_size, generator=g,
                                               device=g.device),
         "spk_affine": nn.linear_init(g, cfg.spk_embed_dim, cfg.output_size),
@@ -260,6 +286,9 @@ def init_params(g: torch.Generator, cfg: FlowConfig) -> Params:
         "encoder_proj": nn.linear_init(g, cfg.encoder.output_size, cfg.output_size),
         "estimator": estimator_init(g, cfg.estimator),
     }
+    if cfg.sfm:
+        p["sfm_head"] = sfm_head_init(g, cfg.encoder.output_size, cfg.output_size)
+    return p
 
 
 def encode_tokens(p: Params, cfg: FlowConfig, tokens, token_mask):
@@ -268,10 +297,15 @@ def encode_tokens(p: Params, cfg: FlowConfig, tokens, token_mask):
     return conformer.apply(p["encoder"], cfg.encoder, emb, mask=token_mask)
 
 
+def _spks(p, spk_embedding):
+    """The x-vector, l2-normalised, through the speaker affine."""
+    emb = spk_embedding * torch.rsqrt((spk_embedding ** 2).sum(-1, keepdim=True) + 1e-12)
+    return nn.linear(p["spk_affine"], emb)
+
+
 def _condition(p, cfg: FlowConfig, tokens, token_mask, prompt_feat, spk_embedding):
     """(spks, mu, mel mask, conds) of a token buffer."""
-    emb = spk_embedding * torch.rsqrt((spk_embedding ** 2).sum(-1, keepdim=True) + 1e-12)
-    spks = nn.linear(p["spk_affine"], emb)
+    spks = _spks(p, spk_embedding)
     mu = nn.linear(p["encoder_proj"], encode_tokens(p, cfg, tokens, token_mask))
     mel_mask = torch.repeat_interleave(token_mask, cfg.token_mel_ratio, 1).to(mu.dtype)
     conds = torch.zeros_like(mu)
@@ -316,3 +350,65 @@ def inference_window(p: Params, cfg: FlowConfig, tokens, token_mask, prompt_feat
     z = noise[:, idx.to(noise.device)].to(mu)
     return cfm_solve(p["estimator"], cfg.estimator, cfg.cfm, z, mu, mel_mask, spks, conds,
                      n_timesteps=n_timesteps or cfg.n_timesteps)
+
+
+# ---------------------------------------------------------------------------
+# SFM fast decode
+# ---------------------------------------------------------------------------
+
+
+def _sfm_solve(p: Params, cfg: FlowConfig, tokens, token_mask, spk_embedding, noise_at,
+               n_timesteps: Optional[int]):
+    """The SFM ODE (model/flow/flow_matching.py:24-90): the head's coarse
+    prediction x_h, its time t_h and spread sigma_h, scaled by
+    sfm_strength (Eq. 22), set the start x = sqrt(noise^2) z + x_h_bar at
+    t_h_bar; Euler steps to 1 without guidance, with zero conds (the prompt
+    rides as concatenated tokens). noise_at(n_frames) -> z (B, n_frames,
+    mel). Returns the mel of the whole buffer (B, Tt * ratio, mel)."""
+    n_timesteps = n_timesteps or cfg.n_timesteps
+    alpha, sigma_min = cfg.sfm_strength, cfg.cfm.sigma_min
+    spks = _spks(p, spk_embedding)
+    h = encode_tokens(p, cfg, tokens, token_mask)
+    mu = nn.linear(p["encoder_proj"], h)
+    x_h, t_h, log_sig = sfm_head_apply(p["sfm_head"], h, cfg.output_size)
+    sigma_h = torch.exp(0.5 * log_sig)
+    delta = torch.clamp_min(alpha * ((1 - sigma_min) * t_h + sigma_h), 1.0)  # (B, 1)
+    x_h_bar = (alpha / delta)[:, :, None] * x_h
+    t_h_bar = (alpha / delta) * t_h
+    sig_sq_bar = (alpha ** 2 / delta ** 2) * sigma_h ** 2
+    z = noise_at(mu.shape[1]).to(mu)
+    noise_sq = torch.clamp_min((1 - (1 - sigma_min) * t_h_bar) ** 2 - sig_sq_bar, 0.0)
+    x = torch.sqrt(noise_sq)[:, :, None] * z + x_h_bar
+    mel_mask = torch.repeat_interleave(token_mask, cfg.token_mel_ratio, 1).to(mu.dtype)
+    conds = torch.zeros_like(mu)
+    t0 = t_h_bar[:, 0]
+    dt = (1.0 - t0) / n_timesteps
+    for i in range(n_timesteps):
+        v = estimator_apply(p["estimator"], cfg.estimator, x, mel_mask, mu,
+                            t0 + (1.0 - t0) * i / n_timesteps, spks, conds)
+        x = x + dt[:, None, None] * v
+    return x
+
+
+def sfm_inference(p: Params, cfg: FlowConfig, tokens, token_mask, spk_embedding,
+                  noise: torch.Tensor, n_timesteps: Optional[int] = None):
+    """SFM fast decode of a token buffer (prompt + target tokens, already
+    concatenated): noise (B, >= Tt * ratio, mel) over absolute frames.
+    Returns the mel (B, Tt * ratio, mel); the caller slices off the
+    prompt's frames."""
+    return _sfm_solve(p, cfg, tokens, token_mask, spk_embedding, lambda t: noise[:, :t],
+                      n_timesteps)
+
+
+def sfm_inference_window(p: Params, cfg: FlowConfig, tokens, token_mask, prompt_len: int,
+                         gen_start: int, spk_embedding, noise: torch.Tensor,
+                         n_timesteps: Optional[int] = None):
+    """The bounded-window streaming hop on the SFM path: the window
+    contract of ``inference_window`` (noise over absolute frames, indexed
+    by ``window_frames``), no prompt mel. Returns the mel of the whole
+    window (B, Wt * ratio, mel)."""
+    def noise_at(n_frames):
+        idx = window_frames(prompt_len, gen_start, n_frames, cfg.token_mel_ratio)
+        return noise[:, idx.to(noise.device)]
+
+    return _sfm_solve(p, cfg, tokens, token_mask, spk_embedding, noise_at, n_timesteps)

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Any, Dict
 
 import torch
@@ -30,17 +31,34 @@ import torch.nn.functional as F
 Params = Dict[str, Any]
 
 
+# nn.f32's process-wide state: the blocks open now, and the flags saved by
+# the first of them (the TF32 switches are global, not per thread)
+_f32_lock = threading.Lock()
+_f32_depth = 0
+_f32_saved = (True, False)
+
+
 @contextlib.contextmanager
 def f32():
     """Convolutions and products in true float32 (TF32 off) for the block,
-    the codecs' precision (the JAX package computes them in XLA at f32);
-    the global settings come back afterwards."""
-    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    the codecs' precision (the JAX package computes them in XLA at f32).
+    Safe across threads: the first block to open saves and clears the
+    global flags, the last to close restores them, so no block runs with
+    TF32 switched back on by another thread's exit."""
+    global _f32_depth, _f32_saved
+    with _f32_lock:
+        if _f32_depth == 0:
+            _f32_saved = (torch.backends.cudnn.allow_tf32,
+                          torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        _f32_depth += 1
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
+        with _f32_lock:
+            _f32_depth -= 1
+            if _f32_depth == 0:
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = _f32_saved
 
 
 def _uniform(g: torch.Generator, shape, bound: float) -> torch.Tensor:

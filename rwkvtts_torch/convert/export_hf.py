@@ -1,5 +1,6 @@
 """Export the port's parameter trees to fla-HF-named checkpoints
-(counterpart of rwkvtts_tpu/convert/export_hf.py; the Spark export only).
+(counterpart of rwkvtts_tpu/convert/export_hf.py; the Spark and Cosy
+exports).
 
 The key naming is the exact inverse of ``convert/rwkv7_ckpt.fla_to_rwkv7``,
 and ``model.safetensors`` is written without the `safetensors` package:
@@ -85,6 +86,19 @@ def spark_to_fla(params: Params, cfg) -> Dict[str, np.ndarray]:
     return sd
 
 
+def cosy_to_fla(params: Params, cfg) -> Dict[str, np.ndarray]:
+    """Cosy speech LM -> RWKV7CosyLM-format state_dict."""
+    params = bridge.params_to_numpy(params)
+    sd = rwkv7_to_fla(params, cfg.backbone)
+    sd["text_embedding.weight"] = np.asarray(params["text_embedding"], np.float32)
+    sd["llm_embedding.weight"] = np.asarray(params["llm_embedding"], np.float32)
+    sd["speech_embedding.weight"] = np.asarray(params["speech_embedding"], np.float32)
+    sd["lm_head.weight"] = np.ascontiguousarray(np.asarray(params["head"], np.float32).T)
+    if "head_bias" in params:
+        sd["lm_head.bias"] = np.asarray(params["head_bias"], np.float32)
+    return sd
+
+
 _ST_DTYPES = {np.dtype(np.float32): "F32", np.dtype(np.float16): "F16",
               np.dtype(np.float64): "F64", np.dtype(np.int64): "I64",
               np.dtype(np.int32): "I32", np.dtype(np.uint8): "U8",
@@ -115,22 +129,34 @@ def save_safetensors(sd: Mapping[str, np.ndarray], path: str, metadata=None) -> 
 
 
 def save_pretrained(params: Params, cfg, out_dir: str, kind: str = "spark") -> str:
-    """Write <out_dir>/model.safetensors + config.json (HF-dir layout)."""
-    if kind != "spark":
+    """Write <out_dir>/model.safetensors + config.json (HF-dir layout) of a
+    Spark or a Cosy speech LM."""
+    if kind == "spark":
+        sd = spark_to_fla(params, cfg)
+        config = {
+            "model_type": "rwkv7",
+            "architectures": ["RWKV7ForSpeech"],
+            "vocab_size": cfg.backbone.vocab_size,
+            "hidden_size": cfg.backbone.hidden_size,
+            "num_hidden_layers": cfg.backbone.num_layers,
+            "head_dim": cfg.backbone.head_size,
+            "text_vocab_size": cfg.text_vocab_size,
+            "audio_global_vocab_size": cfg.audio_global_vocab_size,
+        }
+    elif kind == "cosy":
+        sd = cosy_to_fla(params, cfg)
+        config = {
+            "model_type": "rwkv7",
+            "architectures": ["RWKV7CosyLM"],
+            "vocab_size": cfg.text_vocab_size,
+            "hidden_size": cfg.backbone.hidden_size,
+            "num_hidden_layers": cfg.backbone.num_layers,
+            "speech_token_size": cfg.speech_token_size,
+        }
+    else:
         raise NotImplementedError(f"save_pretrained: kind {kind!r} is not ported yet "
-                                  "(the port exports Spark only)")
+                                  "(the port exports Spark and Cosy)")
     os.makedirs(out_dir, exist_ok=True)
-    sd = spark_to_fla(params, cfg)
-    config = {
-        "model_type": "rwkv7",
-        "architectures": ["RWKV7ForSpeech"],
-        "vocab_size": cfg.backbone.vocab_size,
-        "hidden_size": cfg.backbone.hidden_size,
-        "num_hidden_layers": cfg.backbone.num_layers,
-        "head_dim": cfg.backbone.head_size,
-        "text_vocab_size": cfg.text_vocab_size,
-        "audio_global_vocab_size": cfg.audio_global_vocab_size,
-    }
     save_safetensors(sd, os.path.join(out_dir, "model.safetensors"))
     with open(os.path.join(out_dir, "config.json"), "w") as f:
         json.dump(config, f, indent=2)

@@ -14,16 +14,16 @@
     ``rwkv7.decode_step`` on ``pack_decode_params``'s tree (the default
     for an f32 LM or on the CPU, the JAX package's; the WKV step kernel on
     a card); ``decode_megakernel`` True / False picks one;
-  * ``token2wav``: the flow (10 Euler CFM steps) over prompt + tokens, an
-    optional speed resize of the mel, HiFT;
+  * ``token2wav``: the flow (10 Euler CFM steps, or the SFM fast decode
+    for an SFM flow) over prompt + tokens, an optional speed resize of the
+    mel, HiFT;
   * the modes: ``synthesize`` (zero-shot), ``synthesize_cross_lingual``,
     ``synthesize_instruct``, ``voice_convert`` (no LM) and
     ``synthesize_streaming`` (``infer/streaming.stream_synthesize``, on the
     same decode route).
 
 Not ported: int4 decode weights and the sampler's bf16 candidate ranking
-(the constructor refuses them), the SFM flow (``token2wav`` refuses it)
-and ``synthesize_long``.
+(the constructor refuses them) and ``synthesize_long``.
 
 Everything runs on `device`, a CUDA device unless the caller asks for
 the CPU (where the kernels' plain versions run). Random draws come from the
@@ -163,14 +163,13 @@ class CosyPipeline:
         speed: float = 1.0,
     ) -> np.ndarray:
         """Speech tokens -> wav (non-streaming): the flow over prompt +
-        tokens (noise from `seed`), the mel resized to 1 / `speed` of its
+        tokens (noise from `seed`; the SFM fast decode for an SFM flow with
+        its head), the mel resized to 1 / `speed` of its
         frames (jax.image.resize's antialiased linear, ``dsp.resize_linear``),
         then HiFT (noise from `seed + 1`)."""
         if self.flow_params is None or self.hift_params is None:
             raise RuntimeError("flow / HiFT parameters not loaded")
         fcfg, dev = self.flow_cfg, self.device
-        if fcfg.sfm:
-            raise NotImplementedError("the SFM flow (flow_cfg.sfm) is not ported yet")
         tokens = np.concatenate([np.asarray(prompt_tokens, np.int64),
                                  np.asarray(speech_tokens, np.int64)])[None]
         if spk_embedding is None:
@@ -179,11 +178,18 @@ class CosyPipeline:
             prompt_mel = np.zeros((0, fcfg.output_size), np.float32)
         tokens = torch.from_numpy(tokens).to(dev)
         noise = flow_lib.NoiseTable(seed, fcfg.output_size, dev)(fcfg.token_mel_ratio * tokens.shape[1])
-        mel = flow_lib.inference(
-            self.flow_params, fcfg, tokens, torch.ones(tokens.shape, device=dev),
-            torch.from_numpy(np.asarray(prompt_mel, np.float32)[None]).to(dev),
-            prompt_mel.shape[0], torch.from_numpy(np.asarray(spk_embedding, np.float32)[None]).to(dev),
-            noise, n_timesteps=n_timesteps)
+        mask = torch.ones(tokens.shape, device=dev)
+        spk = torch.from_numpy(np.asarray(spk_embedding, np.float32)[None]).to(dev)
+        if fcfg.sfm and "sfm_head" in self.flow_params:
+            # the SFM fast decode (reference model/flow/flow.py:132-180): the
+            # prompt rides as tokens, its mel frames are sliced off
+            mel = flow_lib.sfm_inference(self.flow_params, fcfg, tokens, mask, spk, noise,
+                                         n_timesteps=n_timesteps)[:, prompt_mel.shape[0]:]
+        else:
+            mel = flow_lib.inference(
+                self.flow_params, fcfg, tokens, mask,
+                torch.from_numpy(np.asarray(prompt_mel, np.float32)[None]).to(dev),
+                prompt_mel.shape[0], spk, noise, n_timesteps=n_timesteps)
         if speed != 1.0:  # the reference's speed control (cli/model.py:398-401)
             mel = dsp.resize_linear(mel, int(mel.shape[1] / speed))
         wav, _ = hift_lib.inference(self.hift_params, self.hift_cfg, mel,

@@ -7,8 +7,10 @@ Every stage is O(1) a hop:
     model's ``rwkv7.decode_step``); tokens stream out while the flow
     consumes them, and decoding stops at EOS.
   * Flow: a window [prompt | last ctx tokens | hop + lookahead] through
-    ``flow.inference_window``; the noise is indexed by absolute frame, so
-    window frames see what the full sequence would at those frames.
+    ``flow.inference_window`` (or, with ``StreamConfig.sfm``, the SFM
+    fast decode ``flow.sfm_inference_window``); the noise is indexed by
+    absolute frame, so window frames see what the full sequence would at
+    those frames.
   * Vocoder: HiFT with an 8-frame mel cache, a source cache and a Hamming
     crossfade (the reference's hift_cache_dict, cli/model.py:355-395).
 
@@ -46,6 +48,9 @@ class StreamConfig:
     lm_chunk: int = 50  # LM decode steps between host-side EOS checks
     # after the first audio chunk, decode lm_chunk_max steps a chunk
     lm_chunk_max: Optional[int] = None
+    # the SFM fast decode in the flow hop (flow.sfm_inference_window), with
+    # n_timesteps ~5; needs an sfm_head in the pipeline's flow params
+    sfm: bool = False
     # after the first chunk, vocode this many hops in one HiFT call
     vocode_every: int = 1
     # decode LM chunk N+1 before vocoding hop N, once the first audio
@@ -86,13 +91,19 @@ class SessionNoise:
 
 def _flow_hop(fparams, fcfg, noise_table, tokens_win, n_valid: int, prompt_feat,
               prompt_len: int, gen_start: int, new_off: int, slice_len: int, spk,
-              n_timesteps: int):
+              n_timesteps: int, sfm: bool = False):
     """One windowed flow hop; returns (1, slice_len * ratio, 80) new mel.
     new_off: window index (in tokens) of the first new token; the slice may
-    reach into the padding, and the caller trims it."""
+    reach into the padding, and the caller trims it. `sfm`: the SFM fast
+    decode, which takes no prompt mel."""
     mask = (torch.arange(tokens_win.shape[1], device=tokens_win.device)[None] < n_valid).float()
-    mel = flow_lib.inference_window(fparams, fcfg, tokens_win, mask, prompt_feat, prompt_len,
-                                    gen_start, spk, noise_table, n_timesteps=n_timesteps)
+    if sfm:
+        mel = flow_lib.sfm_inference_window(fparams, fcfg, tokens_win, mask, prompt_len,
+                                            gen_start, spk, noise_table, n_timesteps=n_timesteps)
+    else:
+        mel = flow_lib.inference_window(fparams, fcfg, tokens_win, mask, prompt_feat,
+                                        prompt_len, gen_start, spk, noise_table,
+                                        n_timesteps=n_timesteps)
     r = fcfg.token_mel_ratio
     start = r * (prompt_len + new_off)
     return mel[:, start:start + r * slice_len]
@@ -115,6 +126,12 @@ class CosyStreamSession:
         self.pipe = pipeline
         self.scfg = stream_cfg
         self.fcfg, self.hcfg = pipeline.flow_cfg, pipeline.hift_cfg
+        if stream_cfg.sfm and "sfm_head" not in pipeline.flow_params:
+            # plain CFM at the SFM step count would be degraded audio under
+            # the SFM name: refuse
+            raise ValueError("StreamConfig.sfm=True but the flow params have no 'sfm_head' "
+                             "(an SFM flow checkpoint is required); unset sfm or load an "
+                             "SFM-trained flow")
         dev = pipeline.device
         self.noise = noise
         self.prompt_tokens = np.asarray(prompt_speech_tokens, np.int64)
@@ -161,7 +178,7 @@ class CosyStreamSession:
         table = self.noise.flow_table(r * (cap + w0), fcfg.output_size)
         mel = _flow_hop(self.pipe.flow_params, fcfg, table,
                         torch.from_numpy(buf).to(self.pipe.device), n_valid, self.prompt_mel,
-                        self.P, w0, off - w0, slice_len, self.spk, scfg.n_timesteps)
+                        self.P, w0, off - w0, slice_len, self.spk, scfg.n_timesteps, scfg.sfm)
         return mel[:, :r * n_new]
 
     # -- vocoder stage ----------------------------------------------------

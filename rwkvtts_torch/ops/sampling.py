@@ -13,7 +13,9 @@ and JAX pick the same tokens.
 vectors and a static top-k cap. Its noise is ``row_noise``, a counter hash
 of (the request's seed, its own step index, the candidate index) in torch
 integer ops: the same bits on the CPU and the card, no host sync, and a
-row's draw independent of what else shares the pool.
+row's draw independent of what else shares the pool. The Cosy pool's
+per-row RAS (rwkvtts_tpu's ``ras_sample_rows``) is ``ras_sample`` given
+``ras_row_noise``: both draws hashed the same way, each with its own salt.
 """
 from __future__ import annotations
 
@@ -146,14 +148,16 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def row_noise(seed: torch.Tensor, n: torch.Tensor, k: int) -> torch.Tensor:
+def row_noise(seed: torch.Tensor, n: torch.Tensor, k: int, salt: int = 0x632BE5AB
+              ) -> torch.Tensor:
     """Gumbel noise (B, k) that is a pure function of each row's (seed,
     step index n) and the candidate index: the hash's top 24 bits give u in
-    (0, 1), then -log(-log(u))."""
+    (0, 1), then -log(-log(u)). Another `salt` gives an independent draw
+    of the same (seed, n)."""
     h = _mix32((seed.long() & _M32) ^ 0x5BD1E995)
     h = _mix32(h ^ (n.long() & _M32))
     j = torch.arange(k, device=seed.device, dtype=torch.long)
-    x = _mix32((h[:, None] + _mix32(j + 0x632BE5AB)[None, :]) & _M32)
+    x = _mix32((h[:, None] + _mix32(j + salt)[None, :]) & _M32)
     u = ((x >> 8).float() + 0.5) * (1.0 / (1 << 24))
     return -torch.log(-torch.log(u))
 
@@ -182,3 +186,15 @@ def sample_rows(
         noise = row_noise(seed, n, k)
     choice = _categorical(vals, noise, None)
     return torch.gather(idx, -1, choice[:, None])[:, 0]
+
+
+# the salt of ras_row_noise's second (fallback) draw
+_FALLBACK_SALT = 0x1B873593
+
+
+def ras_row_noise(seed: torch.Tensor, n: torch.Tensor, k: int, vocab: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two RAS draws of each row as pure functions of its (seed, step
+    index n): (nucleus (B, k), fallback (B, vocab)), ``row_noise`` with two
+    salts."""
+    return row_noise(seed, n, k), row_noise(seed, n, vocab, _FALLBACK_SALT)

@@ -1,10 +1,6 @@
 """Continuous (in-flight) batching for Spark decode serving (counterpart of
 rwkvtts_tpu/serving/continuous.py).
 
-A fixed pool of B decode slots decodes chunk after chunk, and new requests
-are swapped into finished slots between chunks. An RWKV request's state is
-fixed-size, so admitting one is a row write into each state tensor.
-
 The slot carry is (h, state, done, n, temperature, top_p, seed), all on the
 pool's device. A chunk is `chunk` steps of: head product (f32) -> ``sample_rows``
 with each row's own temperature / top-p and Gumbel noise hashed from (its
@@ -15,22 +11,15 @@ in place, on a card) or, for the megakernel pool, the B=64 decode step
 request alone, not of what shares the pool, when it was admitted or where
 the chunks break. The host reads each chunk's tokens once.
 
-Overlap mode dispatches chunk N+1 before reading chunk N's tokens: the
-tokens are copied into a pinned host buffer without blocking and a CUDA
-event marks the copy's end, so the host's post-processing runs while the
-card decodes the next chunk. Its tokens are those of the sequential pool.
-
-PyTorch runs eagerly: nothing is compiled, so ``warmup`` only builds the
-kernels and fills the allocator and library caches before traffic. The
+The queue, the slots, admission, overlap (chunk N+1 dispatched before
+chunk N's tokens are read, with the sequential pool's tokens) and warmup
+are ``pool_common.SlotPool``'s, which the Cosy pool shares. The
 dp-sharded pool (a device mesh) is not ported; the pool raises if given
 one.
 """
 from __future__ import annotations
 
-import dataclasses
-import threading
-import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,14 +30,7 @@ from rwkvtts_torch.ops import sampling
 from rwkvtts_torch.serving import pool_common
 
 
-@dataclasses.dataclass
-class _Slot:
-    req_id: Optional[int] = None
-    tokens: Optional[List[int]] = None
-    max_new: int = 0
-
-
-class ContinuousBatcher:
+class ContinuousBatcher(pool_common.SlotPool):
     """Slot-pool decoder for the Spark speech LM.
 
     Usage:
@@ -95,38 +77,9 @@ class ContinuousBatcher:
         # JAX pool's (h @ head).astype(f32) so (the convert folds into the
         # product), and a bf16-rounded logit row would tie far more often
         self._head = params["head"].to(bb.dtype).float()
-        self.n_slots = n_slots
-        self.chunk = chunk
-        self.prompt_cap = prompt_cap
         self.temperature, self.top_k, self.top_p = temperature, top_k, top_p
         self.seed = seed  # default per-request seed
-        self._next_id = 0
-        # (rid, prompt_batch, max_new, temperature, top_p, seed)
-        self._queue: List[Tuple[int, Dict[str, np.ndarray], int, float, float, int]] = []
-        self._slots = [_Slot() for _ in range(n_slots)]
-        self._carry = self._fresh_carry()
-        self.overlap = overlap
-        # overlap: two pinned host buffers, one for the chunk being read
-        # and one for the chunk in flight
-        self._pinned = None
-        if overlap and self.device.type == "cuda":
-            self._pinned = [torch.empty(n_slots, chunk, dtype=torch.long, pin_memory=True)
-                            for _ in range(2)]
-        self._flip = 0
-        # (tokens handle, owners at dispatch); an owner can go stale when
-        # its request finished meanwhile -> resolved through _active
-        self._pending: Optional[Tuple[Any, List[Optional[int]]]] = None
-        self._active: Dict[int, _Slot] = {}
-        # step() time / occupancy breakdown (reset_stats() clears it):
-        #   admit_s  host prep + prefill + insert for admissions
-        #   chunk_s  decode-chunk dispatch + device + token copy (the
-        #            host read bounds it; in overlap mode dispatch only)
-        #   host_s   post-processing of finished rows (in overlap mode it
-        #            also waits for the previous chunk's tokens)
-        #   active_rows / (chunks * n_slots) = slot occupancy
-        self.stats = {"admit_s": 0.0, "chunk_s": 0.0, "host_s": 0.0,
-                      "chunks": 0, "active_rows": 0, "admitted": 0}
-        self._stats_lock = threading.Lock()
+        super().__init__(self.device, n_slots, chunk, prompt_cap, overlap)
 
     def _fresh_carry(self):
         bb, n, dev = self.cfg.backbone, self.n_slots, self.device
@@ -173,13 +126,6 @@ class ContinuousBatcher:
         temp[idx], topp[idx] = params[0], params[1]
         seed[idx] = torch.as_tensor(np.asarray(svec[:take], np.int64), device=self.device)
 
-    def _mark_done(self, slot_mask: np.ndarray) -> None:
-        """Set the done flag of slots retired by their cap (no EOS drawn),
-        so they stop drawing until a new request lands there."""
-        h, st, done, n, temp, topp, seed = self._carry
-        mask = torch.as_tensor(slot_mask, device=self.device)
-        self._carry = (h, st, done | mask, n, temp, topp, seed)
-
     def _chunk(self) -> torch.Tensor:
         """Decode `chunk` steps of the whole pool; returns the tokens
         (n_slots, chunk) on the device."""
@@ -214,167 +160,19 @@ class ContinuousBatcher:
         temperature / top_p / seed default to the pool's; they ride in the
         slot carry, and a (prompt, seed) pair gives the same tokens whatever
         else shares the pool."""
-        rid = self._next_id
-        self._next_id += 1
-        self._queue.append((
-            rid, prompt_batch, max_new_tokens,
-            self.temperature if temperature is None else float(temperature),
-            self.top_p if top_p is None else float(top_p),
-            pool_common.clamp_seed(self.seed if seed is None else seed),
-        ))
-        return rid
+        return self._enqueue(prompt_batch, max_new_tokens,
+                             self.temperature if temperature is None else float(temperature),
+                             self.top_p if top_p is None else float(top_p),
+                             pool_common.clamp_seed(self.seed if seed is None else seed))
 
-    def idle(self) -> bool:
-        return (not self._queue and all(s.req_id is None for s in self._slots)
-                and self._pending is None)
-
-    @torch.inference_mode()
-    def warmup(self, prompt_widths: Optional[List[int]] = None) -> None:
-        """Run every program shape once before traffic: the prefill at each
-        power-of-two admission size for every width in `prompt_widths`
-        (rounded up to the admission buckets; default the prompt cap), an
-        insert, a decode chunk and a retire-by-cap flag update. On a card
-        this builds the kernels and fills PyTorch's caches, so the first
-        request pays for none of it. The engine state is reset after."""
-        for width in pool_common.warmup_widths(prompt_widths, self.prompt_cap):
-            dummy = {"tokens": np.zeros((1, width), np.int32),
-                     "modality": np.zeros((1, width), np.int32),
-                     "attention_mask": np.ones((1, width), np.int32)}
-            bucket = 1
-            while True:
-                hk, stk = self._prefill({k: np.repeat(v, bucket, 0) for k, v in dummy.items()})
-                self._insert(hk, stk, [0], 1, np.ones(1, np.float32), np.ones(1, np.float32),
-                             np.zeros(1, np.int64))
-                if bucket >= self.n_slots:
-                    break
-                bucket *= 2
-        self._chunk()
-        self._mark_done(np.zeros(self.n_slots, bool))
-        self._carry = self._fresh_carry()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    # -- engine -----------------------------------------------------------
-
-    def _admit(self) -> None:
-        """Admit as many queued requests as there are free slots with one
-        batched prefill, padded to a power-of-two batch (rows beyond the
-        admitted ones are inert)."""
-        free = [i for i, s in enumerate(self._slots) if s.req_id is None]
-        if not free or not self._queue:
-            return
-        take = min(len(free), len(self._queue))
-        reqs = [self._queue.pop(0) for _ in range(take)]
-        bucket = 1
-        while bucket < take:
-            bucket *= 2
-        pbs = [pool_common.pad_prompt(b, self.prompt_cap) for _, b, _, _, _, _ in reqs]
-        pbs += [pbs[-1]] * (bucket - take)
-        tvec = np.array([r[3] for r in reqs], np.float32)
-        pvec = np.array([r[4] for r in reqs], np.float32)
-        svec = np.array([r[5] for r in reqs], np.int64)
-        hk, stk = self._prefill(pool_common.stack_admission(pbs))
-        self._insert(hk, stk, free[:take], take, tvec, pvec, svec)
-        for j, (rid, _, max_new, _, _, _) in enumerate(reqs):
-            rec = _Slot(req_id=rid, tokens=[], max_new=max_new)
-            self._slots[free[j]] = rec
-            self._active[rid] = rec  # shared record: the slot index may go stale
-
-    def reset_stats(self) -> None:
-        with self._stats_lock:
-            for k in self.stats:
-                self.stats[k] = 0
-
-    def snapshot_stats(self) -> Dict[str, Any]:
-        with self._stats_lock:
-            return dict(self.stats)
-
-    def _to_host(self, toks: torch.Tensor):
-        """Start the copy of a chunk's tokens to the host: into a pinned
-        buffer without blocking, with an event marking its end (on a card in
-        overlap mode), else at once."""
-        if self._pinned is None:
-            return toks.cpu().numpy()
-        buf = self._pinned[self._flip]
-        self._flip ^= 1
-        buf.copy_(toks, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-        return buf, ev
-
-    @staticmethod
-    def _from_host(handle) -> np.ndarray:
-        if isinstance(handle, np.ndarray):
-            return handle
-        buf, ev = handle
-        ev.synchronize()
-        return buf.numpy()
+    _warm_row = (np.ones(1, np.float32), np.ones(1, np.float32), np.zeros(1, np.int64))
 
     def _process(self, toks: np.ndarray, owners: List[Optional[int]]
                  ) -> List[Tuple[int, List[int]]]:
-        """Host post-processing of one chunk's tokens. `owners` is the slot
-        -> request mapping when the chunk was dispatched; in overlap mode an
-        owner can be stale (finished on an earlier chunk), and its row is
-        then skipped."""
-        eos = self.cfg.eos_token_id
-        finished = []
-        capped = np.zeros(self.n_slots, bool)
-        for i, rid in enumerate(owners):
-            if rid is None:
-                continue
-            s = self._active.get(rid)
-            if s is None:
-                continue  # finished on an earlier chunk; the row is EOS padding
-            row = toks[i]
-            hit = np.flatnonzero(row == eos)
-            take = row[:hit[0]] if hit.size else row
-            s.tokens.extend(int(t) for t in take)
-            if hit.size or len(s.tokens) >= s.max_new:
-                finished.append((rid, s.tokens[:s.max_new]))
-                self._active.pop(rid)
-                if self._slots[i].req_id == rid:
-                    self._slots[i] = _Slot()
-                if not hit.size:
-                    capped[i] = True  # retired by its cap: the device flag is still False
-        if capped.any():
-            self._mark_done(capped)
-        return finished
-
-    @torch.inference_mode()
-    def step(self) -> List[Tuple[int, List[int]]]:
-        """Admit waiting requests, decode one chunk, return the finished
-        (req_id, tokens) pairs. With overlap the returned requests are those
-        the PREVIOUS chunk finished; the chunk just dispatched is read on
-        the next call while the card works on it."""
-        t0 = time.perf_counter()
-        n_q = len(self._queue)
-        self._admit()
-        t1 = time.perf_counter()
-        active = sum(1 for s in self._slots if s.req_id is not None)
-        dispatched = False
-        if self.overlap:
-            pending, self._pending = self._pending, None
-            if active:
-                handle = self._to_host(self._chunk())
-                self._pending = (handle, [s.req_id for s in self._slots])
-                dispatched = True
-            t2 = time.perf_counter()
-            finished = (self._process(self._from_host(pending[0]), pending[1])
-                        if pending is not None else [])
-        else:
-            toks = self._to_host(self._chunk())
-            dispatched = True
-            t2 = time.perf_counter()
-            finished = self._process(toks, [s.req_id for s in self._slots])
-        with self._stats_lock:
-            self.stats["admitted"] += n_q - len(self._queue)
-            self.stats["admit_s"] += t1 - t0
-            self.stats["chunk_s"] += t2 - t1
-            if dispatched:
-                self.stats["chunks"] += 1
-                self.stats["active_rows"] += active
-            self.stats["host_s"] += time.perf_counter() - t2
-        return finished
+        """The chunk's finished (req_id, tokens) pairs, from its events."""
+        recs = {rid: self._active.get(rid) for rid in owners if rid is not None}
+        return [(rid, recs[rid].tokens) for rid, _, done in super()._process(toks, owners)
+                if done]
 
     def drain(self) -> Dict[int, List[int]]:
         """Run until every queued request finishes."""
@@ -383,13 +181,3 @@ class ContinuousBatcher:
             for rid, toks in self.step():
                 out[rid] = toks
         return out
-
-    def reset(self) -> None:
-        """Drop every queued and running request and start from a fresh
-        carry (after a failed chunk)."""
-        self._queue.clear()
-        self._slots = [_Slot() for _ in self._slots]
-        self._active.clear()
-        self._pending = None
-        with torch.inference_mode():
-            self._carry = self._fresh_carry()

@@ -1,7 +1,7 @@
-"""Serving launcher: checkpoint -> pipeline -> ContinuousTTSService -> HTTP
-(counterpart of rwkvtts_tpu/serving/launch.py, the Spark family).
+"""Serving launcher: checkpoint -> pipeline -> service -> HTTP (counterpart
+of rwkvtts_tpu/serving/launch.py).
 
-Loads an RWKV7ForSpeech checkpoint (HF safetensors, torch .pt, BlinkDL
+The Spark family (the default) loads an RWKV7ForSpeech checkpoint (HF safetensors, torch .pt, BlinkDL
 .pth through convert/rwkv7_ckpt), casts the matrices to bf16, packs the
 decode weights, loads the BiCodec codec of a Spark-TTS model directory
 (``--codec-dir``: BiCodec/ and wav2vec2-large-xlsr-53/) and serves
@@ -14,8 +14,23 @@ dispatcher; ``--device cpu`` runs the plain versions instead):
 
 Defaults are the JAX launcher's: 96 slots, 32-step chunks, fused decode
 projections, the in-place WKV step with an f32 carry, top-k 50 / top-p
-0.95. Without --codec-dir the answers carry no audio. Not ported yet:
-int4, --family cosy and --dp.
+0.95. Without --codec-dir the answers carry no audio.
+
+``--family cosy`` loads an RWKV7CosyLM checkpoint and the CosyVoice2 files
+of ``--cosy-dir`` (flow.pt, hift.pt, speech_tokenizer_v2.onnx,
+campplus.onnx; a missing file is logged and what it serves is left out)
+and serves every request, streaming (/api/rwkv_tts_stream) or not,
+through one shared Cosy slot pool (serving/cosy_pool.py), RAS top-k 25 /
+top-p 0.8; ``--voices-dir`` holds stored zero-shot voices
+(infer/voices.py); ``--sfm --flow-timesteps N --stream-ctx N
+--vocode-every K`` set the streaming hops' flow and vocoder levers for
+every stream:
+
+    python -m rwkvtts_torch.serving.launch --family cosy --ckpt cosy_lm.safetensors \
+        --cosy-dir CosyVoice2-0.5B --voices-dir voices --n-slots 8 --chunk 16
+
+Not ported yet: int4 and --dp; for cosy also --int8 (the pool decodes the
+bf16 fused projections).
 """
 from __future__ import annotations
 
@@ -85,11 +100,103 @@ def build_service(pipeline, demo_dir: Optional[str] = None, continuous: bool = T
     )
 
 
+_COSY_FILES = ("flow.pt", "hift.pt", "speech_tokenizer_v2.onnx", "campplus.onnx")
+
+
+def cosy_pipeline(cfg, params, device="cuda", **codecs):
+    """The server's CosyPipeline of a Cosy LM's parameter tree on `device`:
+    every parameter with two or more dimensions in bf16, the rest as
+    given; the LM decodes through ``rwkv7.decode_step`` on the fused decode
+    weights, the slot pool's route (no B=1 kernel pack). `codecs` are
+    CosyPipeline's flow / HiFT / S3 / CAM++ keywords."""
+    from rwkvtts_torch.infer.cosy_pipeline import CosyPipeline
+    from rwkvtts_torch.models import rwkv7
+    from rwkvtts_torch.utils import tokenizer
+
+    dev = _device(device)
+    params = rwkv7.tree_map(lambda t: t.to(dev, torch.bfloat16 if t.dim() >= 2 else t.dtype),
+                            params)
+    return CosyPipeline(cfg, params, tokenizer.get_world_tokenizer(), decode_megakernel=False,
+                        device=dev, **codecs)
+
+
+def build_cosy_pipeline(ckpt: str, cosy_dir: Optional[str] = None, device="cuda"):
+    """RWKV7CosyLM weights + a CosyVoice2 model directory (the reference's
+    pretrained_models layout) -> ``cosy_pipeline`` on `device`. A missing
+    codec file is logged and its part left out: the LM still serves,
+    zero-shot from a wav needs the two ONNX files, wav output the flow and
+    HiFT."""
+    import os
+
+    from rwkvtts_torch import bridge
+    from rwkvtts_torch.codecs import campplus as cp
+    from rwkvtts_torch.codecs import cosy_import
+    from rwkvtts_torch.codecs import flow as flow_lib
+    from rwkvtts_torch.codecs import hift as hift_lib
+    from rwkvtts_torch.codecs import s3_tokenizer as s3
+    from rwkvtts_torch.convert import rwkv7_ckpt, speech_init
+    from rwkvtts_torch.models import cosy
+
+    dev = _device(device)
+    sd = rwkv7_ckpt.load_torch_or_safetensors(ckpt)
+    kw = rwkv7_ckpt.infer_config_kwargs(sd)
+    cfg = cosy.default_config(hidden_size=kw["hidden_size"], num_layers=kw["num_layers"],
+                              head_size=kw["head_size"])
+    params = bridge.params_from_numpy(speech_init.cosy_from_pretrained_sd(sd, cfg), dev)
+    del sd
+    pk = {}
+    if cosy_dir:
+        path = lambda n: os.path.join(cosy_dir, n)
+        if os.path.exists(path("flow.pt")):
+            # an SFM checkpoint's head is read too (sfm_head.*)
+            fcfg = flow_lib.FlowConfig(sfm=True)
+            pk.update(flow_cfg=fcfg, flow_params=cosy_import.load_flow(path("flow.pt"), fcfg, dev))
+        if os.path.exists(path("hift.pt")):
+            hcfg = hift_lib.HiFTConfig()
+            pk.update(hift_cfg=hcfg, hift_params=cosy_import.load_hift(path("hift.pt"), hcfg, dev))
+        if os.path.exists(path("speech_tokenizer_v2.onnx")):
+            s3_cfg = s3.S3TokenizerConfig()
+            pk.update(s3_cfg=s3_cfg,
+                      s3_params=s3.s3_from_onnx(path("speech_tokenizer_v2.onnx"), s3_cfg, dev))
+        if os.path.exists(path("campplus.onnx")):
+            cam_cfg = cp.CampplusConfig()
+            pk.update(campplus_cfg=cam_cfg,
+                      campplus_params=cp.load_campplus_onnx(path("campplus.onnx"), cam_cfg, dev))
+        missing = [n for n in _COSY_FILES if not os.path.exists(path(n))]
+        if missing:
+            log.warning("cosy dir %s misses %s: serving without what they give", cosy_dir,
+                        missing)
+    return cosy_pipeline(cfg, params, dev, **pk)
+
+
+def stream_config(sfm: bool = False, flow_timesteps: Optional[int] = None,
+                  stream_ctx: Optional[int] = None, vocode_every: int = 1):
+    """The hub-wide StreamConfig of the four streaming levers, or None when
+    none is set (every stream then takes the defaults)."""
+    from rwkvtts_torch.infer import streaming
+
+    if not sfm and flow_timesteps is None and stream_ctx is None and vocode_every == 1:
+        return None
+    kw = {"sfm": sfm, "vocode_every": vocode_every}
+    if flow_timesteps is not None:
+        kw["n_timesteps"] = flow_timesteps
+    if stream_ctx is not None:
+        kw["ctx_tokens"] = stream_ctx
+    return streaming.StreamConfig(**kw)
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--ckpt", required=True, help="RWKV7ForSpeech weights")
-    ap.add_argument("--family", default="spark", choices=["spark", "cosy"])
+    ap.add_argument("--family", default="spark", choices=["spark", "cosy"],
+                    help="spark: BiCodec voice-in-prompt serving (default); cosy: CosyVoice2 "
+                         "zero-shot serving, every request through one streaming slot pool")
+    ap.add_argument("--cosy-dir", default=None,
+                    help="CosyVoice2 model dir (flow.pt / hift.pt / speech_tokenizer_v2.onnx / "
+                         "campplus.onnx)")
+    ap.add_argument("--voices-dir", default=None,
+                    help="stored zero-shot voice library dir (cosy family)")
     ap.add_argument("--codec-dir", default=None, help="Spark-TTS model dir (BiCodec)")
     ap.add_argument("--demo-dir", default=None, help="demos/<speaker>/*.wav library")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -118,6 +225,15 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-warmup", action="store_true")
     ap.add_argument("--warmup-widths", default=None,
                     help="comma-separated prompt widths to run at boot (default: prompt cap)")
+    ap.add_argument("--sfm", action="store_true",
+                    help="(cosy) SFM fast flow decode in the streaming hops; needs an sfm_head "
+                         "in flow.pt")
+    ap.add_argument("--flow-timesteps", type=int, default=None,
+                    help="(cosy) ODE steps a streaming flow hop (default 10; ~5 with --sfm)")
+    ap.add_argument("--stream-ctx", type=int, default=None,
+                    help="(cosy) generated-token context in the flow window")
+    ap.add_argument("--vocode-every", type=int, default=1,
+                    help="(cosy) hops a HiFT call after the first chunk")
     return ap
 
 
@@ -134,18 +250,53 @@ def sampling_defaults(family: str, top_k: Optional[int] = None,
     return (k if top_k is None else top_k, p if top_p is None else top_p)
 
 
+def _widths(arg: Optional[str]):
+    return [int(w) for w in arg.split(",")] if arg else None
+
+
+def main_cosy(args, top_k: int, top_p: float):
+    """The cosy branch of main: the pipeline, the voice library, the
+    streaming levers, CosyTTSService over one slot pool, HTTP."""
+    if args.mega:
+        raise SystemExit("--mega is a spark-family pool (64 slots); the cosy hub runs its "
+                         "own slot pool: drop --mega")
+    if args.int8:
+        raise SystemExit("--int8: the cosy pool decodes the bf16 fused projections; int8 "
+                         "decode weights for it are not ported yet")
+    logging.basicConfig(level=logging.INFO)
+    from rwkvtts_torch.serving import http_server
+    from rwkvtts_torch.serving import service as svc
+
+    pipeline = build_cosy_pipeline(args.ckpt, args.cosy_dir, device=args.device)
+    if args.sfm and (pipeline.flow_params is None or "sfm_head" not in pipeline.flow_params):
+        raise SystemExit("--sfm needs an SFM flow: flow.pt in --cosy-dir has no sfm_head")
+    voices = None
+    if args.voices_dir:
+        from rwkvtts_torch.infer.voices import CosyVoiceLibrary
+
+        voices = CosyVoiceLibrary(args.voices_dir)
+    tts = svc.CosyTTSService(
+        pipeline, voices=voices, n_slots=args.n_slots, chunk=args.chunk,
+        max_new_tokens=args.max_new_tokens, top_k=top_k, top_p=top_p,
+        warmup=not args.no_warmup, warmup_widths=_widths(args.warmup_widths),
+        overlap=args.overlap,
+        stream_cfg=stream_config(args.sfm, args.flow_timesteps, args.stream_ctx,
+                                 args.vocode_every))
+    http_server.serve(tts, args.host, args.port)
+
+
 def main(argv=None):
     args = _parser().parse_args(argv)
     top_k, top_p = sampling_defaults(args.family, args.top_k, args.top_p)
-    if args.family == "cosy":
-        raise SystemExit("--family cosy waits for serving/cosy_pool.py, which is not ported yet")
-    if args.grouped and args.mega:
-        raise SystemExit("--grouped decodes through the pipeline, not the B=64 pool: "
-                         "drop --mega")
     if args.dp > 1:
         raise SystemExit("--dp: a slot pool over several devices is not ported yet")
     if args.int4:
         raise SystemExit("--int4: int4 decode weights are not ported yet")
+    if args.family == "cosy":
+        return main_cosy(args, top_k, top_p)
+    if args.grouped and args.mega:
+        raise SystemExit("--grouped decodes through the pipeline, not the B=64 pool: "
+                         "drop --mega")
     if args.mega and args.int8:
         raise SystemExit("--mega streams its own int8 weights; --int8 (the fused "
                          "projections' int8 form) does not apply: drop one of them")
@@ -164,9 +315,7 @@ def main(argv=None):
         pipeline, args.demo_dir, continuous=not args.grouped, n_slots=n_slots, chunk=args.chunk,
         max_new_tokens=args.max_new_tokens, top_k=top_k, top_p=top_p,
         temperature=args.temperature, warmup=not args.no_warmup,
-        warmup_widths=([int(w) for w in args.warmup_widths.split(",")]
-                       if args.warmup_widths else None),
-        overlap=args.overlap, megakernel=args.mega,
+        warmup_widths=_widths(args.warmup_widths), overlap=args.overlap, megakernel=args.mega,
     )
     from rwkvtts_torch.serving import http_server
 

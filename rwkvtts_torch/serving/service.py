@@ -1,19 +1,23 @@
 """TTS serving core (counterpart of rwkvtts_tpu/serving/service.py): the
 request and response types, the speaker library, ``BatchedTTSService``
 (the grouped same-voice dispatcher: queued requests that share a voice
-go through one batched ``SparkPipeline.synthesize``) and
+go through one batched ``SparkPipeline.synthesize``; its ``stream``
+answers that a Spark pipeline has no streaming path),
 ``ContinuousTTSService``, which admits every request into a
 ``ContinuousBatcher`` slot and detokenizes each finished row through the
-pipeline's BiCodec codec.
+pipeline's BiCodec codec, and ``CosyTTSService``, which decodes every
+Cosy request, streaming or not, through one shared slot pool
+(``serving/cosy_pool.CosyStreamHub``).
 
-One worker thread owns the model and is the only thread that touches the
-card; client threads (the HTTP handlers) put a request on a queue and wait
-on an event. ``torch.inference_mode`` and the current CUDA device are
-thread-local, so the worker sets both itself.
+For Spark one worker thread owns the model and is the only thread that
+touches the card; client threads (the HTTP handlers) put a request on a
+queue and wait on an event. ``torch.inference_mode`` and the current
+CUDA device are thread-local, so the worker sets both itself. For Cosy
+the hub's pump thread decodes and each client thread runs its own
+stream's flow and HiFT hops.
 
-Not ported yet: streaming (``stream``) and the Cosy service. Without a
-codec a finished request is answered with an empty wav, as the JAX
-service answers.
+Without a codec a finished Spark request is answered with an empty wav,
+as the JAX service answers.
 """
 from __future__ import annotations
 
@@ -134,6 +138,12 @@ class BatchedTTSService:
         if not done.wait(timeout):
             return _error("timeout")
         return box["resp"]
+
+    def stream(self, req: TTSRequest, hop_tokens: int = 50):
+        """Streaming synthesis runs through a pipeline's
+        ``synthesize_streaming``, which a Spark pipeline lacks: the HTTP
+        route answers this NotImplementedError with 501."""
+        raise NotImplementedError("pipeline has no streaming path")
 
     def design_voice(self, properties: Dict[str, Any], name: Optional[str] = None,
                      seed: int = 0) -> List[int]:
@@ -366,6 +376,100 @@ class ContinuousTTSService(BatchedTTSService):
                     done.set()
 
 
+class _CosyVoiceNames:
+    """SpeakerLibrary-shaped view of a CosyVoiceLibrary, so GET
+    /api/speakers lists the stored zero-shot voices."""
+
+    def __init__(self, voices):
+        self._voices = voices
+
+    def speakers(self) -> List[str]:
+        return self._voices.speakers() if self._voices is not None else []
+
+    def register(self, name, tokens):  # a Spark global-token registration
+        raise NotImplementedError(
+            "Cosy voices register from wav: CosyVoiceLibrary.register_from_wav")
+
+
+class CosyTTSService:
+    """The HTTP layer's service for a CosyPipeline over one shared slot
+    pool (``cosy_pool.CosyStreamHub``): every request, streaming or not,
+    decodes through the pool. Duck-compatible with BatchedTTSService for
+    the HTTP server: ``synthesize``, ``stream``, ``speakers``, ``stats``,
+    ``pipeline``. RAS top-k / top-p are the pool's (set at launch); a
+    request's temperature / top-p are ignored, as in the JAX service."""
+
+    def __init__(
+        self,
+        pipeline,  # infer.cosy_pipeline.CosyPipeline
+        voices=None,  # infer.voices.CosyVoiceLibrary
+        n_slots: int = 8,
+        chunk: int = 16,
+        prompt_cap: int = 128,
+        max_new_tokens: int = 2048,
+        top_k: int = 25,
+        top_p: float = 0.8,
+        warmup: bool = False,
+        warmup_widths=None,
+        overlap: bool = False,
+        stream_cfg=None,  # the hub-wide StreamConfig (SFM, ctx, vocode_every)
+    ):
+        from rwkvtts_torch.serving.cosy_pool import CosyStreamHub
+
+        self.pipeline = pipeline
+        self.voices = voices
+        self.speakers = _CosyVoiceNames(voices)
+        self.max_new_tokens = max_new_tokens
+        self.hub = CosyStreamHub(pipeline, n_slots=n_slots, chunk=chunk, prompt_cap=prompt_cap,
+                                 top_k=top_k, top_p=top_p, warmup=warmup,
+                                 warmup_widths=warmup_widths, overlap=overlap,
+                                 stream_cfg=stream_cfg)
+
+    def close(self):
+        self.hub.close()
+
+    def stats(self) -> Dict[str, Any]:
+        b = self.hub.batcher
+        return {"mode": "cosy_pool", "n_slots": b.n_slots, "chunk": b.chunk,
+                "active": sum(1 for s in b._slots if s.req_id is not None),
+                "queued": len(b._queue)}
+
+    def _voice_kw(self, req: TTSRequest) -> Dict[str, Any]:
+        if req.prompt_wav is not None:
+            return {"prompt_wav": req.prompt_wav, "prompt_text": req.prompt_text or ""}
+        if req.speaker:
+            if self.voices is None:
+                raise ValueError("named speakers need a voice library")
+            try:
+                v = self.voices.get(req.speaker)
+            except KeyError:
+                raise ValueError(f"unknown speaker: {req.speaker!r}") from None
+            return {"prompt_speech_tokens": v["tokens"], "prompt_mel": v["mel"],
+                    "spk_embedding": v["emb"], "prompt_text": req.prompt_text or v.get("text", "")}
+        if req.global_tokens or req.properties:
+            raise ValueError("the Cosy service takes prompt_wav or a stored speaker voice "
+                             "(global_tokens/properties are Spark-voice concepts)")
+        return {"prompt_text": req.prompt_text or ""}
+
+    def stream(self, req: TTSRequest, hop_tokens: int = 50, timeout: Optional[float] = None):
+        if self.pipeline.flow_cfg is None or self.pipeline.hift_cfg is None:
+            raise RuntimeError("cosy serving needs flow.pt + hift.pt for wav output "
+                               "(pass --cosy-dir with the CosyVoice2 model files)")
+        cap = min(req.max_new_tokens or self.max_new_tokens, self.max_new_tokens)
+        yield from self.hub.stream(req.text, hop_tokens=hop_tokens, seed=req.seed,
+                                   max_new_tokens=cap, timeout=timeout, **self._voice_kw(req))
+
+    def synthesize(self, req: TTSRequest, timeout: float = 300.0) -> TTSResponse:
+        """The stream joined; `timeout` bounds the whole request, and any
+        error is answered, never raised."""
+        sr = getattr(self.pipeline, "sample_rate", 24000)
+        try:
+            chunks = list(self.stream(req, timeout=timeout))
+            return TTSResponse(np.concatenate(chunks) if chunks else np.zeros(0, np.float32), sr)
+        except Exception as e:  # noqa: BLE001 — the service must answer
+            return _error(str(e), sr)
+
+
 def stream_wav_header(sample_rate: int, channels: int = 1) -> bytes:
     """WAV header with an unknown (maximal) data length: players start
     decoding at once and read until the connection closes."""
@@ -395,6 +499,14 @@ def properties_options() -> Dict[str, List[str]]:
 def decode_audio_b64(b64: str, sample_rate: int = 16000) -> np.ndarray:
     """base64 wav payload -> float32 mono."""
     return audio_io.load_wav_bytes(base64.b64decode(b64), sample_rate)
+
+
+def mp3_bytes(wav: np.ndarray, sample_rate: int, bitrate_kbps: int = 128) -> bytes:
+    """MP3 response bytes (the reference answers in wav or mp3) through the
+    ctypes LAME binding; RuntimeError where libmp3lame is absent."""
+    from rwkvtts_torch.utils import mp3
+
+    return mp3.encode_mp3(wav, sample_rate, bitrate_kbps=bitrate_kbps)
 
 
 def wav_bytes(wav: np.ndarray, sample_rate: int) -> bytes:

@@ -216,10 +216,14 @@ def test_importer_is_the_jax_importer_through_the_bridge(tmp_path, which):
 
 
 def test_importers_refuse_what_the_port_does_not_run():
+    """A multi-level estimator is refused; an sfm_head.* in the checkpoint
+    is left out unless the config asks for the SFM flow, as the JAX
+    importer does (tests/test_torch_cosy_sfm.py reads it)."""
     sd, _ = fixtures.load_golden(os.path.join(gc.GOLDEN_DIR, "flow.npz"))
     cfg = _port_cfg(flow.FlowConfig, gc.flow_config())
-    with pytest.raises(NotImplementedError, match="SFM"):
-        cosy_import.flow_from_state_dict({**sd, "sfm_head.conv1.weight": np.zeros(1)}, cfg)
+    assert not cfg.sfm
+    assert "sfm_head" not in cosy_import.flow_from_state_dict(
+        {**sd, "sfm_head.conv1.weight": np.zeros(1)}, cfg)
     sd = dict(sd)
     sd["decoder.estimator.down_blocks.0.2.conv.weight"] = sd.pop(
         "decoder.estimator.down_blocks.0.2.weight")

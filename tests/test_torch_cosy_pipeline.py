@@ -31,6 +31,7 @@ from rwkvtts_torch.codecs import campplus as cp
 from rwkvtts_torch.codecs import conformer, dsp, flow, hift
 from rwkvtts_torch.codecs import s3_tokenizer as s3
 from rwkvtts_torch.infer import generate as tgen
+from rwkvtts_torch.infer import streaming
 from rwkvtts_torch.infer.cosy_pipeline import CosyPipeline
 from rwkvtts_torch.models import cosy, rwkv7
 from rwkvtts_torch.ops import decode_mega as dm
@@ -316,11 +317,13 @@ def test_refusals(pipes):
         CosyPipeline(*args, quantize_int4=True, device="cpu")
     with pytest.raises(NotImplementedError, match="sample_rank_bf16"):
         CosyPipeline(*args, sample_rank_bf16=True, device="cpu")
+    # the SFM flow runs (tests/test_torch_cosy_sfm.py); a stream that asks
+    # for it on a flow without an SFM head is refused
     sfm = CosyPipeline.__new__(CosyPipeline)
     sfm.__dict__.update(pipe.__dict__)
     sfm.flow_cfg = dataclasses.replace(pipe.flow_cfg, sfm=True)
-    with pytest.raises(NotImplementedError, match="SFM"):
-        sfm.token2wav([1, 2, 3])
+    with pytest.raises(ValueError, match="sfm_head"):
+        next(streaming.stream_synthesize(sfm, "x", stream_cfg=streaming.StreamConfig(sfm=True)))
     tokens, modality, mask = (torch.from_numpy(a).long() for a in _prompt(1))
     with pytest.raises(ValueError, match="generator"):
         tgen.cosy_generate(pipe.lm_params, pipe.lm_cfg, tokens, modality, mask)

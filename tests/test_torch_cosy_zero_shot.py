@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from rwkvtts_tpu.codecs import flow as jflow
+from rwkvtts_tpu.codecs import hift as jhift
 from rwkvtts_tpu.infer import generate as jgen
 from rwkvtts_tpu.ops import decode_mega as jdm
 from rwkvtts_torch.codecs import flow, hift
@@ -89,6 +90,10 @@ def _jax_b1_generate():
     return generate
 
 
+_jax_flow = jax.jit(jflow.inference, static_argnums=(1, 6), static_argnames="n_timesteps")
+_jax_hift = jax.jit(jhift.inference, static_argnums=1)
+
+
 @pytest.mark.parametrize("route", ["decode_step", "b1_kernel"])
 def test_synthesize_matches_jax_given_its_noise(pipes, monkeypatch, route):
     """Zero-shot from the same 16 kHz wav, prompt text and seed, the port
@@ -98,6 +103,10 @@ def test_synthesize_matches_jax_given_its_noise(pipes, monkeypatch, route):
     x-vector handed to the flow). b1_kernel: the JAX side's LM through its
     B=1 kernel in interpret mode."""
     _feed_jax_noise(monkeypatch)
+    # the JAX pipeline's flow and HiFT calls as compiled programs (op by op
+    # each would compile every primitive)
+    monkeypatch.setattr(jflow, "inference", _jax_flow)
+    monkeypatch.setattr(jhift, "inference", _jax_hift)
     if route == "b1_kernel":
         monkeypatch.setattr(jgen, "cosy_generate", _jax_b1_generate())
     clip = _clip(11, 1.2, 16000)  # the frontend test's 16 kHz length: no new JAX compile

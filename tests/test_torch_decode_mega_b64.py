@@ -32,7 +32,7 @@ def _cfgs(C=256, L=2):
 def _randomized_params(cfg, seed=0):
     """As tests/test_decode_mega_b64.py: loras, output and FFN value made
     nonzero so every term of the step is exercised."""
-    params = rwkv7.init_params(jax.random.PRNGKey(seed), cfg)
+    params = jax.jit(rwkv7.init_params, static_argnums=1)(jax.random.PRNGKey(seed), cfg)
     k = jax.random.PRNGKey(seed + 1)
     att = dict(params["blocks"]["att"])
     for name in ("w1", "a1", "v1", "g1", "output"):

@@ -39,6 +39,9 @@ from rwkvtts_torch.serving import service as tsvc
 
 torch.set_num_threads(2)
 
+# JAX's init as one compiled program (op by op it compiles each random op)
+_jinit = jax.jit(jspark.init_params, static_argnums=1)
+
 
 class FakeTok:
     def encode(self, text):
@@ -106,7 +109,7 @@ def model():
     port's config and params (the same numbers)."""
     jcfg = jspark.default_config(hidden_size=64, num_layers=2, head_size=16, gate_lora=16,
                                  dtype=jnp.float32, wkv_chunk=16, remat=False, dropout=0.0)
-    jparams = jspark.init_params(jax.random.PRNGKey(0), jcfg)
+    jparams = _jinit(jax.random.PRNGKey(0), jcfg)
     tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams))
     return jcfg, jparams, tparams
 
@@ -344,9 +347,11 @@ def test_http_endpoints(service):
                                   {"text": "x", "properties": {"gender": "male"},
                                    "max_new_tokens": 4})
         assert (code, ctype) == (200, "audio/wav") and body[:4] == b"RIFF"
+        # a Spark pipeline has no streaming path; the studio page is served
         code, _, msg = _http(port, "/api/rwkv_tts_stream", {"text": "x"})
-        assert code == 501 and b"not ported" in msg
-        assert _http(port, "/")[0] == 501
+        assert code == 501 and b"no streaming pipeline" in msg
+        code, ctype, _ = _http(port, "/")
+        assert code == 200 and ctype.startswith("text/html")
         assert _http(port, "/nowhere")[0] == 404
     finally:
         server.shutdown()
@@ -366,7 +371,7 @@ def jax_ckpt(tmp_path_factory):
     pytest.importorskip("safetensors")
     cfg = jspark.default_config(hidden_size=32, num_layers=2, head_size=8, gate_lora=8,
                                 dtype=jnp.float32, wkv_chunk=16, remat=False)
-    params = jspark.init_params(jax.random.PRNGKey(0), cfg)
+    params = _jinit(jax.random.PRNGKey(0), cfg)
     params = {**params, "head": 10.0 * params["head"]}
     d = tmp_path_factory.mktemp("jax_ckpt")
     return f"{jexport.save_pretrained(params, cfg, str(d), kind='spark')}/model.safetensors"
@@ -451,7 +456,7 @@ def test_checkpoint_readers_match_jax(naming, stacked_x):
     from rwkvtts_torch.convert import rwkv7_ckpt as tckpt
 
     jcfg = jspark.default_config(hidden_size=32, num_layers=2, head_size=8, gate_lora=8)
-    params = jax.tree.map(np.asarray, jspark.init_params(jax.random.PRNGKey(2), jcfg))
+    params = jax.tree.map(np.asarray, _jinit(jax.random.PRNGKey(2), jcfg))
     if naming == "fla":
         sd = jexport.spark_to_fla(params, jcfg)
         prefix = "model.layers.{}.attn"
@@ -472,7 +477,7 @@ def test_checkpoint_readers_match_jax(naming, stacked_x):
     assert tckpt.infer_config_kwargs(sd) == jckpt.infer_config_kwargs(sd)
 
 
-@pytest.mark.parametrize("flags", [["--mega", "--int8"], ["--family", "cosy"],
+@pytest.mark.parametrize("flags", [["--mega", "--int8"], ["--family", "cosy", "--mega"],
                                    ["--grouped", "--mega"], ["--int4"], ["--dp", "2"]])
 def test_launcher_refuses_what_it_cannot_serve(flags):
     with pytest.raises(SystemExit):
@@ -520,15 +525,16 @@ def test_launchers_resolve_the_same_sampling(monkeypatch, family, given):
     want = _jax_launcher_sampling(monkeypatch, flags)
     args = launch._parser().parse_args(["--ckpt", "unused.safetensors", *flags])
     assert launch.sampling_defaults(args.family, args.top_k, args.top_p) == want
-    if family == "spark":
-        got = {}
+    got = {}
 
-        def capture(*a, **kw):
-            got.update(top_k=kw["top_k"], top_p=kw["top_p"])
-            raise _Resolved
+    def capture(*a, **kw):
+        got.update(top_k=kw["top_k"], top_p=kw["top_p"])
+        raise _Resolved
 
-        monkeypatch.setattr(launch, "build_pipeline", lambda *a, **k: None)
-        monkeypatch.setattr(launch, "build_service", capture)
-        with pytest.raises(_Resolved):
-            launch.main(["--ckpt", "unused.safetensors", *flags])
-        assert (got["top_k"], got["top_p"]) == want
+    monkeypatch.setattr(launch, "build_pipeline", lambda *a, **k: None)
+    monkeypatch.setattr(launch, "build_cosy_pipeline", lambda *a, **k: None)
+    monkeypatch.setattr(launch, "build_service", capture)
+    monkeypatch.setattr(tsvc, "CosyTTSService", capture)
+    with pytest.raises(_Resolved):
+        launch.main(["--ckpt", "unused.safetensors", *flags])
+    assert (got["top_k"], got["top_p"]) == want

@@ -95,9 +95,13 @@ def test_cross_entropy_matches_jax():
 # ---------------------------------------------------------------------------
 
 
+# JAX's init as one compiled program (op by op it compiles each random op)
+_jinit = jax.jit(jspark.init_params, static_argnums=1)
+
+
 def _tiny_spark_params(seed=0, hidden=64, layers=2):
     jcfg = jspark.default_config(hidden_size=hidden, num_layers=layers, dtype=jnp.float32)
-    return jax.tree.map(np.asarray, jspark.init_params(jax.random.PRNGKey(seed), jcfg))
+    return jax.tree.map(np.asarray, _jinit(jax.random.PRNGKey(seed), jcfg))
 
 
 def test_group_labels_match_jax():
@@ -122,6 +126,8 @@ def test_adamw_matches_optax_over_three_steps():
     tx = jopt.build_optimizer(params, **kw)
     jp = jax.tree.map(jnp.asarray, params)
     js = tx.init(jp)
+    update = jax.jit(lambda g, s, p: (lambda u, s2: (optax.apply_updates(p, u), s2))(
+        *tx.update(g, s, p)))  # one compiled update, not one program an op
     tp = bridge.params_from_numpy(params)
     opt = topt.AdamW(tp, **kw)
     ts_ = opt.init(tp)
@@ -129,8 +135,7 @@ def test_adamw_matches_optax_over_three_steps():
     for scale in (1.0, 1e-3, 0.05):  # clipped, not clipped, clipped
         grads = jax.tree.map(lambda p: (scale * rng.standard_normal(p.shape)).astype(np.float32),
                              params)
-        upd, js = tx.update(jax.tree.map(jnp.asarray, grads), js, jp)
-        jp = optax.apply_updates(jp, upd)
+        jp, js = update(jax.tree.map(jnp.asarray, grads), js, jp)
         tg = {p: torch.from_numpy(g) for p, g in _flat(grads).items()}
         opt.step(tp, tg, ts_, torch.tensor(True), topt.global_norm(tg.values()))
         want, got = _flat(jax.tree.map(np.asarray, jp)), _flat(tp)
@@ -174,8 +179,7 @@ def spark_slice():
     (jax.value_and_grad of spark_loss_fn) for each."""
     jcfg = jspark.default_config(hidden_size=128, num_layers=2, dtype=jnp.float32,
                                  dropout=0.0)
-    params = jax.tree.map(np.asarray, jspark.init_params(jax.random.PRNGKey(4), jcfg))
-    params = jax.tree.map(np.array, params)
+    params = jax.tree.map(np.array, _jinit(jax.random.PRNGKey(4), jcfg))
     _randomize(params, np.random.default_rng(5))
     collate = functools.partial(tsc.collate_plain, tokenizer=ttokenizer.get_world_tokenizer(),
                                 eos_id=8192)
@@ -185,8 +189,8 @@ def spark_slice():
     ref = {}
     for name, batch in batches.items():
         jb = {k: jnp.asarray(v) for k, v in batch.items()}
-        (loss, n), grads = jax.value_and_grad(
-            lambda p: jspark_loss_fn(p, jcfg, jb, None), has_aux=True)(
+        (loss, n), grads = jax.jit(jax.value_and_grad(
+            lambda p: jspark_loss_fn(p, jcfg, jb, None), has_aux=True))(
                 jax.tree.map(jnp.asarray, params))
         ref[name] = (float(loss), int(n), _flat(jax.tree.map(np.asarray, grads)))
     return params, batches, ref
