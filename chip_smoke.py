@@ -26,7 +26,11 @@ instruct, voice conversion), and Cosy B=64 offline generation at 2048 x
 cosy --hidden 2048``; then the CosyVoice server at the 1.5B pairing through
 ``launch.build_cosy_pipeline`` and ``CosyTTSService`` (one shared slot
 pool, the streaming endpoint, stored voices, mp3, the SFM levers), the
-traffic of ``benchmarks/bench_pooled_streaming.py``'s defaults.
+traffic of ``benchmarks/bench_pooled_streaming.py``'s defaults; then XY/Higgs
+text->wav: the 8-channel XY LM at 1024 x 24 through ``xy_generate`` on
+both backbone routes (``benchmarks/bench_families_scale.py``'s XY cell),
+``XYPipeline.synthesize`` with XY_Tokenizer at its published widths, and
+the Higgs codec.
 
 Phases, each printing its own lines; any failure raises, so the run exits
 non-zero and prints no result:
@@ -159,6 +163,26 @@ non-zero and prints no result:
              wkv7_fwd 24 an admission, peak memory, every wav finite with
              960 samples a token
 
+ 24. xy small  xy_generate at LM 128 x 2 f32 (the reduced vocabularies of
+             tests/test_decode_mega_b64.py, heads x 10, temperature 0.01) on
+             the rwkv7.decode_step route (B = 8) and on kernel 1 (B = 64),
+             card vs CPU on one set of noise: identical frames and n_audio;
+             kernel 7 L a step, kernel 1 8 L + 2 a frame, kernel 2 L a
+             prefill; a tiny XY_Tokenizer and a tiny Higgs codec, card vs
+             CPU: decode wav within 1e-4, encode codes' share equal >= 0.9
+ 25. xy main  the paths xy-0.4B-b8 and xy-0.4B-b64
+             (benchmarks/bench_families_scale.py:73-118): the XY LM 1024 x
+             24 bf16 (random, seed 0), 32-token prompts, 256 frames with no
+             EOS, B = 8 on rwkv7.decode_step and B = 64 on kernel 1 (int8,
+             bf16 carry): frames/s, tokens/s (x 8), audio x realtime (frames
+             / 12.5), ms a frame, launches by kernel (24 kernel-7 launches a
+             step, 194 kernel-1 launches a frame, 24 kernel-2 a prefill),
+             peak memory; XYPipeline.synthesize at B = 1 with
+             XYTokenizerConfig() (random): LM s, codec s, codec ms per audio
+             second, a wav of 1920 samples a code; a decode_long of 500
+             codes (40 s); an encode of a 6 s clip against the CPU's; Higgs
+             decode at HiggsConfig() of 256 frames (320 samples a frame)
+
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
 
@@ -229,6 +253,15 @@ SERVE_COSY_TEXT, SERVE_COSY_NEW, SERVE_COSY_SHORT = 60, 400, 100
 # 25 / top-p 0.8
 ZS_PROMPT_S, ZS_NEW, ZS_WARM_NEW = 6.0, 400, 16
 COSY_B64_NEW = 256
+
+# the XY paths (benchmarks/bench_families_scale.py:73-118): the XY LM at
+# 1024 x 24, 32-token prompts, 256 frames with no EOS, B = 8 on
+# rwkv7.decode_step (xy-0.4B-b8) and B = 64 on kernel 1 (xy-0.4B-b64);
+# XYPipeline.synthesize's utterance, whose prompt [S0]{XY_TEXT}[CTL0] is
+# XY_SYNTH_PROMPT tokens
+XY_C, XY_L, XY_PROMPT, XY_FRAMES, XY_B = 1024, 24, 32, 256, 8
+XY_TEXT = "The quick brown fox jumps over the lazy dog by the river bank."
+XY_SYNTH_PROMPT = 16
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FMA, and bf16
 # and TF32 tensor-core FLOP/s; the bound of a kernel is the larger of its
@@ -356,9 +389,11 @@ def phase_wkv7(dev) -> dict:
             ins, state, resets = wkv_inputs(g, 4, 200, 16, dtype)
             st, rs = (state, resets) if with_state else (None, None)
             gate(f"B=4 T=200 H=16 state+resets={with_state}", ins, st, rs, tol)
-    # the Cosy prefill and the Spark and Cosy servers' largest admissions,
-    # with state and resets
-    for name, Bn, T, H, _ in WKV_FWD_SHAPES[1:4]:
+    # the Cosy prefill, the Spark and Cosy servers' largest admissions and
+    # the XY prefills, with state and resets
+    for name, Bn, T, H, saving in WKV_FWD_SHAPES[1:]:
+        if saving:
+            continue
         for dtype, tol in tols:
             ins, state, resets = wkv_inputs(g, Bn, T, H, dtype)
             gate(f"{name} ({Bn}, {T}, {H}) state+resets", ins, state, resets, tol)
@@ -402,6 +437,9 @@ def phase_wkv7(dev) -> dict:
 WKV_FWD_SHAPES = (("prefill", B, PROMPT, 16, False), ("cosy", 1, 320, 32, False),
                   ("admission", 8, PROMPT, 16, False),
                   ("cosy admission", SERVE_COSY_STREAMS, 256, COSY_C // 64, False),
+                  ("xy b64 prefill", B, XY_PROMPT, XY_C // 64, False),
+                  ("xy b8 prefill", XY_B, XY_PROMPT, XY_C // 64, False),
+                  ("xy synthesize prefill", 1, XY_SYNTH_PROMPT, XY_C // 64, False),
                   ("train", TRAIN_B, TRAIN_T, TRAIN_H, True))
 
 
@@ -1668,13 +1706,15 @@ def phase_wkv7_step(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(5)
     err = 0.0
     # (carry, vectors, limit on y, limit on the state): y is rounded to the
-    # vectors' dtype, the state to the carry's; at the Spark pool's shape
-    # and the Cosy pool's (8 slots, 2048 / 64 heads)
+    # vectors' dtype, the state to the carry's; at the Spark pool's shape,
+    # the Cosy pool's (8 slots, 2048 / 64 heads) and the XY paths' (B = 8
+    # and synthesize's B = 1, 1024 / 64 heads)
     cases = ((torch.float32, torch.float32, 1e-4, 1e-4),
              (torch.float32, torch.bfloat16, 2e-2, 1e-4),   # the pools' default
              (torch.bfloat16, torch.bfloat16, 2e-2, 2e-2))
     for (Bn, H), (carry, vdt, ytol, stol) in itertools.product(
-            ((SERVE_SLOTS, SERVE_H), (SERVE_COSY_STREAMS, COSY_C // 64)), cases):
+            ((SERVE_SLOTS, SERVE_H), (SERVE_COSY_STREAMS, COSY_C // 64),
+             (XY_B, XY_C // 64), (1, XY_C // 64)), cases):
         s_k = (0.1 * torch.randn(Bn, H, 64, 64, generator=g, device=dev)).to(carry)
         s_p = s_k.clone()
         ey = 0.0
@@ -3405,6 +3445,318 @@ def cosy_serve_of_tree(what: str = "cosy serve") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 24-25. XY/Higgs text->wav: the 8-channel LM on both backbone routes and
+# the two codecs, small on the card vs the CPU, then the paths at full width
+# ---------------------------------------------------------------------------
+
+# then XYPipeline.synthesize at B = 1 with XYTokenizerConfig(), a
+# decode_long of 40 s, a 6 s encode and a Higgs decode at HiggsConfig()
+XY_SYNTH_NEW, XY_LONG_CODES, XY_CLIP_S, HIGGS_FRAMES = 256, 500, 6.0, 256
+# phase 24's LM vocabularies (tests/test_decode_mega_b64.py:222-229) and codecs
+XY_SMALL_VOCAB = dict(text_vocab_size=700, speech_vocab_size=32, text_shift_size=600)
+XY_SMALL_CODEC = dict(n_mels=16, d_model=32, enc_layers=1, heads=2, ffn_dim=64, adapter_layers=1,
+                      nq=8, codebook_size=16, codebook_dim=8, rvq_dim=16,
+                      quantizer_io_dim=128, dec_layers=1, vocos_dim=32,
+                      vocos_intermediate_dim=64, vocos_layers=1, vocos_n_fft=64, vocos_hop=16)
+HIGGS_SMALL = dict(d_model=8, latent_dim=16, semantic_dim=16, nq=8, codebook_size=16,
+                   strides=(2, 2, 2), decoder_channels=16)
+
+
+def xy_launches() -> dict:
+    """Kernels 2, 1 and 7's launch counts since their last reset."""
+    from rwkvtts_torch.ops import decode_mega_b64 as dmb
+    from rwkvtts_torch.ops import wkv7_cuda
+    from rwkvtts_torch.ops import wkv7_step_packed as sp
+
+    return {"wkv7_fwd": wkv7_cuda.launches["wkv7_fwd"], "decode_b64_step": dmb.launches,
+            "wkv7_step": sp.launches}
+
+
+def reset_xy_launches() -> None:
+    from rwkvtts_torch.ops import decode_mega_b64 as dmb
+    from rwkvtts_torch.ops import wkv7_cuda
+    from rwkvtts_torch.ops import wkv7_step_packed as sp
+
+    wkv7_cuda.reset_launches()
+    dmb.reset_launches()
+    sp.reset_launches()
+
+
+def xy_prompt(g: torch.Generator, Bn: int, T: int, cfg, lo: int, hi: int):
+    """The bench's prompt: text ids in [lo, hi) on channel 0, zeros on the
+    other channels, no padding."""
+    ids = torch.zeros(Bn, T, cfg.num_channels, dtype=torch.long)
+    ids[:, :, 0] = torch.randint(lo, hi, (Bn, T), generator=g)
+    return ids, torch.ones(Bn, T, dtype=torch.int32)
+
+
+def phase_xy_small(dev) -> None:
+    """xy_generate at LM 128 x 2 (f32, the reduced vocabularies, heads x 10,
+    temperature 0.01) on the rwkv7.decode_step route (B = 8) and on kernel 1
+    (B = 64), card vs CPU on one set of noise: identical frames, and kernel
+    7 L a step, kernel 1 8 L + 2 a frame, kernel 2 L a prefill; a tiny
+    XY_Tokenizer and a tiny Higgs codec, card vs CPU: wav within 1e-4, the
+    codes' share that agrees."""
+    import dataclasses
+
+    import numpy as np
+
+    from rwkvtts_torch.codecs import higgs, nn
+    from rwkvtts_torch.codecs import xy_tokenizer as xt
+    from rwkvtts_torch.infer.generate import xy_generate
+    from rwkvtts_torch.models import rwkv7, xy
+    from rwkvtts_torch.ops import decode_mega_b64 as dmb
+    from rwkvtts_torch.ops import sampling
+
+    cfg = dataclasses.replace(xy.default_config(hidden_size=128, num_layers=2,
+                                                dtype=torch.float32), **XY_SMALL_VOCAB)
+    L, n_new = cfg.backbone.num_layers, 8
+    g = torch.Generator().manual_seed(51)
+    params = xy.init_params(g, cfg)
+    randomize(params, g)
+    params["heads"] = {k: 10.0 * v for k, v in params["heads"].items()}  # far from a near-tie
+    widths = [cfg.text_vocab_size] + [cfg.speech_vocab_size] * (cfg.num_channels - 1)
+    for route, Bn in (("decode_step", XY_B), ("kernel 1", B)):
+        gn = torch.Generator().manual_seed(52)
+        noise = [sampling.gumbel((n_new, Bn, w), gn) for w in widths]
+        ids, mask = xy_prompt(gn, Bn, 6, cfg, 1, 500)
+        out = {}
+        for where in ("cpu", dev):
+            p = rwkv7.tree_map(lambda t: t.to(where), params)
+            mega = dmb.pack_mega_b64(p, cfg.backbone) if route == "kernel 1" else None
+            reset_xy_launches()
+            out[str(where)] = xy_generate(
+                p, cfg, ids.to(where), mask.to(where), max_new_tokens=n_new, min_new_tokens=1,
+                temperature=0.01, mega=mega, noise=[t.to(where) for t in noise])
+            launches = xy_launches()
+        (f_c, n_c), (f_g, n_g) = out["cpu"], out[str(dev)]
+        diff = (f_g.cpu() != f_c).any(-1).nonzero().tolist()
+        want = {"wkv7_fwd": L, "decode_b64_step": (8 * L + 2) * n_new if route == "kernel 1" else 0,
+                "wkv7_step": L * n_new if route == "decode_step" else 0}
+        print(f"xy small: LM 128 x 2 f32, {route} route, B={Bn}, {n_new} frames at temperature "
+              f"0.01 on one set of noise: card vs CPU frames differ at (row, step) {diff}, "
+              f"n_audio equal {bool((n_g.cpu() == n_c).all())}; card launches {launches} "
+              f"(want {want})")
+        check(not diff and bool((n_g.cpu() == n_c).all()),
+              f"xy small: the {route} route on the card disagrees with the CPU")
+        check(launches == want, f"xy small: {route} launches {launches}, want {want}")
+
+    xcfg, hcfg = xt.XYTokenizerConfig(**XY_SMALL_CODEC), higgs.HiggsConfig(**HIGGS_SMALL)
+    xp = xt.init_params(torch.Generator().manual_seed(53), xcfg)
+    hp = higgs.init_params(torch.Generator().manual_seed(54), hcfg)
+    gc = torch.Generator().manual_seed(55)
+    codes = torch.randint(0, 16, (8, 2, 20), generator=gc)
+    clip = torch.from_numpy(np.stack([prompt_clip(2.0, seed=s) for s in (2, 3)]))
+    feats = torch.randn(2, 1600 // 8, 16, generator=gc)
+    res = {}
+    for where in ("cpu", dev):
+        on = lambda tree: rwkv7.tree_map(lambda t: t.to(where), tree)
+        xpw, hpw = on(xp), on(hp)
+        with nn.f32():
+            mel = xt.whisper_log_mel(clip.to(where), n_mels=xcfg.n_mels)
+            res[str(where)] = [t.cpu() for t in (
+                xt.decode(xpw, xcfg, codes.to(where)), xt.encode(xpw, xcfg, mel),
+                higgs.decode(hpw, hcfg, codes.to(where)),
+                higgs.encode(hpw, hcfg, clip[:, :1600].to(where), feats.to(where)))]
+    (xw_c, xc_c, hw_c, hc_c), (xw_g, xc_g, hw_g, hc_g) = res["cpu"], res[str(dev)]
+    e_x, e_h = rel(xw_g, xw_c), rel(hw_g, hw_c)
+    s_x, s_h = (xc_g == xc_c).float().mean().item(), (hc_g == hc_c).float().mean().item()
+    print(f"xy small: tiny XY_Tokenizer decode wav {tuple(xw_g.shape)} rel {e_x:.3e}, encode of "
+          f"2 x 2 s codes {tuple(xc_g.shape)} {s_x:.4f} equal; tiny Higgs decode wav "
+          f"{tuple(hw_g.shape)} rel {e_h:.3e}, encode codes {tuple(hc_g.shape)} {s_h:.4f} equal "
+          f"(card vs CPU; wav limit 1e-4, codes limit 0.9)")
+    check(e_x <= 1e-4 and e_h <= 1e-4 and s_x >= 0.9 and s_h >= 0.9,
+          "xy small: a codec on the card disagrees with the CPU")
+
+
+def phase_xy_main(dev, card: str) -> dict:
+    """The paths xy-0.4B-b8 and xy-0.4B-b64 (an XY LM 1024 x 24, bf16,
+    random from seed 0): a 32-token prompt, 256 frames with no EOS, on
+    rwkv7.decode_step at B = 8 and on kernel 1 at B = 64 (int8, bf16
+    carry); frames/s, tokens/s, audio x realtime, ms a frame, launches by
+    kernel, peak memory. Then XYPipeline.synthesize at B = 1 with
+    XYTokenizerConfig() (random weights), a decode_long of 40 s, a 6 s
+    encode against the CPU's, and a Higgs decode at HiggsConfig()."""
+    import numpy as np
+
+    from rwkvtts_torch.codecs import higgs, nn
+    from rwkvtts_torch.codecs import xy_tokenizer as xt
+    from rwkvtts_torch.infer.generate import xy_generate
+    from rwkvtts_torch.infer.xy_pipeline import XYPipeline, xy_text_tokenizer
+    from rwkvtts_torch.models import rwkv7, xy
+    from rwkvtts_torch.ops import decode_mega_b64 as dmb
+
+    t0 = t_phase = time.perf_counter()
+    cfg = xy.default_config(hidden_size=XY_C, num_layers=XY_L)
+    L = XY_L
+    params = xy.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    params = rwkv7.tree_map(lambda t: t.to(torch.bfloat16) if t.ndim >= 2 else t, params)
+    mega = dmb.pack_mega_b64(params, cfg.backbone)
+    torch.cuda.synchronize()
+    print(f"xy main: XY LM {XY_C} x {L} bf16 (8 tables and heads, channel 0 "
+          f"{cfg.text_vocab_size} wide) and its int8 pack built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out: dict = {"paths": {}}
+    for path, Bn, m in (("xy-0.4B-b8", XY_B, None), ("xy-0.4B-b64", B, mega)):
+        def run(seed, frames):
+            g = torch.Generator().manual_seed(seed)
+            ids, mask = xy_prompt(g, Bn, XY_PROMPT, cfg, 100, 60000)
+            return xy_generate(params, cfg, ids.to(dev), mask.to(dev), max_new_tokens=frames,
+                               min_new_tokens=frames, allow_eos=False, mega=m,
+                               generator=torch.Generator(device=dev).manual_seed(seed))
+
+        run(1, 16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start_bytes = torch.cuda.memory_allocated()
+        reset_xy_launches()
+        t0 = time.perf_counter()
+        frames, n_audio = run(2, XY_FRAMES)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, by_kernel = xy_launches(), dict(dmb.kernel_launches)
+        peak = torch.cuda.max_memory_allocated()
+        fps = Bn * XY_FRAMES / seconds
+        r = {"B": Bn, "seconds": seconds, "frames_per_s": fps, "tokens_per_s": 8 * fps,
+             "audio_x_realtime": fps / 12.5, "ms_a_frame": 1e3 * seconds / XY_FRAMES,
+             "launches": launches, "peak_gib": peak / 2**30,
+             "peak_over_start_gib": (peak - start_bytes) / 2**30}
+        if m is not None:
+            r["by_kernel"] = by_kernel
+        out["paths"][path] = r
+        want = {"wkv7_fwd": L, "decode_b64_step": (8 * L + 2) * XY_FRAMES if m is not None else 0,
+                "wkv7_step": L * XY_FRAMES if m is None else 0}
+        ch0 = frames[..., 0]
+        lo = cfg.text_shift_size
+        print(f"xy main: {path}: B={Bn}, {XY_PROMPT} + {XY_FRAMES} frames: {seconds:.4f} s, "
+              f"{fps:.1f} frames/s, {8 * fps:.1f} tokens/s, {fps / 12.5:.1f} x realtime, "
+              f"{1e3 * seconds / XY_FRAMES:.4f} ms a frame (sampling and prefill in) on {card}; "
+              f"launches {launches}" + (f", by kernel {by_kernel}" if m is not None else "")
+              + f"; peak memory {peak / 2**30:.2f} GiB, {(peak - start_bytes) / 2**30:.2f} over "
+              f"what the run started with")
+        check(frames.shape == (Bn, XY_FRAMES, 8) and bool((n_audio == XY_FRAMES).all()),
+              f"xy main: {path} frames {tuple(frames.shape)}, n_audio {n_audio.tolist()}")
+        check(bool(((ch0 >= lo) & (ch0 < lo + cfg.speech_vocab_size)).all())
+              and bool(((frames[..., 1:] >= 0) & (frames[..., 1:] < cfg.speech_vocab_size)).all()),
+              f"xy main: {path} drew a token out of its channel's range")
+        check(launches == want, f"xy main: {path} launches {launches}, want {want}")
+    del mega
+    torch.cuda.empty_cache()
+
+    # XYPipeline.synthesize at B = 1, the codec at its published widths
+    t0 = time.perf_counter()
+    xcfg = xt.XYTokenizerConfig()
+    xp = xt.init_params(torch.Generator(device=dev).manual_seed(1), xcfg)
+    pipe = XYPipeline(cfg, params, xy_text_tokenizer(), xcfg, xp, device=dev)
+    torch.cuda.synchronize()
+    n_codec = sum(t.numel() for t in _leaves(xp))
+    print(f"xy main: XY_Tokenizer {n_codec / 1e6:.1f} M random parameters (seed 1) and the "
+          f"pipeline built in {time.perf_counter() - t0:.1f} s")
+    text = XY_TEXT
+    n_prompt = len(pipe.tok.encode(f"[S{pipe.speaker_id}]{text}[CTL0]"))
+    check(n_prompt == XY_SYNTH_PROMPT,
+          f"xy main: the utterance's prompt is {n_prompt} tokens; phase 3 holds kernel 2 "
+          f"at {XY_SYNTH_PROMPT}")
+    # the first call at the utterance's shapes (the codec's cold), then the
+    # same utterance again (warm), timed and counted
+    cold = pipe.synthesize(text, max_new_tokens=XY_SYNTH_NEW, seed=4)
+    torch.cuda.synchronize()
+    reset_xy_launches()
+    res = pipe.synthesize(text, max_new_tokens=XY_SYNTH_NEW, seed=4)
+    launches = xy_launches()
+    T = res.codes.shape[1]
+    audio_s = T / xcfg.frame_rate
+    synth = {"codes": T, "audio_s": audio_s, "llm_s": res.llm_s, "codec_s": res.codec_s,
+             "codec_ms_per_audio_s": 1e3 * res.codec_s / max(audio_s, 1e-9),
+             "cold_llm_s": cold.llm_s, "cold_codec_s": cold.codec_s,
+             "sample_rate": res.sample_rate, "launches": launches}
+    print(f"xy main: XYPipeline.synthesize B=1, {XY_SYNTH_NEW} steps: {T} codes ({audio_s:.2f} s "
+          f"of audio), LM {res.llm_s:.3f} s ({1e3 * res.llm_s / XY_SYNTH_NEW:.2f} ms a step), "
+          f"codec {res.codec_s:.3f} s ({synth['codec_ms_per_audio_s']:.2f} ms per audio s); "
+          f"the first call at these shapes LM {cold.llm_s:.3f} s, codec {cold.codec_s:.3f} s; "
+          f"wav {res.wav.shape} at {res.sample_rate} Hz; launches {launches} on {card}")
+    check(np.array_equal(cold.codes, res.codes), "xy main: one seed gave two utterances")
+    check(T > 0 and _wav_ok(res.wav, T, 8 * xcfg.vocos_hop) and res.sample_rate == 24000,
+          f"xy main: synthesize wav {res.wav.shape} for {T} codes")
+    check(launches == {"wkv7_fwd": L, "decode_b64_step": 0, "wkv7_step": L * XY_SYNTH_NEW},
+          f"xy main: synthesize launches {launches}, want {L} and {L} a step")
+    out["synthesize"] = synth
+
+    codes = np.random.default_rng(5).integers(0, xcfg.codebook_size, (xcfg.nq, XY_LONG_CODES))
+    with nn.f32():
+        xt.decode(xp, xcfg, torch.from_numpy(codes[:, None, :30]).to(dev))  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wav = xt.decode_long(xp, xcfg, codes)
+        long_s = time.perf_counter() - t0
+    long_audio = XY_LONG_CODES / xcfg.frame_rate
+    out["decode_long"] = {"codes": XY_LONG_CODES, "seconds": long_s,
+                          "ms_per_audio_s": 1e3 * long_s / long_audio}
+    print(f"xy main: decode_long of {XY_LONG_CODES} codes ({long_audio:.1f} s, 2 windows of 30 s): "
+          f"{long_s:.3f} s, {1e3 * long_s / long_audio:.2f} ms per audio s, wav {wav.shape}")
+    check(_wav_ok(wav, XY_LONG_CODES, 8 * xcfg.vocos_hop), f"xy main: decode_long wav {wav.shape}")
+
+    clip = torch.from_numpy(prompt_clip(XY_CLIP_S, seed=4))[None]
+    with nn.f32():
+        enc = lambda p, where: xt.encode(p, xcfg, xt.whisper_log_mel(clip.to(where),
+                                                                     n_mels=xcfg.n_mels))
+        enc(xp, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codes_g = enc(xp, dev).cpu()
+        enc_ms = 1e3 * (time.perf_counter() - t0)
+        codes_c = enc(rwkv7.tree_map(lambda t: t.cpu(), xp), "cpu")
+    share = (codes_g == codes_c).float().mean().item()
+    out["encode"] = {"seconds_of_audio": XY_CLIP_S, "ms": enc_ms, "codes": list(codes_g.shape),
+                     "share_equal_cpu": share}
+    print(f"xy main: encode of a {XY_CLIP_S:.0f} s clip: {enc_ms:.2f} ms, codes "
+          f"{tuple(codes_g.shape)}, {share:.4f} equal to the CPU's (limit 0.9)")
+    check(codes_g.shape == (xcfg.nq, 1, int(XY_CLIP_S * 12.5)) and share >= 0.9,
+          "xy main: the XY encode on the card disagrees with the CPU")
+    del pipe, xp
+    torch.cuda.empty_cache()
+
+    hcfg = higgs.HiggsConfig()
+    hp = higgs.init_params(torch.Generator(device=dev).manual_seed(2), hcfg)
+    hcodes = torch.randint(0, hcfg.codebook_size, (hcfg.nq, 1, HIGGS_FRAMES),
+                           generator=torch.Generator().manual_seed(6)).to(dev)
+    with nn.f32():
+        higgs.decode(hp, hcfg, hcodes[:, :, :25])  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hwav = higgs.decode(hp, hcfg, hcodes)
+        torch.cuda.synchronize()
+        h_s = time.perf_counter() - t0
+    h_audio = HIGGS_FRAMES / hcfg.frame_rate
+    out["higgs_decode"] = {"frames": HIGGS_FRAMES, "seconds": h_s,
+                           "ms_per_audio_s": 1e3 * h_s / h_audio}
+    print(f"xy main: Higgs decode at HiggsConfig() of {HIGGS_FRAMES} frames ({h_audio:.2f} s): "
+          f"{1e3 * h_s:.2f} ms, {1e3 * h_s / h_audio:.2f} ms per audio s, wav "
+          f"{tuple(hwav.shape)}")
+    check(hwav.shape == (1, HIGGS_FRAMES * hcfg.hop_length) and bool(torch.isfinite(hwav).all()),
+          f"xy main: Higgs wav {tuple(hwav.shape)}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"xy main: the phase took {out['phase_s']:.1f} s")
+    return out
+
+
+def xy_of_tree(what: str = "xy") -> dict:
+    """Phases 24-25 alone (the XY slice small on card vs CPU, then its paths
+    at full width) with whichever rwkvtts_torch is imported, TF32 off;
+    prints their numbers as one JSON line."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(card)
+    phase_xy_small(dev)
+    out = phase_xy_main(dev, card)
+    print(f"{what}: " + json.dumps(out))
+    return out
+
+
 def build_log(log: str) -> None:
     """Print ptxas's registers, shared memory and spills of every kernel,
     and fail if a chunked WKV7 kernel (forward, backward, fused pair)
@@ -3436,34 +3788,46 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
+    seconds = {}
+
+    def run(phase, *args):
+        """phase(*args), its wall seconds kept under its name."""
+        t = time.perf_counter()
+        out = phase(*args)
+        seconds[phase.__name__] = round(time.perf_counter() - t, 1)
+        return out
+
     _build.library()
     lib_path = _build.library_path()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.last_build_seconds:.1f} s) -> {lib_path.name}")
     build_log(lib_path.with_suffix(".log").read_text())
+    seconds["build"] = round(time.perf_counter() - t0, 1)
 
-    rows = {"wkv7_fwd": phase_wkv7(dev)}
-    rows["decode_b64_step"], per_step = phase_decode(dev)
-    phase_small(dev)
-    main_run = phase_main(dev, card, per_step)
-    rows["wkv7_bwd"], train_fwd = phase_wkv7_train(dev)
-    rows["wkv7_fused_fwd"], rows["wkv7_fused_bwd"] = phase_wkv7_fused(dev)
-    phase_train_small(dev)
-    train_run = phase_train_main(dev, card)
-    rows["decode_b1_step"], b1_per_step, b1_ms = phase_decode_b1(dev)
-    phase_cosy_small(dev)
-    cosy_run = phase_cosy_main(dev, card, b1_ms)
-    rows["wkv7_step"] = phase_wkv7_step(dev)
-    phase_serve_small(dev)
-    serve_run = phase_serve_main(dev, card)
-    phase_spark_wav_small(dev)
-    wav_run = phase_spark_wav_main(dev, card, main_run)
-    phase_cosy_zs_small(dev)
-    zs_run = phase_cosy_zs_main(dev, card)
-    b64_run = phase_cosy_b64(dev, card)
-    phase_cosy_serve_small(dev)
-    cs_run = phase_cosy_serve_main(dev, card)
+    rows = {"wkv7_fwd": run(phase_wkv7, dev)}
+    rows["decode_b64_step"], per_step = run(phase_decode, dev)
+    run(phase_small, dev)
+    main_run = run(phase_main, dev, card, per_step)
+    rows["wkv7_bwd"], train_fwd = run(phase_wkv7_train, dev)
+    rows["wkv7_fused_fwd"], rows["wkv7_fused_bwd"] = run(phase_wkv7_fused, dev)
+    run(phase_train_small, dev)
+    train_run = run(phase_train_main, dev, card)
+    rows["decode_b1_step"], b1_per_step, b1_ms = run(phase_decode_b1, dev)
+    run(phase_cosy_small, dev)
+    cosy_run = run(phase_cosy_main, dev, card, b1_ms)
+    rows["wkv7_step"] = run(phase_wkv7_step, dev)
+    run(phase_serve_small, dev)
+    serve_run = run(phase_serve_main, dev, card)
+    run(phase_spark_wav_small, dev)
+    wav_run = run(phase_spark_wav_main, dev, card, main_run)
+    run(phase_cosy_zs_small, dev)
+    zs_run = run(phase_cosy_zs_main, dev, card)
+    b64_run = run(phase_cosy_b64, dev, card)
+    run(phase_cosy_serve_small, dev)
+    cs_run = run(phase_cosy_serve_main, dev, card)
+    run(phase_xy_small, dev)
+    xy_run = run(phase_xy_main, dev, card)
 
     rows["wkv7_fwd"]["launches"] = main_run["launches"]["wkv7_fwd"]
     rows["wkv7_fwd"]["train_forward"] = train_fwd  # its training-shape numbers, unfused path
@@ -3489,6 +3853,12 @@ def main() -> None:
     rows["wkv7_step"]["launches_cosy_zs"] = zs_launches("wkv7_step")
     rows["wkv7_fwd"]["launches_cosy_serve"] = cs_run["launches"]["wkv7_fwd"]
     rows["wkv7_step"]["launches_cosy_serve"] = cs_run["launches"]["wkv7_step"]
+    xy_paths = xy_run["paths"]
+    rows["wkv7_fwd"]["launches_xy"] = {k: r["launches"]["wkv7_fwd"] for k, r in xy_paths.items()}
+    rows["decode_b64_step"]["launches_xy_b64"] = xy_paths["xy-0.4B-b64"]["launches"][
+        "decode_b64_step"]
+    rows["wkv7_step"]["launches_xy_b8"] = xy_paths["xy-0.4B-b8"]["launches"]["wkv7_step"]
+    rows["wkv7_step"]["launches_xy_synthesize"] = xy_run["synthesize"]["launches"]["wkv7_step"]
     print("train: " + json.dumps({k: v for k, v in train_run.items()
                                   if k not in ("launches", "unfused")}))
     print("cosy: " + json.dumps({k: v for k, v in cosy_run.items() if k != "launches"}))
@@ -3497,6 +3867,9 @@ def main() -> None:
     print("cosy zs: " + json.dumps(zs_run))
     print("cosy b64: " + json.dumps({k: v for k, v in b64_run.items() if k != "by_kernel"}))
     print("cosy serve: " + json.dumps({k: v for k, v in cs_run.items() if k != "launches"}))
+    print("xy: " + json.dumps(xy_run))
+    seconds["total"] = round(time.perf_counter() - t_start, 1)
+    print("phase seconds: " + json.dumps(seconds))
     print(json.dumps({"kernels": [rows[k] for k in ("wkv7_fwd", "decode_b64_step", "wkv7_bwd",
                                                     "wkv7_fused_fwd", "wkv7_fused_bwd",
                                                     "decode_b1_step", "wkv7_step")]}))

@@ -1,7 +1,7 @@
 """Bridge between the JAX package's arrays and the port's tensors, in numpy
 (no JAX import): parameters name for name (both ways), the flow, HiFT,
-S3 tokenizer, CAM++ and BiCodec trees with their convolution weights in
-PyTorch's layout, the default optimizer's Adam moments, and the decode
+S3 tokenizer, CAM++, BiCodec, XY_Tokenizer and Higgs trees with their
+convolution weights in PyTorch's layout, the default optimizer's Adam moments, and the decode
 states (B=64 and B=1) between the TPU kernels' layouts and the port's
 natural one.
 
@@ -73,27 +73,29 @@ def conv2d_from_jax(w) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(np.asarray(w), (3, 2, 0, 1)))
 
 
-def codec_params_from_numpy(tree, device=None, _transposed=False):
-    """A JAX flow, HiFT, S3 tokenizer or CAM++ parameter tree (dicts and
-    lists) -> the port's, name for name: every 3-D "w" is a convolution
-    kernel and goes to PyTorch's layout; those under "ups" (HiFT's
-    upsampling stack, the only transposed convolutions of these trees) to
-    ConvTranspose1d's; every 4-D "w" (CAM++'s 2-D front end) to Conv2d's.
-    The one place where codec weights change layout
-    (rwkvtts_torch/codecs/nn.py)."""
+def codec_params_from_numpy(tree, device=None, transposed=("ups",), _in_transposed=False):
+    """A JAX flow, HiFT, S3 tokenizer, CAM++, XY_Tokenizer or Higgs
+    parameter tree (dicts and lists) -> the port's, name for name: every
+    3-D "w" is a convolution kernel and goes to PyTorch's layout; those
+    anywhere under a key named in `transposed` (by default "ups", HiFT's
+    upsampling stack, the only transposed convolutions of the Cosy trees)
+    to ConvTranspose1d's (groups 1); every 4-D "w" (CAM++'s 2-D front end)
+    to Conv2d's. Linears, codebooks and norms keep their layout. The one
+    place where codec weights change layout (rwkvtts_torch/codecs/nn.py)."""
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
             if k == "w" and np.ndim(v) == 3:
-                conv = conv_transpose_from_jax if _transposed else conv_from_jax
+                conv = conv_transpose_from_jax if _in_transposed else conv_from_jax
                 out[k] = to_tensor(conv(v), device)
             elif k == "w" and np.ndim(v) == 4:
                 out[k] = to_tensor(conv2d_from_jax(v), device)
             else:
-                out[k] = codec_params_from_numpy(v, device, _transposed or k == "ups")
+                out[k] = codec_params_from_numpy(v, device, transposed,
+                                                 _in_transposed or k in transposed)
         return out
     if isinstance(tree, (list, tuple)):
-        return [codec_params_from_numpy(v, device, _transposed) for v in tree]
+        return [codec_params_from_numpy(v, device, transposed, _in_transposed) for v in tree]
     return to_tensor(tree, device)
 
 
@@ -121,6 +123,20 @@ def bicodec_params_from_numpy(tree, device=None, _transposed=None):
     if isinstance(tree, (list, tuple)):
         return [bicodec_params_from_numpy(v, device, _transposed) for v in tree]
     return to_tensor(tree, device)
+
+
+def xy_tokenizer_params_from_numpy(tree, device=None):
+    """A JAX XY_Tokenizer tree (rwkvtts_tpu/codecs/xy_tokenizer.py) -> the
+    port's: the acoustic decoder's deconv1 / deconv2 and the upsample are
+    transposed convolutions (the downsample's "up" is a plain one). The XY
+    LM's tree goes through ``params_from_numpy``, name for name."""
+    return codec_params_from_numpy(tree, device, ("deconv1", "deconv2", "upsample"))
+
+
+def higgs_params_from_numpy(tree, device=None):
+    """A JAX Higgs tree (rwkvtts_tpu/codecs/higgs.py) -> the port's: the
+    decoder blocks' "up" are its transposed convolutions."""
+    return codec_params_from_numpy(tree, device, ("up",))
 
 
 def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:

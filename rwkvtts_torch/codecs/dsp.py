@@ -2,8 +2,8 @@
 (counterpart of rwkvtts_tpu/codecs/dsp.py): a Hann window (zero-padded
 to n_fft when shorter), the analysis as products against windowed
 real-DFT bases (torch.stft(center=True, onesided=True) semantics), the
-synthesis with Hann-squared overlap-add normalisation (torch.istft(
-center=True) semantics), the mel filterbank (slaney-normalised on the
+synthesis with Hann-squared overlap-add normalisation (torch.istft
+semantics, centred or not), the mel filterbank (slaney-normalised on the
 slaney scale, torchaudio's norm="slaney", mel_scale="slaney", or kaldi's
 unnormalised HTK bins), the HiFi-GAN log-mel of the flow prompt, and the
 antialiased linear resize of jax.image.resize; the JAX package's formulas,
@@ -67,8 +67,13 @@ def stft(x: torch.Tensor, n_fft: int, hop_length: int, win_length: Optional[int]
     return frames @ _const(cos_b, x), frames @ _const(sin_b, x)
 
 
-def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
-    """(real, imag) each (B, n_frames, n_fft // 2 + 1) -> (B, T), centred."""
+def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop_length: int,
+          center: bool = True) -> torch.Tensor:
+    """(real, imag) each (B, n_frames, n_fft // 2 + 1) -> (B, T): the
+    overlap-add of n_fft + hop (n_frames - 1) samples, trimmed by n_fft // 2
+    each side when `center` (torch.istft(center=True), HiFT's and BiCodec's
+    heads); uncentred, the whole overlap-add (the XY Vocos head trims it
+    itself)."""
     w_cos, w_sin = _synthesis_bases(n_fft)
     win = _const(hann_window(n_fft), real)
     frames = (real @ _const(w_cos, real) + imag @ _const(w_sin, real)) * win
@@ -81,7 +86,7 @@ def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop_length: int) -
     wsq = torch.zeros(T_full, dtype=real.dtype, device=real.device)
     wsq.index_add_(0, idx, (win * win).repeat(n_frames))
     sig = sig / torch.clamp_min(wsq, 1e-11)
-    return sig[:, n_fft // 2:T_full - n_fft // 2]
+    return sig[:, n_fft // 2:T_full - n_fft // 2] if center else sig
 
 
 def _hz_to_mel_slaney(f):

@@ -1,5 +1,5 @@
 """Export the port's parameter trees to fla-HF-named checkpoints
-(counterpart of rwkvtts_tpu/convert/export_hf.py; the Spark and Cosy
+(counterpart of rwkvtts_tpu/convert/export_hf.py; the Spark, Cosy and XY
 exports).
 
 The key naming is the exact inverse of ``convert/rwkv7_ckpt.fla_to_rwkv7``,
@@ -99,6 +99,17 @@ def cosy_to_fla(params: Params, cfg) -> Dict[str, np.ndarray]:
     return sd
 
 
+def xy_to_fla(params: Params, cfg) -> Dict[str, np.ndarray]:
+    """XY speech LM -> RWKV7XYLM-format state_dict."""
+    params = bridge.params_to_numpy(params)
+    sd = rwkv7_to_fla(params, cfg.backbone)
+    for i in range(cfg.num_channels):
+        sd[f"embs.{i}.weight"] = np.asarray(params["embs"][str(i)], np.float32)
+        sd[f"heads.{i}.weight"] = np.ascontiguousarray(
+            np.asarray(params["heads"][str(i)], np.float32).T)
+    return sd
+
+
 _ST_DTYPES = {np.dtype(np.float32): "F32", np.dtype(np.float16): "F16",
               np.dtype(np.float64): "F64", np.dtype(np.int64): "I64",
               np.dtype(np.int32): "I32", np.dtype(np.uint8): "U8",
@@ -130,7 +141,7 @@ def save_safetensors(sd: Mapping[str, np.ndarray], path: str, metadata=None) -> 
 
 def save_pretrained(params: Params, cfg, out_dir: str, kind: str = "spark") -> str:
     """Write <out_dir>/model.safetensors + config.json (HF-dir layout) of a
-    Spark or a Cosy speech LM."""
+    Spark, a Cosy or an XY speech LM."""
     if kind == "spark":
         sd = spark_to_fla(params, cfg)
         config = {
@@ -153,9 +164,21 @@ def save_pretrained(params: Params, cfg, out_dir: str, kind: str = "spark") -> s
             "num_hidden_layers": cfg.backbone.num_layers,
             "speech_token_size": cfg.speech_token_size,
         }
+    elif kind == "xy":
+        sd = xy_to_fla(params, cfg)
+        config = {
+            "model_type": "rwkv7",
+            "architectures": ["RWKV7XYLM"],
+            "vocab_size": cfg.text_vocab_size,
+            "hidden_size": cfg.backbone.hidden_size,
+            "num_hidden_layers": cfg.backbone.num_layers,
+            "num_channels": cfg.num_channels,
+            "speech_vocab_size": cfg.speech_vocab_size,
+            "text_shift_size": cfg.text_shift_size,
+        }
     else:
         raise NotImplementedError(f"save_pretrained: kind {kind!r} is not ported yet "
-                                  "(the port exports Spark and Cosy)")
+                                  "(the port exports Spark, Cosy and XY)")
     os.makedirs(out_dir, exist_ok=True)
     save_safetensors(sd, os.path.join(out_dir, "model.safetensors"))
     with open(os.path.join(out_dir, "config.json"), "w") as f:

@@ -1,11 +1,13 @@
 """Pretrained speech checkpoints -> the port's parameter trees (counterpart
-of rwkvtts_tpu/convert/speech_init.py; the Spark and Cosy loaders)."""
+of rwkvtts_tpu/convert/speech_init.py; the Spark, Cosy and XY loaders, and
+XY's init from a text RWKV-7)."""
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 
+from rwkvtts_torch import bridge
 from rwkvtts_torch.convert import rwkv7_ckpt
 
 Params = Dict[str, Any]
@@ -34,3 +36,42 @@ def cosy_from_pretrained_sd(sd: Mapping[str, np.ndarray], cfg) -> Params:
     else:
         p["head_bias"] = np.zeros(p["head"].shape[1], np.float32)
     return p
+
+
+def xy_from_pretrained_sd(sd: Mapping[str, np.ndarray], cfg) -> Params:
+    """RWKV7XYLM HF state_dict -> XY params (numpy): embs.{i}.weight as the
+    channel tables, heads.{i}.weight transposed to (C, V)."""
+    p = rwkv7_ckpt.fla_to_rwkv7(sd, cfg.backbone)
+    p["embs"] = {str(i): np.asarray(sd[f"embs.{i}.weight"]) for i in range(cfg.num_channels)}
+    p["heads"] = {str(i): np.ascontiguousarray(np.asarray(sd[f"heads.{i}.weight"]).T)
+                  for i in range(cfg.num_channels)}
+    return p
+
+
+_BACKBONE_KEYS = ("blocks", "ln0_scale", "ln0_bias", "ln_out_scale", "ln_out_bias")
+
+
+def xy_from_text(text_sd: Mapping[str, np.ndarray], xy_params: Params, cfg,
+                 rng: Optional[np.random.Generator] = None) -> Params:
+    """Seed an XY model from a pretrained text RWKV-7 (the reference's
+    convert_rwkv7_to_xy): the backbone copied; channel 0's table and head
+    rows [0, text vocab) from the text model's, the extended rows ([SP*],
+    [S*], [CTL*]) normal at the text table's / head's std drawn from `rng`
+    (table first, then head); channels 1-7 keep `xy_params`' (tensors or
+    numpy). Returns numpy."""
+    rng = rng or np.random.default_rng(0)
+    out = dict(bridge.params_to_numpy(xy_params))
+    bb = rwkv7_ckpt.fla_to_rwkv7(text_sd, cfg.backbone)
+    out.update({k: bb[k] for k in _BACKBONE_KEYS})
+    text_emb = np.asarray(text_sd["model.embeddings.weight"])
+    text_head = np.asarray(text_sd["lm_head.weight"])  # (V, C)
+    V_old = text_emb.shape[0]
+    emb0 = np.array(out["embs"]["0"], np.float32)
+    head0 = np.array(out["heads"]["0"], np.float32)  # (C, V_new)
+    emb0[:V_old] = text_emb
+    emb0[V_old:] = rng.normal(0, float(text_emb.std()), emb0[V_old:].shape)
+    head0[:, :V_old] = text_head.T
+    head0[:, V_old:] = rng.normal(0, float(text_head.std()), head0[:, V_old:].shape)
+    out["embs"] = dict(out["embs"], **{"0": emb0})
+    out["heads"] = dict(out["heads"], **{"0": head0})
+    return out

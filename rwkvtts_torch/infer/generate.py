@@ -7,7 +7,9 @@ exit between chunks (``spark_prefill_carry`` + ``spark_decode_chunk``,
 decode route, the model's ``rwkv7.decode_step`` or the B=1 whole-step
 kernel (``cosy_prefill_carry`` + ``cosy_decode_chunk``, the streaming
 path's chunks, and ``cosy_generate``), and Cosy B=64 batched generation
-through the B=64 whole-step kernel (``cosy_generate_mega_b64``).
+through the B=64 whole-step kernel (``cosy_generate_mega_b64``); XY
+8-channel generation with its staggered flush automaton on either the
+model's decode step or the B=64 whole-step kernel (``xy_generate``).
 
 Prefill runs the full-sequence model (the WKV7 kernel on a card), the
 state is packed for the decode step, then every step is: head product
@@ -20,7 +22,8 @@ tokens once, after it. On a CPU everything runs the plain versions.
 Random draws come from a ``torch.Generator`` or from ``noise``: per-step
 Gumbel noise of the sampler's candidate shape (ops/sampling.py), row i
 for the i-th step of the call, which lets a caller feed the JAX
-package's draws.
+package's draws (XY: a list of one such tensor a channel, the widths
+differ).
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from rwkvtts_torch.models import cosy, rwkv7, spark
+from rwkvtts_torch.models import cosy, rwkv7, spark, xy
 from rwkvtts_torch.ops import decode_mega as dm
 from rwkvtts_torch.ops import decode_mega_b64 as dmb
 from rwkvtts_torch.ops import sampling
@@ -371,3 +374,94 @@ def cosy_generate_mega_b64(
                         max_new_tokens, noise, generator, min_new_tokens=min_new_tokens,
                         top_k=top_k, top_p=top_p)
     return out, _eos_lengths(out, eos, max_new_tokens)
+
+
+@torch.inference_mode()
+def xy_generate(
+    params, cfg: xy.XYConfig, input_ids: torch.Tensor, attention_mask: torch.Tensor, *,
+    max_new_tokens: int = 512,
+    min_new_tokens: int = 0,
+    temperature: float = 1.0,
+    allow_eos: bool = True,
+    mega=None,
+    generator: Optional[torch.Generator] = None,
+    noise=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """XY 8-channel generation with the staggered flush automaton
+    (rwkvtts_tpu's xy_generate; the reference's
+    ``CustomGenerationMixin._sample``, xy_llm.py:39-146).
+
+    input_ids (B, T, 8), a left-padded prompt. Each step: the 8 channels'
+    logits; channel 0 masked to the audio range [text_shift, text_shift +
+    speech_vocab), plus its EOS (the text pad) with `allow_eos`, the EOS
+    masked while a row has fewer than `min_new_tokens` audio steps; an
+    independent temperature draw a channel; then the flush: once channel 0
+    leaves the audio range a row counts down 7 steps, emitting EOS on
+    channel 0 and, on channel i, PAD once the countdown is below 8 - i; a
+    finished row emits EOS / PAD frames; the frame's embedding goes
+    through the backbone step. As in the JAX package, `allow_eos` keeps
+    the EOS drawable after `min_new_tokens`, so the flush is reachable.
+
+    The backbone step is the B=64 whole-step kernel on `mega` (what
+    ``decode_mega_b64.pack_mega_b64`` returns; B must be 64), or, without
+    it, ``rwkv7.decode_step`` on the per-layer views of `params` (the WKV
+    step kernel on a card); the heads and embeddings come from `params`
+    either way. Draws: channel c of step i takes noise[c][i] (a list of
+    one (max_new_tokens, B, V_c) tensor a channel), or Gumbel noise drawn
+    from `generator`. All max_new_tokens steps run. Returns (frames (B,
+    max_new_tokens, 8), n_audio (B,)) on the device. n_audio counts, as the
+    JAX package does, each step whose channel-0 draw is audio until the
+    row finishes, the draws of its 7 countdown steps included (whose
+    frames carry EOS); the audio steps before the flush are those before
+    channel 0's first EOS (``XYPipeline`` cuts there)."""
+    if noise is None and generator is None:
+        raise ValueError("xy_generate: pass the draws' `noise` or a `generator`")
+    bb, nch = cfg.backbone, cfg.num_channels
+    B, dev = input_ids.shape[0], input_ids.device
+    if mega is not None and B != dmb.B:
+        raise ValueError(f"the decode step takes B={dmb.B}, got {B}")
+    lo, hi = cfg.text_shift_size, cfg.text_shift_size + cfg.speech_vocab_size
+    eos0, pad = cfg.text_pad_id, cfg.speech_pad_id
+
+    h, state = xy.prefill(params, cfg, input_ids, attention_mask)
+    if mega is not None:
+        state = dmb.pack_state(state)
+        step = lambda x, st: dmb.decode_step_mega_b64(mega, bb, x, st)
+    else:
+        state = rwkv7.pack_decode_state(state, bb)
+        views = rwkv7.layer_decode_views(params, bb)
+        step = lambda x, st: rwkv7.decode_step(views, bb, x, st)
+    ids0 = torch.arange(cfg.text_vocab_size, device=dev)
+    allowed0 = (ids0 >= lo) & (ids0 < hi)
+    if allow_eos:
+        allowed0 = allowed0 | (ids0 == eos0)
+    stagger = nch - torch.arange(1, nch, device=dev)  # channel i pads once countdown < 8 - i
+    countdown = torch.full((B,), -1, dtype=torch.long, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    n = torch.zeros(B, dtype=torch.long, device=dev)
+    frames = []
+    for i in range(max_new_tokens):
+        logits = xy.channel_logits(params, cfg, h)
+        l0 = torch.where(allowed0, logits[0], sampling.NEG_INF)
+        if min_new_tokens > 0:
+            l0[:, eos0] = torch.where(n < min_new_tokens, sampling.NEG_INF, l0[:, eos0])
+        logits[0] = l0
+        frame = torch.stack([
+            sampling.sample(lc, temperature=temperature, generator=generator,
+                            noise=None if noise is None else noise[c][i])
+            for c, lc in enumerate(logits)], -1)
+
+        is_audio = (frame[:, 0] >= lo) & (frame[:, 0] < hi)
+        countdown = torch.where(~is_audio & (countdown < 0), nch - 1, countdown)
+        flushing = countdown >= 0
+        ch0 = torch.where(flushing | done, eos0, frame[:, 0])
+        pads = (flushing[:, None] & (countdown[:, None] < stagger)) | done[:, None]
+        frame = torch.cat([ch0[:, None], torch.where(pads, pad, frame[:, 1:])], 1)
+        countdown = torch.where(flushing, countdown - 1, countdown)
+        n = n + (is_audio & ~done)
+        done = done | (flushing & (countdown < 0))
+        frames.append(frame)
+
+        h, state = step(xy.decode_embed(params, cfg, frame), state)
+        h = h.to(bb.dtype)
+    return torch.stack(frames, 1), n
