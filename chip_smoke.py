@@ -30,7 +30,10 @@ traffic of ``benchmarks/bench_pooled_streaming.py``'s defaults; then XY/Higgs
 text->wav: the 8-channel XY LM at 1024 x 24 through ``xy_generate`` on
 both backbone routes (``benchmarks/bench_families_scale.py``'s XY cell),
 ``XYPipeline.synthesize`` with XY_Tokenizer at its published widths, and
-the Higgs codec.
+the Higgs codec; then the ASR, S2S and two-tower families:
+``asr.transcribe`` with the whisper-large-v3 encoder into a 1024 x 24 LLM,
+``s2s.generate`` and ``tts_two_tower.generate`` at 1024 x 24
+(``benchmarks/bench_families_scale.py``'s cells).
 
 Phases, each printing its own lines; any failure raises, so the run exits
 non-zero and prints no result:
@@ -182,6 +185,24 @@ non-zero and prints no result:
              second, a wav of 1920 samples a code; a decode_long of 500
              codes (40 s); an encode of a 6 s clip against the CPU's; Higgs
              decode at HiggsConfig() of 256 frames (320 samples a frame)
+ 26. asr small  kernel 2 at the ASR adapter's (8, 1500, 16), the ASR LLM's
+             (8, 1520, 16), S2S's (32, 64, 16) and two-tower's (16, 64, 16)
+             prefills with a left-padded mask from right_align_pack, and
+             kernel 7 at (8, 16), (32, 16), (16, 16) on fresh state buffers,
+             against their plain versions (f32 1e-4, bf16 2e-2), their ms,
+             device ms and bounds; tiny f32 configs (LM 128 x 2, heads x 10)
+             of both ASR variants, S2S on both heads and the two-tower model,
+             card vs CPU: greedy and fed-noise sampled tokens equal, exact
+             launches; the Whisper encoder at whisper-large-v3's widths on 1 s,
+             card vs CPU in f32 (1e-4)
+ 27. asr main  the paths asr-0.4B-whisper-large-v3 (transcribe: ASR LLM 1024
+             x 24, adapter 1024 x 6, the large-v3 encoder, B = 8 x 30 s, 32
+             greedy tokens: x realtime, RTF, encoder / adapter / prefill /
+             decode ms, 30 kernel-2 and 768 kernel-7 launches), s2s-0.4B-b32
+             (B = 32, 64 + 256 audio-head tokens: tok/s, 24 and 6,144) and
+             two-tower-0.4B-b16 (B = 16, 64 + 256 tokens: tok/s, 48 and 6,144)
+             (benchmarks/bench_families_scale.py:29-70, 157-220; random
+             weights, matrices bf16; a warm-up and two timed calls each)
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -443,9 +464,10 @@ WKV_FWD_SHAPES = (("prefill", B, PROMPT, 16, False), ("cosy", 1, 320, 32, False)
                   ("train", TRAIN_B, TRAIN_T, TRAIN_H, True))
 
 
-def wkv7_fwd_times(what: str = "wkv7 fwd", reps: int = 20) -> dict:
+def wkv7_fwd_times(what: str = "wkv7 fwd", reps: int = 20, shapes=WKV_FWD_SHAPES) -> dict:
     """Milliseconds of kernel 2 at the shapes of the paths that run it
-    (WKV_FWD_SHAPES), bf16 inputs in the model's ranges (seed 3): the
+    (`shapes`, by default WKV_FWD_SHAPES; phase 26 passes the ASR, S2S and
+    two-tower prefills'), bf16 inputs in the model's ranges (seed 3): the
     primal with a zero state at the generation prefill, the Cosy prefill
     and one admission bucket of the server, and the saving forward of the
     unfused training path (no state). Each a call on CUDA events (`ms`:
@@ -458,7 +480,7 @@ def wkv7_fwd_times(what: str = "wkv7 fwd", reps: int = 20) -> dict:
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(3)
     out = {}
-    for name, Bn, T, H, saving in WKV_FWD_SHAPES:
+    for name, Bn, T, H, saving in shapes:
         ins, _, _ = wkv_inputs(g, Bn, T, H, torch.bfloat16)
         if saving:
             x = [t.detach().clone().requires_grad_() for t in ins]
@@ -3757,6 +3779,383 @@ def xy_of_tree(what: str = "xy") -> dict:
     return out
 
 
+# the ASR, S2S and two-tower paths (benchmarks/bench_families_scale.py:29-70,
+# 157-220): asr-0.4B-whisper-large-v3 (an ASR LLM 1024 x 24 with a 1024 x 6
+# adapter and the whisper-large-v3 encoder, B = 8 rows of 30 s, 16
+# instruction and 4 hint tokens, 32 greedy new tokens), s2s-0.4B-b32 (B = 32,
+# a 64-token prompt, 256 new tokens on the audio head, top-k 50 / top-p 0.95)
+# and two-tower-0.4B-b16 (two 1024 x 24 towers, B = 16, a 64-token prompt, 256
+# new tokens at generate's defaults); the warm-up calls decode ASR_WARM_NEW
+ASR_C, ASR_L, ASR_ADAPTER_L = 1024, 24, 6
+ASR_B, ASR_SECONDS, ASR_INSTR, ASR_HINTS, ASR_NEW = 8, 30.0, 16, 4, 32
+WHISPER_LARGE_V3 = dict(n_mels=128, d_model=1280, layers=32, heads=20, ffn_dim=5120)
+S2S_B, TT_B, S2S_PROMPT, S2S_NEW, ASR_WARM_NEW = 32, 16, 64, 256, 16
+ASR_FRAMES = int(ASR_SECONDS * 50)  # the encoder's 50 Hz frames of a row
+# kernel 2's shapes on these paths (name, B, T, H, saving) and kernel 7's (B, H)
+ASR_WKV_SHAPES = (("asr adapter", ASR_B, ASR_FRAMES, ASR_C // 64, False),
+                  ("asr llm", ASR_B, ASR_INSTR + ASR_FRAMES + ASR_HINTS, ASR_C // 64, False),
+                  ("s2s prefill", S2S_B, S2S_PROMPT, ASR_C // 64, False),
+                  ("two-tower prefill", TT_B, S2S_PROMPT, ASR_C // 64, False))
+ASR_STEP_SHAPES = (("asr", ASR_B, ASR_C // 64), ("s2s", S2S_B, ASR_C // 64),
+                   ("two-tower", TT_B, ASR_C // 64))
+
+
+def wkv7_step_times(shapes, reps: int = 10, L: int = 24) -> dict:
+    """Kernel 7 as rwkv7.decode_step runs it on these paths (a fresh state
+    buffer, f32 carry, bf16 vectors) at (B, H) of `shapes`, one launch a
+    layer over L layers' states, as a step meets them (each cold in L2
+    when its turn comes): device ms a launch (torch.profiler), ms a launch
+    on CUDA events, the plain step's ms and the bound (the state read and
+    written, the six vectors read and y written; 7 operations an element
+    of the state at the f32 rate)."""
+    from rwkvtts_torch.ops import wkv7_step_packed as sp
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(7)
+    out = {}
+    for name, Bn, H in shapes:
+        states = [torch.zeros(Bn, H, 64, 64, device=dev) for _ in range(L)]
+        vecs = step_inputs(g, Bn, H, torch.bfloat16)
+
+        def kernel():
+            for st in states:
+                sp.wkv7_step_packed(st, *vecs, inplace=False)
+
+        def plain():
+            for st in states:
+                sp.wkv7_step_plain(st, *vecs, inplace=False)
+
+        ms, dms = cuda_ms(kernel, reps) / L, device_ms(kernel, "step_kernel", reps, L)
+        plain_ms = cuda_ms(plain, 2) / L
+        bms, by = bound_ms(2 * nbytes(states[0]) + 7 * nbytes(vecs[0]), 7 * Bn * H * 4096,
+                           F32_FLOPS)
+        out[name] = {"B": Bn, "H": H, "device_ms": dms, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bms, "bound_by": by}
+        print(f"wkv7 step: {name} ({Bn}, {H}), f32 carry, bf16 vectors, fresh state, over "
+              f"{L} layers' states: device {dms:.4f} ms a launch, {ms:.4f} ms a launch on "
+              f"events, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    return out
+
+
+def phase_asr_small(dev) -> dict:
+    """Kernels 2 and 7 at the ASR, S2S and two-tower shapes against their
+    plain versions (kernel 2 with a left-padded mask from right_align_pack:
+    v zero at the pads), with their times and bounds; then tiny f32 configs
+    (LM 128 x 2, heads x 10) of both ASR variants, S2S on both heads and the
+    two-tower model, card vs CPU: greedy tokens, and sampled tokens on one
+    set of fed noise, equal, with the exact launch counts; then the Whisper
+    encoder at whisper-large-v3's widths on 1 s (100 mel frames), card vs
+    CPU in f32, TF32 off."""
+    import dataclasses
+
+    from rwkvtts_torch.models import asr, rwkv7, s2s, whisper
+    from rwkvtts_torch.models import tts_two_tower as tt
+    from rwkvtts_torch.ops import sampling, wkv7_cuda
+    from rwkvtts_torch.ops import wkv7_step_packed as sp
+    from rwkvtts_torch.ops.packing import right_align_pack
+    from rwkvtts_torch.ops.wkv7 import wkv7_scan
+
+    out: dict = {"wkv7_fwd_errors": {}, "wkv7_step_errors": {}}
+    g = torch.Generator(device=dev).manual_seed(61)
+    tols = ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))
+    for name, Bn, T, H, _ in ASR_WKV_SHAPES:
+        for dtype, tol in tols:
+            ins, _, _ = wkv_inputs(g, Bn, T, H, dtype)
+            valid = torch.randint(T // 2, T + 1, (Bn,), generator=g, device=dev)
+            right = (torch.arange(T, device=dev)[None] < valid[:, None]).int()
+            _, mask, _ = right_align_pack([(torch.zeros(Bn, T, 1, device=dev), right, None)], T)
+            check(bool((mask.sum(1) == valid).all()) and bool((mask[:, -1] == 1).all()),
+                  f"asr small: right_align_pack's mask at {name}")
+            ins[3] = ins[3] * mask[:, :, None, None].to(dtype)
+            y_k, s_k = wkv7_cuda.wkv7_fwd(*ins, None, None)
+            y_p, s_p = wkv7_scan(*(x.float() for x in ins), None, None)
+            ey, es = rel(y_k, y_p), rel(s_k, s_p)
+            out["wkv7_fwd_errors"][f"{name} {str(dtype)[6:]}"] = {
+                "y_rel": ey, "state_rel": es, "max_abs_err": max_abs(y_k, y_p)}
+            print(f"asr small: kernel 2 {str(dtype)[6:]} {name} ({Bn}, {T}, {H}), left-padded "
+                  f"mask: y rel {ey:.3e}, state rel {es:.3e} (limit {tol:g})")
+            check(ey <= tol and es <= tol, f"asr small: kernel 2 disagrees at {name}")
+    for name, Bn, H in ASR_STEP_SHAPES:
+        for vdt, tol in tols:
+            s0 = 0.1 * torch.randn(Bn, H, 64, 64, generator=g, device=dev)
+            s_k, s_p, ey = s0, s0, 0.0
+            for _ in range(4):
+                vecs = step_inputs(g, Bn, H, vdt)
+                y_k, s_k = sp.wkv7_step_packed(s_k, *vecs, inplace=False)
+                y_p, s_p = sp.wkv7_step_plain(s_p, *vecs, inplace=False)
+                ey = max(ey, rel(y_k, y_p))
+            es = rel(s_k, s_p)
+            out["wkv7_step_errors"][f"{name} {str(vdt)[6:]}"] = {
+                "y_rel": ey, "state_rel": es, "max_abs_err": max_abs(y_k, y_p)}
+            print(f"asr small: kernel 7 {name} ({Bn}, {H}), f32 carry, {str(vdt)[6:]} vectors, "
+                  f"4 chained steps on fresh buffers: y rel {ey:.3e}, state rel {es:.3e} "
+                  f"(limit {tol:g})")
+            check(ey <= tol and es <= 1e-4, f"asr small: kernel 7 disagrees at {name}")
+    out["wkv7_fwd_times"] = wkv7_fwd_times("asr small: kernel 2", shapes=ASR_WKV_SHAPES)
+    out["wkv7_step_times"] = wkv7_step_times(ASR_STEP_SHAPES)
+
+    C, L, Bn, n_new = 128, 2, 4, 8
+    tiny = dict(head_size=64, dtype=torch.float32)
+
+    def ready(params, *towers):
+        """Nonzero lora-in, output and FFN value matrices; heads x 10."""
+        gr = torch.Generator().manual_seed(62)
+        for tower in towers:
+            p = params[tower] if tower else params
+            randomize(p, gr)
+            for head in ("head", "audio_head"):
+                if head in p:
+                    p[head] = 10.0 * p[head]
+        return params
+
+    def card_vs_cpu(what, fn, params, inputs, want_launches, width, modes, **kw):
+        """fn(params, *inputs, **kw) on the card and on the CPU: greedy
+        (temperature 0) and sampled (temperature 1 on one set of noise
+        (n_new, Bn, width)) as `modes` lists."""
+        noise = sampling.gumbel((n_new, Bn, width), torch.Generator().manual_seed(63))
+        for mode in modes:
+            res = {}
+            for where in ("cpu", dev):
+                on = lambda t: t.to(where)
+                p = rwkv7.tree_map(on, params)
+                args = [rwkv7.tree_map(on, x) for x in inputs]
+                draw = (dict(temperature=0.0) if mode == "greedy"
+                        else dict(temperature=1.0, noise=on(noise)))
+                reset_xy_launches()
+                toks, lengths = fn(p, *args, max_new_tokens=n_new, **draw, **kw)
+                res[str(where)] = (toks.cpu(), lengths.cpu(), xy_launches())
+            (t_c, l_c, _), (t_g, l_g, launches) = res["cpu"], res[str(dev)]
+            same = torch.equal(t_c, t_g) and torch.equal(l_c, l_g)
+            print(f"asr small: {what} {mode}, B={Bn}, {n_new} steps: card = CPU {same}; card "
+                  f"launches {launches} (want {want_launches})")
+            check(same, f"asr small: {what} {mode} on the card disagrees with the CPU")
+            check(launches == want_launches, f"asr small: {what} launches {launches}")
+
+    gi = torch.Generator().manual_seed(64)
+    text = (torch.randint(1, 1000, (Bn, 6), generator=gi), torch.ones(Bn, 6, dtype=torch.int32))
+    text[1][0, :2] = 0
+    hints = (torch.randint(1, 1000, (Bn, 2), generator=gi), torch.ones(Bn, 2, dtype=torch.int32))
+    small_whisper = whisper.WhisperEncoderConfig(n_mels=16, d_model=64, layers=1, heads=2,
+                                                 ffn_dim=128)
+    for variant in ("whisper", "discrete"):
+        cfg = asr.default_config(C, L, adapter_layers=1, audio_vocab=64, variant=variant, **tiny)
+        batch = {"text_ids": text[0], "text_mask": text[1], "hints_ids": hints[0],
+                 "hints_mask": hints[1]}
+        if variant == "whisper":
+            cfg = dataclasses.replace(cfg, whisper=small_whisper)
+            batch["mel"] = torch.randn(Bn, 40, 16, generator=gi)
+            batch["mel_mask"] = torch.ones(Bn, 40, dtype=torch.int32)
+            batch["mel_mask"][2, 30:] = 0
+        else:
+            batch["audio_ids"] = torch.randint(0, 64, (Bn, 12), generator=gi)
+            batch["audio_mask"] = torch.ones(Bn, 12, dtype=torch.int32)
+            batch["audio_mask"][2, :3] = 0
+        params = ready(asr.init_params(torch.Generator().manual_seed(65), cfg), "adapter", "llm")
+        card_vs_cpu(f"asr {variant}", lambda p, b, **kw: asr.transcribe(p, cfg, b, **kw), params,
+                    [batch], {"wkv7_fwd": 1 + L, "decode_b64_step": 0, "wkv7_step": L * n_new}, 8,
+                    ("greedy", "sampled"), top_k=8, top_p=0.9)
+
+    cfg = s2s.default_config(C, L, vocab_size=1000, text_vocab=700, audio_vocab=300, **tiny)
+    params = ready(s2s.init_params(torch.Generator().manual_seed(66), cfg), "")
+    ids = torch.randint(0, 1000, (Bn, 10), generator=gi)
+    for is_text, width, kw in ((True, 700, dict(top_k=0, top_p=1.0)),
+                               (False, 50, dict(top_k=50, top_p=0.95))):
+        card_vs_cpu(f"s2s {'text' if is_text else 'audio'} head",
+                    lambda p, x, **k: s2s.generate(p, cfg, x, **k), params, [ids],
+                    {"wkv7_fwd": L, "decode_b64_step": 0, "wkv7_step": L * n_new}, width,
+                    ("greedy", "sampled"), is_text=is_text, eos_id=3, **kw)
+    cfg = tt.default_config(C, 1, C, L, **tiny)
+    params = ready(tt.init_params(torch.Generator().manual_seed(67), cfg), "text_lm", "audio_lm")
+    tmask = torch.ones(Bn, 10, dtype=torch.int32)
+    tmask[1, 7:] = 0  # a short prompt, right-padded as collate_two_tower pads
+    card_vs_cpu("two-tower", lambda p, x, m, **k: tt.generate(p, cfg, x, m, **k), params,
+                [ids, tmask], {"wkv7_fwd": 1 + L, "decode_b64_step": 0, "wkv7_step": L * n_new}, 50,
+                ("sampled",))
+
+    wcfg = whisper.WhisperEncoderConfig(**WHISPER_LARGE_V3)
+    t0 = time.perf_counter()
+    wp = whisper.init_params(torch.Generator(device=dev).manual_seed(68), wcfg)
+    mel = torch.randn(1, 100, wcfg.n_mels, generator=torch.Generator().manual_seed(69))
+    enc_g = whisper.apply(wp, wcfg, mel.to(dev)).cpu()
+    enc_c = whisper.apply(rwkv7.tree_map(lambda t: t.cpu(), wp), wcfg, mel)
+    e = rel(enc_g, enc_c)
+    out["whisper_large_v3_1s"] = {"rel": e, "max_abs_err": max_abs(enc_g, enc_c),
+                                  "shape": list(enc_g.shape)}
+    print(f"asr small: Whisper encoder at whisper-large-v3's widths, 1 s (100 mel frames): out "
+          f"{tuple(enc_g.shape)}, card vs CPU f32 rel {e:.3e} (limit 1e-4); "
+          f"{time.perf_counter() - t0:.1f} s with the init and the CPU run")
+    check(enc_g.shape == (1, 50, wcfg.d_model) and e <= 1e-4,
+          "asr small: the Whisper encoder on the card disagrees with the CPU")
+    return out
+
+
+def _bf16_matrices(tree):
+    """The JAX bench's cast: every leaf of 2 or more dimensions to bf16."""
+    from rwkvtts_torch.models import rwkv7
+
+    return rwkv7.tree_map(lambda t: t.to(torch.bfloat16) if t.ndim >= 2 else t, tree)
+
+
+def _timed(fn):
+    """(result, wall seconds) of fn() up to a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def phase_asr_main(dev, card: str) -> dict:
+    """The paths asr-0.4B-whisper-large-v3, s2s-0.4B-b32 and
+    two-tower-0.4B-b16 (benchmarks/bench_families_scale.py's definitions,
+    random weights from seed 0, matrices bf16): one warm-up call and two
+    timed calls each. ASR: x realtime and RTF over the 240 audio seconds,
+    the encoder, adapter, LLM prefill and decode ms (from calls of the
+    stages alone), peak memory; S2S and two-tower: tok/s. Exact launch
+    counts of kernels 2 and 7 on every timed call."""
+    import dataclasses
+
+    from rwkvtts_torch.models import asr, rwkv7, s2s, whisper
+    from rwkvtts_torch.models import tts_two_tower as tt
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    L, A = ASR_L, ASR_ADAPTER_L
+
+    # asr-0.4B-whisper-large-v3
+    cfg = dataclasses.replace(asr.default_config(ASR_C, ASR_L, adapter_layers=A),
+                              whisper=whisper.WhisperEncoderConfig(**WHISPER_LARGE_V3))
+    t0 = time.perf_counter()
+    params = _bf16_matrices(asr.init_params(torch.Generator(device=dev).manual_seed(0), cfg))
+    n_params = {k: sum(t.numel() for t in _leaves(v)) for k, v in params.items()}
+    T_mel = int(ASR_SECONDS * 100)
+    batch = {"mel": torch.randn(ASR_B, T_mel, cfg.whisper.n_mels,
+                                generator=torch.Generator().manual_seed(0)).to(dev),
+             "mel_mask": torch.ones(ASR_B, T_mel, dtype=torch.int32, device=dev),
+             "text_ids": torch.ones(ASR_B, ASR_INSTR, dtype=torch.long, device=dev),
+             "text_mask": torch.ones(ASR_B, ASR_INSTR, dtype=torch.int32, device=dev),
+             "hints_ids": torch.ones(ASR_B, ASR_HINTS, dtype=torch.long, device=dev),
+             "hints_mask": torch.ones(ASR_B, ASR_HINTS, dtype=torch.int32, device=dev)}
+    torch.cuda.synchronize()
+    print(f"asr main: ASR LLM {ASR_C} x {L}, adapter {ASR_C} x {A}, whisper-large-v3 encoder "
+          f"({n_params}) random, matrices bf16, built in {time.perf_counter() - t0:.1f} s")
+    run = lambda: asr.transcribe(params, cfg, batch, max_new_tokens=ASR_NEW)
+    run()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    walls, launches = [], []
+    for _ in range(2):
+        reset_xy_launches()
+        (toks, lengths), s = _timed(run)
+        walls.append(s)
+        launches.append(xy_launches())
+    peak = torch.cuda.max_memory_allocated()
+    with torch.inference_mode():
+        _, enc_s = _timed(lambda: whisper.apply(params["whisper"], cfg.whisper, batch["mel"],
+                                                batch["mel_mask"]))
+        _, aud_s = _timed(lambda: asr.audio_embeds(params, cfg, batch))
+        def prefill():  # the audio tower, the pack and the LLM's prefill
+            packed, mask, _ = asr._prompt(params, cfg, batch)
+            return rwkv7.forward(params["llm"], cfg.llm, inputs_embeds=packed,
+                                 attention_mask=mask, return_state=True)
+
+        _, pre_s = _timed(prefill)
+    wall = sum(walls) / len(walls)
+    audio_s = ASR_B * ASR_SECONDS
+    want = {"wkv7_fwd": A + L, "decode_b64_step": 0, "wkv7_step": L * ASR_NEW}
+    r = {"B": ASR_B, "audio_s": audio_s, "walls_s": walls, "x_realtime": audio_s / wall,
+         "rtf": wall / audio_s, "encoder_ms": 1e3 * enc_s, "adapter_ms": 1e3 * (aud_s - enc_s),
+         "llm_prefill_ms": 1e3 * (pre_s - aud_s),
+         "decode_ms": 1e3 * (wall - pre_s), "decode_ms_a_step": 1e3 * (wall - pre_s) / ASR_NEW,
+         "launches": launches[-1], "peak_gib": peak / 2**30,
+         "peak_over_start_gib": (peak - start_bytes) / 2**30}
+    out["asr-0.4B-whisper-large-v3"] = r
+    print(f"asr main: asr-0.4B-whisper-large-v3: B={ASR_B} x {ASR_SECONDS:.0f} s, "
+          f"{ASR_INSTR} + {T_mel // 2} + {ASR_HINTS} prompt positions, {ASR_NEW} greedy tokens: "
+          f"{', '.join(f'{w:.4f}' for w in walls)} s a call, {r['x_realtime']:.1f} x realtime, "
+          f"RTF {r['rtf']:.5f} on {card}; stages alone: encoder {r['encoder_ms']:.2f} ms, "
+          f"adapter {r['adapter_ms']:.2f} ms, LLM prefill {r['llm_prefill_ms']:.2f} ms, decode "
+          f"(the call's rest) {r['decode_ms']:.2f} ms ({r['decode_ms_a_step']:.2f} ms a step); "
+          f"launches {launches} (want {want} each); peak memory {peak / 2**30:.2f} GiB, "
+          f"{(peak - start_bytes) / 2**30:.2f} over what the run started with")
+    check(all(x == want for x in launches), f"asr main: launches {launches}, want {want}")
+    check(toks.shape == (ASR_B, ASR_NEW) and bool(((toks >= 0) & (toks < 65536)).all())
+          and bool(((lengths >= 0) & (lengths <= ASR_NEW)).all()),
+          f"asr main: tokens {tuple(toks.shape)}, lengths {lengths.tolist()}")
+    del params, batch
+    torch.cuda.empty_cache()
+
+    # s2s-0.4B-b32 and two-tower-0.4B-b16
+    for path, Bn in (("s2s-0.4B-b32", S2S_B), ("two-tower-0.4B-b16", TT_B)):
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev).manual_seed(0)
+        if path.startswith("s2s"):
+            cfg = s2s.default_config(ASR_C, ASR_L)
+            params, towers = _bf16_matrices(s2s.init_params(g, cfg)), 1
+            vocab = cfg.audio_vocab_size
+            gen = lambda n, seed: s2s.generate(
+                params, cfg, ids, is_text=False, max_new_tokens=n, top_k=50, top_p=0.95,
+                eos_id=-1, generator=torch.Generator(device=dev).manual_seed(seed))
+        else:
+            cfg = tt.default_config(ASR_C, ASR_L, ASR_C, ASR_L)
+            params, towers = _bf16_matrices(tt.init_params(g, cfg)), 2
+            vocab = tt.AUDIO_VOCAB
+            gen = lambda n, seed: tt.generate(
+                params, cfg, ids, mask, max_new_tokens=n,
+                generator=torch.Generator(device=dev).manual_seed(seed))
+        ids = torch.randint(100, 60000, (Bn, S2S_PROMPT),
+                            generator=torch.Generator().manual_seed(1)).to(dev)
+        mask = torch.ones(Bn, S2S_PROMPT, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        print(f"asr main: {path}: {towers} x {ASR_C} x {ASR_L} random, matrices bf16, built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        gen(ASR_WARM_NEW, 2)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        start_bytes = torch.cuda.memory_allocated()
+        walls, launches = [], []
+        for i in range(2):
+            reset_xy_launches()
+            (toks, lengths), s = _timed(lambda: gen(S2S_NEW, 3 + i))
+            walls.append(s)
+            launches.append(xy_launches())
+        peak = torch.cuda.max_memory_allocated()
+        wall = sum(walls) / len(walls)
+        want = {"wkv7_fwd": towers * L, "decode_b64_step": 0, "wkv7_step": L * S2S_NEW}
+        r = {"B": Bn, "walls_s": walls, "tok_per_s": Bn * S2S_NEW / wall,
+             "ms_a_step": 1e3 * wall / S2S_NEW, "launches": launches[-1],
+             "peak_gib": peak / 2**30, "peak_over_start_gib": (peak - start_bytes) / 2**30}
+        out[path] = r
+        print(f"asr main: {path}: B={Bn}, {S2S_PROMPT} + {S2S_NEW} tokens at top-k 50 / top-p "
+              f"0.95: {', '.join(f'{w:.4f}' for w in walls)} s a call, {r['tok_per_s']:.1f} "
+              f"tok/s, {r['ms_a_step']:.2f} ms a step (prefill and sampling in) on {card}; "
+              f"launches {launches} (want {want} each); peak memory {peak / 2**30:.2f} GiB, "
+              f"{(peak - start_bytes) / 2**30:.2f} over what the run started with")
+        check(all(x == want for x in launches), f"asr main: {path} launches {launches}")
+        check(toks.shape == (Bn, S2S_NEW) and bool(((toks >= 0) & (toks < vocab)).all()),
+              f"asr main: {path} tokens {tuple(toks.shape)} out of [0, {vocab})")
+        del params
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"asr main: the phase took {out['phase_s']:.1f} s")
+    return out
+
+
+def asr_of_tree(what: str = "asr") -> dict:
+    """Phases 26-27 alone (the ASR, S2S and two-tower slice small on card vs
+    CPU with kernels 2 and 7 at its shapes, then its paths at full width)
+    with whichever rwkvtts_torch is imported, TF32 off; prints their
+    numbers as one JSON line."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(card)
+    out = {"small": phase_asr_small(dev), "main": phase_asr_main(dev, card)}
+    print(f"{what}: " + json.dumps(out))
+    return out
+
+
 def build_log(log: str) -> None:
     """Print ptxas's registers, shared memory and spills of every kernel,
     and fail if a chunked WKV7 kernel (forward, backward, fused pair)
@@ -3828,6 +4227,8 @@ def main() -> None:
     cs_run = run(phase_cosy_serve_main, dev, card)
     run(phase_xy_small, dev)
     xy_run = run(phase_xy_main, dev, card)
+    asr_small = run(phase_asr_small, dev)
+    asr_run = run(phase_asr_main, dev, card)
 
     rows["wkv7_fwd"]["launches"] = main_run["launches"]["wkv7_fwd"]
     rows["wkv7_fwd"]["train_forward"] = train_fwd  # its training-shape numbers, unfused path
@@ -3859,6 +4260,12 @@ def main() -> None:
         "decode_b64_step"]
     rows["wkv7_step"]["launches_xy_b8"] = xy_paths["xy-0.4B-b8"]["launches"]["wkv7_step"]
     rows["wkv7_step"]["launches_xy_synthesize"] = xy_run["synthesize"]["launches"]["wkv7_step"]
+    for key, path in (("launches_asr", "asr-0.4B-whisper-large-v3"),
+                      ("launches_s2s", "s2s-0.4B-b32"), ("launches_two_tower", "two-tower-0.4B-b16")):
+        rows["wkv7_fwd"][key] = asr_run[path]["launches"]["wkv7_fwd"]
+        rows["wkv7_step"][key] = asr_run[path]["launches"]["wkv7_step"]
+    rows["wkv7_fwd"]["by_shape"].update(asr_small["wkv7_fwd_times"])
+    rows["wkv7_step"]["asr_s2s_two_tower"] = asr_small["wkv7_step_times"]
     print("train: " + json.dumps({k: v for k, v in train_run.items()
                                   if k not in ("launches", "unfused")}))
     print("cosy: " + json.dumps({k: v for k, v in cosy_run.items() if k != "launches"}))
@@ -3868,6 +4275,7 @@ def main() -> None:
     print("cosy b64: " + json.dumps({k: v for k, v in b64_run.items() if k != "by_kernel"}))
     print("cosy serve: " + json.dumps({k: v for k, v in cs_run.items() if k != "launches"}))
     print("xy: " + json.dumps(xy_run))
+    print("asr: " + json.dumps({"small": asr_small, "main": asr_run}))
     seconds["total"] = round(time.perf_counter() - t_start, 1)
     print("phase seconds: " + json.dumps(seconds))
     print(json.dumps({"kernels": [rows[k] for k in ("wkv7_fwd", "decode_b64_step", "wkv7_bwd",

@@ -1,9 +1,9 @@
 """Bridge between the JAX package's arrays and the port's tensors, in numpy
 (no JAX import): parameters name for name (both ways), the flow, HiFT,
-S3 tokenizer, CAM++, BiCodec, XY_Tokenizer and Higgs trees with their
-convolution weights in PyTorch's layout, the default optimizer's Adam moments, and the decode
-states (B=64 and B=1) between the TPU kernels' layouts and the port's
-natural one.
+S3 tokenizer, CAM++, BiCodec, XY_Tokenizer, Higgs and Whisper (ASR) trees
+with their convolution weights in PyTorch's layout, the default
+optimizer's Adam moments, and the decode states (B=64 and B=1) between the
+TPU kernels' layouts and the port's natural one.
 
 Parameter trees have the same names and shapes in both packages, so
 ``params_from_numpy`` copies leaf by leaf. The JAX decode-step state
@@ -137,6 +137,24 @@ def higgs_params_from_numpy(tree, device=None):
     """A JAX Higgs tree (rwkvtts_tpu/codecs/higgs.py) -> the port's: the
     decoder blocks' "up" are its transposed convolutions."""
     return codec_params_from_numpy(tree, device, ("up",))
+
+
+def asr_params_from_numpy(tree, device=None):
+    """A JAX ASR tree (rwkvtts_tpu/models/asr.py) -> the port's: the Whisper
+    tower's two convolutions go to Conv1d's layout (its transformer layers
+    are linears and norms, kept), the adapter, LLM and projectors name for
+    name."""
+    out = {k: params_from_numpy(v, device) for k, v in tree.items() if k != "whisper"}
+    if "whisper" in tree:
+        out["whisper"] = codec_params_from_numpy(tree["whisper"], device)
+    return out
+
+
+# The S2S tree (rwkvtts_tpu/models/s2s.py: the backbone with its [text |
+# audio] embedding, `head` and `audio_head`) and the two-tower tree
+# (rwkvtts_tpu/models/tts_two_tower.py: `text_lm`, `projector`, `audio_lm`)
+# hold no convolution: they convert name for name.
+s2s_params_from_numpy = two_tower_params_from_numpy = params_from_numpy
 
 
 def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:

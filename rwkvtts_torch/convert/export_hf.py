@@ -1,6 +1,6 @@
 """Export the port's parameter trees to fla-HF-named checkpoints
-(counterpart of rwkvtts_tpu/convert/export_hf.py; the Spark, Cosy and XY
-exports).
+(counterpart of rwkvtts_tpu/convert/export_hf.py; the Spark, Cosy, XY
+and ASR exports).
 
 The key naming is the exact inverse of ``convert/rwkv7_ckpt.fla_to_rwkv7``,
 and ``model.safetensors`` is written without the `safetensors` package:
@@ -69,9 +69,9 @@ def rwkv7_to_fla(params: Params, cfg) -> Dict[str, np.ndarray]:
     out["model.layers.0.pre_norm.bias"] = np.asarray(params["ln0_bias"], np.float32)
     out["model.norm.weight"] = np.asarray(params["ln_out_scale"], np.float32)
     out["model.norm.bias"] = np.asarray(params["ln_out_bias"], np.float32)
-    if "embedding" in params:
+    if getattr(cfg, "with_embedding", True) and "embedding" in params:
         out["model.embeddings.weight"] = np.asarray(params["embedding"], np.float32)
-    if "head" in params:
+    if getattr(cfg, "with_head", True) and "head" in params:
         out["lm_head.weight"] = T(params["head"])
     return out
 
@@ -96,6 +96,25 @@ def cosy_to_fla(params: Params, cfg) -> Dict[str, np.ndarray]:
     sd["lm_head.weight"] = np.ascontiguousarray(np.asarray(params["head"], np.float32).T)
     if "head_bias" in params:
         sd["lm_head.bias"] = np.asarray(params["head_bias"], np.float32)
+    return sd
+
+
+def asr_to_fla(params: Params, cfg) -> Dict[str, np.ndarray]:
+    """ASR model -> one state_dict: the adapter under `audio_lm.` (with the
+    discrete variant's embedding), the LLM under `llm.`, the projector(s)
+    as torch Linears. The Whisper tower is not exported: it is reloaded
+    from its own HF checkpoint (``models/whisper.from_hf_state_dict``), as
+    the reference's export does."""
+    T = lambda x: np.ascontiguousarray(bridge.to_numpy(x).astype(np.float32).T)
+    sd: Dict[str, np.ndarray] = {}
+    for k, v in rwkv7_to_fla(params["adapter"], cfg.adapter).items():
+        sd[f"audio_lm.{k}"] = v
+    for k, v in rwkv7_to_fla(params["llm"], cfg.llm).items():
+        sd[f"llm.{k}"] = v
+    for name in ("projector", "projector1"):
+        if name in params:
+            sd[f"{name}.weight"] = T(params[name]["w"])
+            sd[f"{name}.bias"] = bridge.to_numpy(params[name]["b"]).astype(np.float32)
     return sd
 
 
@@ -141,7 +160,7 @@ def save_safetensors(sd: Mapping[str, np.ndarray], path: str, metadata=None) -> 
 
 def save_pretrained(params: Params, cfg, out_dir: str, kind: str = "spark") -> str:
     """Write <out_dir>/model.safetensors + config.json (HF-dir layout) of a
-    Spark, a Cosy or an XY speech LM."""
+    Spark, a Cosy or an XY speech LM, or an ASR model (kind "asr")."""
     if kind == "spark":
         sd = spark_to_fla(params, cfg)
         config = {
@@ -176,9 +195,20 @@ def save_pretrained(params: Params, cfg, out_dir: str, kind: str = "spark") -> s
             "speech_vocab_size": cfg.speech_vocab_size,
             "text_shift_size": cfg.text_shift_size,
         }
+    elif kind == "asr":
+        sd = asr_to_fla(params, cfg)
+        config = {
+            "model_type": "rwkv7",
+            "architectures": ["RWKV7ASRModel"],
+            "hidden_size": cfg.llm.hidden_size,
+            "num_hidden_layers": cfg.llm.num_layers,
+            "adapter_hidden_size": cfg.adapter.hidden_size,
+            "adapter_num_layers": cfg.adapter.num_layers,
+            "variant": cfg.variant,
+        }
     else:
         raise NotImplementedError(f"save_pretrained: kind {kind!r} is not ported yet "
-                                  "(the port exports Spark, Cosy and XY)")
+                                  "(the port exports Spark, Cosy, XY and ASR)")
     os.makedirs(out_dir, exist_ok=True)
     save_safetensors(sd, os.path.join(out_dir, "model.safetensors"))
     with open(os.path.join(out_dir, "config.json"), "w") as f:

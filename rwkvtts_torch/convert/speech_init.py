@@ -1,6 +1,7 @@
 """Pretrained speech checkpoints -> the port's parameter trees (counterpart
-of rwkvtts_tpu/convert/speech_init.py; the Spark, Cosy and XY loaders, and
-XY's init from a text RWKV-7)."""
+of rwkvtts_tpu/convert/speech_init.py; the Spark, Cosy, XY and ASR
+loaders, XY's init from a text RWKV-7, and the S2S vocabulary
+enlargement)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Mapping, Optional
@@ -45,6 +46,42 @@ def xy_from_pretrained_sd(sd: Mapping[str, np.ndarray], cfg) -> Params:
     p["embs"] = {str(i): np.asarray(sd[f"embs.{i}.weight"]) for i in range(cfg.num_channels)}
     p["heads"] = {str(i): np.ascontiguousarray(np.asarray(sd[f"heads.{i}.weight"]).T)
                   for i in range(cfg.num_channels)}
+    return p
+
+
+def asr_from_pretrained_sd(sd: Mapping[str, np.ndarray], cfg) -> Params:
+    """An ASR export (``convert/export_hf.asr_to_fla``'s layout) -> ASR params
+    (numpy) without the Whisper tower, which loads from its own HF
+    checkpoint (``models/whisper.from_hf_state_dict``), the reference's
+    deployment contract (utils/export_rwkv_asr_audio_lm.py:26-44)."""
+    linear = lambda name: {"w": np.ascontiguousarray(np.asarray(sd[f"{name}.weight"]).T),
+                           "b": np.asarray(sd[f"{name}.bias"])}
+    p: Params = {
+        "adapter": rwkv7_ckpt.fla_to_rwkv7(sd, cfg.adapter, prefix="audio_lm."),
+        "llm": rwkv7_ckpt.fla_to_rwkv7(sd, cfg.llm, prefix="llm."),
+        "projector": linear("projector"),
+    }
+    if "projector1.weight" in sd:
+        p["projector1"] = linear("projector1")
+    return p
+
+
+def s2s_enlarge_vocab(text_sd_blinkdl: Mapping[str, np.ndarray], cfg,
+                      rng: Optional[np.random.Generator] = None) -> Params:
+    """A BlinkDL text RWKV-7 -> S2S params (numpy), the reference's
+    utils/enlarge_rwkv_vocab_for_s2s.py: the embedding is [text | audio],
+    the audio rows normal at the text rows' std; the text head is the text
+    model's, the audio head normal of std 1/sqrt(C) (both drawn from `rng`,
+    the rows first)."""
+    rng = rng or np.random.default_rng(0)
+    p = rwkv7_ckpt.blinkdl_to_rwkv7(text_sd_blinkdl, cfg.backbone)
+    emb = np.asarray(text_sd_blinkdl["emb.weight"])
+    C = emb.shape[1]
+    V_audio = cfg.audio_vocab_size
+    audio_rows = rng.normal(0, float(emb.std()), (V_audio, C)).astype(np.float32)
+    p["embedding"] = np.concatenate([emb, audio_rows], 0)
+    p["head"] = np.ascontiguousarray(np.asarray(text_sd_blinkdl["head.weight"]).T)
+    p["audio_head"] = rng.normal(0, 1 / np.sqrt(C), (C, V_audio)).astype(np.float32)
     return p
 
 

@@ -9,7 +9,9 @@ kernel (``cosy_prefill_carry`` + ``cosy_decode_chunk``, the streaming
 path's chunks, and ``cosy_generate``), and Cosy B=64 batched generation
 through the B=64 whole-step kernel (``cosy_generate_mega_b64``); XY
 8-channel generation with its staggered flush automaton on either the
-model's decode step or the B=64 whole-step kernel (``xy_generate``).
+model's decode step or the B=64 whole-step kernel (``xy_generate``); the
+plain latched decode of the ASR, S2S and two-tower families
+(``latched_decode``).
 
 Prefill runs the full-sequence model (the WKV7 kernel on a card), the
 state is packed for the decode step, then every step is: head product
@@ -45,6 +47,40 @@ def _eos_lengths(out: torch.Tensor, eos: int, max_new_tokens: int) -> torch.Tens
     """Each row's length: the index of its first EOS, or max_new_tokens."""
     is_eos = out == eos
     return torch.where(is_eos.any(-1), torch.argmax(is_eos.int(), -1), max_new_tokens)
+
+
+@torch.inference_mode()
+def latched_decode(
+    views, cfg: rwkv7.RWKV7Config, h: torch.Tensor, state, head: torch.Tensor, embed,
+    eos: int, n: int, *,
+    temperature: float = 1.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`n` steps of ``rwkv7.decode_step`` from a prefilled h (B, C) and a
+    packed state, each: logits = h @ head (f32), the draw (greedy at
+    temperature 0, otherwise ``sampling.sample`` on `noise[i]` or
+    `generator`), the EOS latch (a finished row repeats `eos`),
+    `embed(tok)` -> the step, the last step's included. The ASR, S2S and
+    two-tower families decode through it. Returns (toks (B, n), lengths
+    (B,))."""
+    done = torch.zeros(h.shape[0], dtype=torch.bool, device=h.device)
+    toks = []
+    for i in range(n):
+        logits = (h @ head).float()
+        if temperature <= 0.0:
+            tok = torch.argmax(logits, -1)
+        else:
+            tok = sampling.sample(logits, temperature=temperature, top_k=top_k, top_p=top_p,
+                                  noise=None if noise is None else noise[i], generator=generator)
+        tok = torch.where(done, eos, tok)
+        done = done | (tok == eos)
+        toks.append(tok)
+        h, state = rwkv7.decode_step(views, cfg, embed(tok), state)
+    out = torch.stack(toks, 1)
+    return out, _eos_lengths(out, eos, n)
 
 
 @torch.inference_mode()

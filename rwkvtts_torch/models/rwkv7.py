@@ -62,6 +62,11 @@ class RWKV7Config:
     # decode: carry the WKV state in bf16 between steps (the step runs in
     # f32 and casts at the carry boundary)
     decode_state_bf16: bool = False
+    # the tree holds the lm head / the input embedding; a tower fed
+    # inputs_embeds (the ASR adapter) or read by heads of its own model
+    # (S2S, the two-tower text tower) goes without
+    with_head: bool = True
+    with_embedding: bool = True
 
     @property
     def num_heads(self) -> int:
@@ -199,8 +204,9 @@ def init_params(g: torch.Generator, cfg: RWKV7Config) -> Params:
         "ln_out_scale": ones(), "ln_out_bias": zeros(),
     }
     V = cfg.vocab_size
-    if V:  # a model with tables of its own (Cosy) sets vocab_size 0
+    if V and cfg.with_embedding:  # a model with tables of its own (Cosy) sets vocab_size 0
         params["embedding"] = (torch.rand(V, C, generator=g, device=dev) * 2 - 1) * 1e-4
+    if V and cfg.with_head:
         params["head"] = _orthogonal(g, (C, V), 0.5 * math.sqrt(V / C) if V > C else 0.5)
     return params
 
@@ -331,8 +337,12 @@ def forward(
     state]; the layers run as a Python loop over the stacked parameters.
     No state means a zero one. In grad mode each block runs under
     ``torch.utils.checkpoint`` (the JAX package's default full per-block
-    remat): the backward replays it instead of keeping its activations."""
+    remat): the backward replays it instead of keeping its activations.
+    A tower without an embedding (``with_embedding=False``) takes only
+    inputs_embeds."""
     if inputs_embeds is None:
+        if "embedding" not in params:
+            raise ValueError("rwkv7.forward: this tower has no embedding; pass inputs_embeds")
         inputs_embeds = params["embedding"][input_ids]
     x = inputs_embeds.to(cfg.dtype)
     x = layer_norm(x, params["ln0_scale"], params["ln0_bias"], cfg.norm_eps)
