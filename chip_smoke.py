@@ -33,7 +33,10 @@ both backbone routes (``benchmarks/bench_families_scale.py``'s XY cell),
 the Higgs codec; then the ASR, S2S and two-tower families:
 ``asr.transcribe`` with the whisper-large-v3 encoder into a 1024 x 24 LLM,
 ``s2s.generate`` and ``tts_two_tower.generate`` at 1024 x 24
-(``benchmarks/bench_families_scale.py``'s cells).
+(``benchmarks/bench_families_scale.py``'s cells); then every training task of
+the train CLI at its family's width (Spark with properties and global
+tokens, Cosy at 2048, XY, ASR with the whisper-large-v3 encoder frozen,
+S2S, two-tower, the SFM flow, Spark 1.4B with adafactor).
 
 Phases, each printing its own lines; any failure raises, so the run exits
 non-zero and prints no result:
@@ -203,6 +206,31 @@ non-zero and prints no result:
              two-tower-0.4B-b16 (B = 16, 64 + 256 tokens: tok/s, 48 and 6,144)
              (benchmarks/bench_families_scale.py:29-70, 157-220; random
              weights, matrices bf16; a warm-up and two timed calls each)
+ 28. train tasks small  kernels 4-5 vs wkv7_fused_plain at the train tasks'
+             shapes: Cosy (8, 2048, 32), the ASR adapter (8, 1500, 16) with a
+             right-padded mask, the ASR LLM's packed (8, 1584, 16) and the
+             two-tower audio tower's (8, 2176, 16) with left-padded masks
+             (v zero at the pads; bf16 2e-2, and f32 1e-4 at the ASR shapes),
+             two calls bit-identical, saving / primal / backward device ms, the
+             plain version's ms at the Cosy shape, the bounds;
+             then each of the nine tasks of the train CLI at LM 128 x 2 f32
+             (FlowConfig(sfm=True) for sfm_flow, its draws fixed;
+             spark_global on the unfused pair, kernels 2-3): one train step on
+             the card vs the CPU (loss 1e-4, grad norm 1e-3), 2 L / L
+             launches of the pair a step a stack
+ 29. train tasks main  each task through train.cli.main (asr through
+             Trainer) at its family's width, random weights from seed 0, one
+             warm-up and 3 timed steps (5 steps through the CLI: its metrics
+             read of a step waits for the next): spark_properties 1024 x 24 (4 rows, 8
+             sequences x 2048), spark_global (64 x 128), cosy 2048 x 24 (8 x
+             2048, prompt drop 0.5), xy, s2s (audio and text batches in turn) and
+             tts_two_tower (128 + 2048) at 1024 x 24, asr-0.4B with the
+             whisper-large-v3 encoder (8 x 30 s, 16 + 4 + 64 tokens), sfm_flow
+             (8 x 250 tokens), spark 2048 x 24 with adafactor (2 x 2048); then
+             one mu_bf16 step at 1024 x 24: finite losses, none skipped, the
+             first loss within 0.5 of ln(vocabulary) (one head), exact fused
+             launches (ASR 60 / 30, two-tower 96 / 48, sfm_flow 0 a step), the
+             Whisper leaves bit-identical; ms a step, positions/s, peak memory
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -293,6 +321,13 @@ BF16_TC_FLOPS = 989e12
 TF32_TC_FLOPS = 495e12
 
 
+# host seconds before and after the launches inside a retried profiler session
+PROFILE_PAD_S = 0.05
+# clock cycles of the sleeping kernel queued_ms puts before its window (~10 ms
+# on an H100 at 1.98 GHz; the host issues a few calls in well under 1 ms)
+QUEUE_SLEEP_CYCLES = 20_000_000
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BPS, flops / peak_flops
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
@@ -329,29 +364,39 @@ def cuda_ms(fn, reps: int) -> float:
 def device_ms(fn, kernel: str, reps: int, per_call: int) -> float:
     """Device milliseconds of the kernels whose name holds `kernel`, a
     launch, over `reps` calls of fn (each launching it `per_call` times),
-    from torch.profiler, after one warm call. A profiler run late in a
-    process can drop a few events, so the mean is over those it kept; a
-    session that kept under half of them (the profiler lost them: seen
-    once, 1 of 120) is run again, at most twice more."""
+    from torch.profiler, after one warm call. Late in a long process a
+    short session can keep none of its launches; a session that kept under
+    half of them is run again, at most twice more, with PROFILE_PAD_S of
+    host time before the launches and after the synchronize inside the
+    session, so that device times a few milliseconds off the host's window
+    still fall inside it. Each session that kept too few says how many
+    device records it kept in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     want = reps * per_call
     for attempt in range(3):
+        pad = PROFILE_PAD_S if attempt else 0.0
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        t, n = 0.0, 0
+            time.sleep(pad)
+        t, n, n_all = 0.0, 0, 0
         for name, (us, c) in kernel_totals(prof).items():
+            n_all += c
             if kernel in name:
                 t, n = t + us, n + c
         check(n <= want, f"profiled {n} launches of {kernel}, more than the {want} issued")
         if n >= 0.5 * want:
+            if attempt:
+                print(f"device_ms: a session padded by {pad} s kept {n} of {want} launches "
+                      f"of {kernel}")
             return t / 1e3 / n
-        print(f"device_ms: the profiler kept {n} of {want} launches of {kernel} "
-              f"(session {attempt + 1} of 3)")
+        print(f"device_ms: the profiler kept {n} of {want} launches of {kernel} and {n_all} "
+              f"device records in all (session {attempt + 1} of 3, padded by {pad} s)")
     check(False, f"profiled {n} launches of {kernel}, want {want}")
 
 
@@ -485,7 +530,7 @@ def wkv7_fwd_times(what: str = "wkv7 fwd", reps: int = 20, shapes=WKV_FWD_SHAPES
         if saving:
             x = [t.detach().clone().requires_grad_() for t in ins]
             fn = lambda: wkv7_cuda.wkv7(*x)
-            moved = train_shape_bytes(ins, 7, T)
+            moved = train_shape_bytes(ins, 7)
         else:
             state = torch.zeros(Bn, H, 64, 64, device=dev)
             fn = lambda: wkv7_cuda.wkv7_fwd(*ins, state, None)
@@ -898,14 +943,15 @@ def time_fwd_bwd(fn, diff, rest, reps: int):
     return fwd, bwd
 
 
-def train_shape_bytes(seq, n_seq: int, T: int) -> int:
+def train_shape_bytes(seq, n_seq: int, entry_states: bool = True) -> int:
     """Bytes one training-shape WKV7 call must move: n_seq sequence tensors
-    like seq[0] (inputs, outputs, upstream gradients), the f32 chunk-entry
-    states every 16 steps, and the initial or final state. The port's own
-    per-step saves (sa, xhat, stats) are not counted: the function does not
-    need them."""
-    entry = TRAIN_B * TRAIN_H * 4096 * 4
-    return n_seq * seq[0].numel() * seq[0].element_size() + (-(-T // 16) + 1) * entry
+    like seq[0], (B, T, H, 64) (inputs, outputs, upstream gradients), the
+    f32 chunk-entry states every 16 steps where the call writes or reads
+    them, and the initial or final state. The port's own per-step saves
+    (sa, xhat, stats) are not counted: the function does not need them."""
+    Bn, T, H, _ = seq[0].shape
+    states = -(-T // 16) + 1 if entry_states else 1
+    return n_seq * seq[0].numel() * seq[0].element_size() + states * Bn * H * 4096 * 4
 
 
 def phase_wkv7_train(dev) -> tuple[dict, dict]:
@@ -957,8 +1003,8 @@ def phase_wkv7_train(dev) -> tuple[dict, dict]:
     # step-by-step form's count, kept so that the rows stay comparable),
     # reading 6 sequences, dy and the entry states, writing 6 gradients;
     # TF32 on the tensor cores, as both kernels compute
-    f_bound = bound_ms(train_shape_bytes(ins, 7, TRAIN_T), 9 * 4096 * steps, TF32_TC_FLOPS)
-    b_bound = bound_ms(train_shape_bytes(ins, 13, TRAIN_T), 22 * 4096 * steps, TF32_TC_FLOPS)
+    f_bound = bound_ms(train_shape_bytes(ins, 7), 9 * 4096 * steps, TF32_TC_FLOPS)
+    b_bound = bound_ms(train_shape_bytes(ins, 13), 22 * 4096 * steps, TF32_TC_FLOPS)
     print(f"wkv7 train: bf16 ({TRAIN_B}, {TRAIN_T}, {TRAIN_H}): forward {fwd:.4f} ms, "
           f"backward {bwd:.4f} ms; plain {p_fwd:.4f} / {p_bwd:.4f} ms; bounds "
           f"{f_bound[0]:.4f} ({f_bound[1]}) / {b_bound[0]:.4f} ms ({b_bound[1]})")
@@ -1037,16 +1083,61 @@ def chunk_kernel_bits(dev) -> dict:
     return out
 
 
-def fused_times(seq, prm, reps: int = 5) -> dict:
-    """Milliseconds of wkv7_fused on the card (CUDA events): the forward
-    that saves for the backward, the primal forward (no gradient) and the
-    backward (autograd.grad over a retained graph)."""
+def queued_ms(fn, reps: int) -> float:
+    """Mean device milliseconds a call of fn after one warm call: CUDA
+    events around `reps` calls enqueued behind a sleeping kernel
+    (QUEUE_SLEEP_CYCLES), so the card runs the calls' kernels back to back
+    and the window holds none of the host's time. Fails if the card
+    reached the window before the host had issued every call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    check(not start.query(), "queued_ms: the sleep ended before every call was issued")
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def fused_times(seq, prm, reps: int = 5, device: bool = False) -> dict:
+    """Milliseconds of wkv7_fused on the card: the forward that saves for
+    the backward (`fwd_save`), the primal forward under no_grad
+    (`fwd_primal`) and the backward (`bwd`: autograd.grad over a retained
+    graph, dy and the zero final-state gradient made before). On CUDA
+    events around the calls (`<name>_ms`, the host's time in where it is
+    longer); with `device`, on CUDA events behind a queued sleep
+    (`<name>_device_ms`, queued_ms), the calls checked to launch their
+    kernel once each and no other kernel of wkv7_cuda (the backward's
+    window also holds the wrapper's sum of the per-head gradients over the
+    batch, one small reduction)."""
     from rwkvtts_torch.ops import wkv7_cuda
 
-    fwd, bwd = time_fwd_bwd(wkv7_cuda.wkv7_fused, seq + prm, [], reps)
-    with torch.no_grad():
-        primal = cuda_ms(lambda: wkv7_cuda.wkv7_fused(*seq, *prm), reps)
-    return {"fwd_save_ms": fwd, "fwd_primal_ms": primal, "bwd_ms": bwd}
+    ins = [x.detach().clone().requires_grad_() for x in seq + prm]
+    y, st = wkv7_cuda.wkv7_fused(*ins)
+    dy, ds = torch.ones_like(y), torch.zeros_like(st)
+
+    def primal():
+        with torch.no_grad():
+            wkv7_cuda.wkv7_fused(*seq, *prm)
+
+    calls = {"fwd_save": (lambda: wkv7_cuda.wkv7_fused(*ins), "wkv7_fused_fwd"),
+             "fwd_primal": (primal, "wkv7_fused_fwd"),
+             "bwd": (lambda: torch.autograd.grad((y, st), ins, (dy, ds), retain_graph=True),
+                     "wkv7_fused_bwd")}
+    out = {}
+    for name, (fn, kernel) in calls.items():
+        if not device:
+            out[f"{name}_ms"] = cuda_ms(fn, reps)
+            continue
+        before = dict(wkv7_cuda.launches)
+        out[f"{name}_device_ms"] = queued_ms(fn, reps)
+        got = {k: n - before[k] for k, n in wkv7_cuda.launches.items() if n != before[k]}
+        check(got == {kernel: reps + 1}, f"fused times: {name}'s timed calls launched {got}")
+    return out
 
 
 def fused_times_of_tree(what: str = "fused") -> dict:
@@ -1106,22 +1197,17 @@ def phase_wkv7_fused(dev) -> tuple[dict, dict]:
     check(kept, "kernels 3-5 changed their bits (CHUNK_KERNEL_BITS)")
     times = fused_times(seq, prm)
     p_fwd, p_bwd = time_fwd_bwd(wkv7_fused_plain, [x.float() for x in seq + prm], [], 1)
-    steps = TRAIN_B * TRAIN_T * TRAIN_H
-    # forward: the recurrence (9 FLOP an element) and a prologue / epilogue
-    # of O(64) a step; reads 5 sequences, writes y and the entry states.
-    # Backward: ~22 FLOP an element; reads 5 sequences, dy and the entry
-    # states, writes 5 gradients; TF32 on the tensor cores, as both compute
-    f_bound = bound_ms(train_shape_bytes(seq, 6, TRAIN_T), 9 * 4096 * steps, TF32_TC_FLOPS)
-    b_bound = bound_ms(train_shape_bytes(seq, 11, TRAIN_T), 22 * 4096 * steps, TF32_TC_FLOPS)
+    f_bound, p_bound, b_bound = fused_bounds(seq)
     fwd, bwd = times["fwd_save_ms"], times["bwd_ms"]
     print(f"wkv7 fused: bf16 ({TRAIN_B}, {TRAIN_T}, {TRAIN_H}): forward {fwd:.4f} ms saving, "
           f"{times['fwd_primal_ms']:.4f} ms primal; backward {bwd:.4f} ms; plain {p_fwd:.4f} / "
-          f"{p_bwd:.4f} ms; bounds {f_bound[0]:.4f} ({f_bound[1]}) / {b_bound[0]:.4f} ms "
-          f"({b_bound[1]})")
+          f"{p_bwd:.4f} ms; bounds {f_bound[0]:.4f} ({f_bound[1]}) saving, {p_bound[0]:.4f} "
+          f"({p_bound[1]}) primal / {b_bound[0]:.4f} ms ({b_bound[1]})")
     common = {"route": "cuda", "source": FUSED_SOURCE, "library_ms": None}
     return ({"name": "wkv7_fused_fwd", "replaces": FUSED_FWD_REPLACES, "max_abs_err": out_err,
              "ms": fwd, "ms_primal": times["fwd_primal_ms"], "plain_ms": p_fwd,
-             "bound_ms": f_bound[0], "bound_by": f_bound[1], **common},
+             "bound_ms": f_bound[0], "bound_by": f_bound[1], "primal_bound_ms": p_bound[0],
+             "primal_bound_by": p_bound[1], **common},
             {"name": "wkv7_fused_bwd", "replaces": FUSED_BWD_REPLACES, "max_abs_err": grad_err,
              "ms": bwd, "plain_ms": p_bwd, "bound_ms": b_bound[0], "bound_by": b_bound[1],
              **common})
@@ -4156,6 +4242,494 @@ def asr_of_tree(what: str = "asr") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 28-29. Every training task of the train CLI
+# ---------------------------------------------------------------------------
+
+# the train tasks' shapes of kernels 4-5 (name, B, T, H, mask, also in f32, the
+# plain version timed): the Cosy LM at 2048 wide, the ASR adapter over 30 s of
+# encoder frames (a right-padded mask, a ragged last chunk), the ASR LLM's
+# packed [instruction][audio][hints][labels] and the two-tower audio tower's
+# packed [text][audio] (left-padded masks from right_align_pack), then the
+# other shapes phase 29 launches: spark_global's 64 rows padded to 128, the
+# two-tower text tower's right-padded 128 text positions and Spark 1.4B's two
+# full rows; the f32 checks and the plain version's times (seconds each)
+# where they say most
+TASK_B, TASK_T, TT_TEXT, ASR_LABELS = 8, 2048, 128, 64
+TASK_FUSED_SHAPES = (("cosy", TASK_B, TASK_T, 32, None, False, True),
+                     ("asr adapter", TASK_B, ASR_FRAMES, 16, "right", True, False),
+                     ("asr llm", TASK_B, ASR_INSTR + ASR_FRAMES + ASR_HINTS + ASR_LABELS, 16,
+                      "left", True, False),
+                     ("two-tower", TASK_B, TT_TEXT + TASK_T, 16, "left", False, False),
+                     ("spark_global", 64, 128, 16, "right", False, False),
+                     ("two-tower text", TASK_B, TT_TEXT, 16, "right", False, False),
+                     ("spark 1.4B", 2, TASK_T, 32, None, False, False))
+# a warm-up step and 3 timed ones; the CLI reads step k's metrics after
+# issuing step k + 1, so that read (and its log's time stamp) waits for the end
+# of step k + 1: the window opens at the end of the step after the warm-up,
+# and the runs take one step more than TASK_WARM + TASK_TIMED
+TASK_WARM, TASK_TIMED = 1, 3
+# the main runs' widths: the 0.4B families at 1024 x 24, Cosy's 1.5B pairing
+# LM at COSY_C, Spark at 1.4B (benchmarks/bench_flagship_scale.py:215-220)
+TASK_C, TASK_L, SPARK_BIG_C = 1024, 24, 2048
+SFM_TOKENS = 250
+TASKS = ("spark_properties", "spark_global", "cosy", "xy", "asr", "s2s", "tts_two_tower",
+         "sfm_flow", "spark")
+
+
+def fused_bounds(seq) -> tuple:
+    """Kernels 4 and 5's bounds at seq's shape (B, T, H, 64), as (ms, by):
+    the saving forward reads 5 sequences and writes y, the entry states and
+    the final state; the primal forward the same without the entry states;
+    both 9 FLOP an element a step; the backward reads 5 sequences, dy and
+    the entry states and writes 5 gradients, 22 FLOP an element a step;
+    TF32 on the tensor cores, as both kernels compute."""
+    elems = math.prod(seq[0].shape)
+    return (bound_ms(train_shape_bytes(seq, 6), 9 * 64 * elems, TF32_TC_FLOPS),
+            bound_ms(train_shape_bytes(seq, 6, entry_states=False), 9 * 64 * elems,
+                     TF32_TC_FLOPS),
+            bound_ms(train_shape_bytes(seq, 11), 22 * 64 * elems, TF32_TC_FLOPS))
+
+
+def task_fused_check(dev, g, name: str, Bn: int, T: int, H: int, mask_kind, f32: bool,
+                     time_plain: bool) -> dict:
+    """Kernels 4-5 against wkv7_fused_plain at one train-task shape: bf16
+    (and, with `f32`, f32) outputs and every gradient, v zero at the mask's
+    pads as the model feeds it; two calls bit-identical; the saving /
+    primal forward and the backward in device ms (fused_times, queued_ms:
+    torch.profiler keeps no launch late in the whole run); with
+    `time_plain`, the plain version's forward and backward ms (CUDA events,
+    f32); the bounds (fused_bounds)."""
+    from rwkvtts_torch.ops import wkv7_cuda
+    from rwkvtts_torch.ops.packing import right_align_pack
+    from rwkvtts_torch.ops.wkv7 import wkv7_fused_plain
+
+    valid = torch.randint(T // 2, T + 1, (Bn,), generator=g, device=dev)
+    mask = (torch.arange(T, device=dev)[None] < valid[:, None]).int()
+    if mask_kind == "left":
+        _, mask, _ = right_align_pack([(torch.zeros(Bn, T, 1, device=dev), mask, None)], T)
+    out = {"B": Bn, "T": T, "H": H, "mask": mask_kind, "rel": {}}
+    for dtype, tol in ((torch.bfloat16, 2e-2),) + (((torch.float32, 1e-4),) if f32 else ()):
+        seq, prm, _, _ = fused_inputs(g, Bn, T, H, dtype)
+        if mask_kind:
+            seq[3] = seq[3] * mask[:, :, None, None].to(dtype)
+        o_err, g_err, rels = grad_check(wkv7_cuda.wkv7_fused, wkv7_fused_plain, seq + prm, [], g,
+                                        tol, f"train tasks small: kernels 4-5 {str(dtype)[6:]} "
+                                        f"{name} ({Bn}, {T}, {H}), mask {mask_kind}")
+        out["rel"][str(dtype)[6:]] = {"worst": max(rels.values()), "out_max_abs": o_err,
+                                      "grad_max_abs": g_err}
+    runs = []
+    dy = torch.randn(seq[0].shape, generator=g, device=dev).to(seq[0].dtype)
+    ds = torch.randn(Bn, H, 64, 64, generator=g, device=dev)
+    for _ in range(2):
+        ins = [x.detach().clone().requires_grad_() for x in seq + prm]
+        y, st = wkv7_cuda.wkv7_fused(*ins)
+        runs.append([y, st, *torch.autograd.grad((y, st), ins, (dy, ds))])
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    check(same, f"train tasks small: kernels 4-5 at {name} are not deterministic")
+    seq = [x.to(torch.bfloat16) for x in seq]
+    times = fused_times(seq, prm, device=True)
+    p_fwd, p_bwd = (time_fwd_bwd(wkv7_fused_plain, [x.float() for x in seq + prm], [], 1)
+                    if time_plain else (None, None))
+    (fb, fby), (pb, pby), (bb, bby) = fused_bounds(seq)
+    out.update({"bit_identical": same, **times, "plain_fwd_ms": p_fwd, "plain_bwd_ms": p_bwd,
+                "fwd_bound_ms": fb, "fwd_bound_by": fby, "primal_bound_ms": pb,
+                "primal_bound_by": pby, "bwd_bound_ms": bb, "bwd_bound_by": bby})
+    shown = ", ".join(f"{k[:-3]} {v:.4f}" for k, v in times.items())
+    print(f"train tasks small: kernels 4-5 bf16 {name} ({Bn}, {T}, {H}): two calls bit-identical "
+          f"{same}; ms {shown}; plain "
+          f"{f'{p_fwd:.4f} / {p_bwd:.4f} ms' if time_plain else 'not timed here'}; bounds "
+          f"{fb:.4f} ({fby}) saving, {pb:.4f} ({pby}) primal / {bb:.4f} ({bby})")
+    return out
+
+
+def text_of_tokens(tok, n: int, rng) -> str:
+    """A text of random words that the world tokenizer encodes to exactly n
+    tokens: the most words that stay under n (a bisection over the word
+    count), then " x" (one token) to fill."""
+    import numpy as np
+
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = ["".join(rng.choice(letters, rng.integers(2, 9))) for _ in range(n)]
+    count = lambda k: len(tok.encode(" ".join(words[:k])))
+    lo, hi = 0, n  # count(lo) <= n - 4 < count(hi), or hi = n
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if count(mid) <= n - 4 else (lo, mid)
+    text = " ".join(words[:lo])
+    text += " x" * (n - len(tok.encode(text)))
+    check(len(tok.encode(text)) == n, f"text_of_tokens: {len(tok.encode(text))} != {n}")
+    return text
+
+
+def task_rows(task: str, seed: int, n: int, T: int):
+    """n jsonl rows of `task` whose collated sample fills about T positions
+    (exactly T where the layout allows): random words, token ids in their
+    vocabularies, the properties of the SPCT prefix; sfm_flow rows carry T
+    speech tokens, 2 T precomputed mel frames and an x-vector."""
+    import numpy as np
+
+    from rwkvtts_torch.infer.xy_pipeline import xy_text_tokenizer
+    from rwkvtts_torch.utils.tokenizer import get_world_tokenizer
+
+    tok, xy_tok = get_world_tokenizer(), xy_text_tokenizer()
+    rng = np.random.default_rng(seed)
+    ages = ["child", "teenager", "youth-adult", "middle-aged", "elderly"]
+    props = lambda i: {"age": ages[i % 5], "gender": ("female", "male")[i % 2],
+                       "emotion": ("HAPPY", "NEUTRAL", "SAD", "ANGRY")[i % 4],
+                       "pitch": float(rng.uniform(100, 260)), "speed": float(rng.uniform(2, 6))}
+    ints = lambda hi, k: rng.integers(0, hi, k).tolist()
+    rows = []
+    for i in range(n):
+        n_text = int(rng.integers(8, max(9, min(40, T // 8))))
+        if task.startswith("spark"):
+            # plain: 3 tags, the text, 32 globals, the semantic tokens and EOS;
+            # properties: the 6 SPCT tokens before it too
+            n_sem = T - 36 - n_text - (6 if task == "spark_properties" else 0)
+            rows.append({"text": text_of_tokens(tok, n_text, rng), "global_tokens": ints(4096, 32),
+                         "semantic_tokens": ints(8192, max(n_sem, 1)), **props(i)})
+        elif task == "cosy":
+            # [SOS][prompt text + text][TASK][prompt speech + speech] = T
+            n_prompt = int(rng.integers(60, 120))
+            rows.append({"text": text_of_tokens(tok, n_text, rng),
+                         "prompt_text": text_of_tokens(tok, 6, rng),
+                         "llm_prompt_speech_token": ints(6561, n_prompt),
+                         "tts_speech_tokens": ints(6561, T - 2 - n_text - 6 - n_prompt)})
+        elif task == "xy":
+            text = text_of_tokens(tok, n_text, rng)
+            T1 = len(xy_tok.encode(f"[S0]{text}[CTL0]"))
+            rows.append({"text": text, "audio_tokens": rng.integers(0, 1023, (8, T - T1 - 7)).tolist()})
+        elif task == "s2s":
+            rows.append({"text": text_of_tokens(tok, T, rng), "audio_tokens": ints(8192, T)})
+        elif task == "tts_two_tower":
+            rows.append({"text": text_of_tokens(tok, TT_TEXT if i == 0 else n_text, rng),
+                         "global_tokens": ints(4096, 32), "semantic_tokens": ints(8192, T - 33)})
+        elif task == "sfm_flow":
+            rows.append({"speech_token": ints(6561, T),
+                         "speech_feat": np.round(rng.standard_normal((2 * T, 80)), 3).tolist(),
+                         "embedding": rng.standard_normal(192).round(4).tolist()})
+        else:
+            raise ValueError(task)
+    return rows
+
+
+def task_configs(task: str, C: int, L: int, dtype, fuse: bool = True):
+    """(config, frozen prefixes) of a task at LM width C x L; ASR with a
+    1-layer adapter and a 1-layer Whisper of width 64 at small widths, the
+    large-v3 encoder and a 6-layer adapter at full width; the SFM flow at
+    FlowConfig(sfm=True)."""
+    import dataclasses
+
+    from rwkvtts_torch.codecs import flow
+    from rwkvtts_torch.models import asr, cosy, s2s, spark, whisper, xy
+    from rwkvtts_torch.models import tts_two_tower as tt
+
+    kw = dict(hidden_size=C, num_layers=L, dtype=dtype, wkv_fuse_prep=fuse)
+    if task.startswith("spark"):
+        return spark.default_config(**kw)
+    if task == "cosy":
+        return cosy.default_config(**kw)
+    if task == "xy":
+        return xy.default_config(**kw)
+    if task == "s2s":
+        return s2s.default_config(**kw)
+    if task == "tts_two_tower":
+        return tt.default_config(C, L, C, L, dtype=dtype, wkv_fuse_prep=fuse)
+    if task == "sfm_flow":
+        return flow.FlowConfig(sfm=True)
+    big = C == ASR_C
+    wcfg = whisper.WhisperEncoderConfig(**(WHISPER_LARGE_V3 if big else dict(
+        n_mels=16, d_model=64, layers=1, heads=2, ffn_dim=128)))
+    return dataclasses.replace(asr.default_config(adapter_layers=ASR_ADAPTER_L if big else 1, **kw),
+                               whisper=wcfg)
+
+
+def asr_train_batch(cfg, Bn: int, seconds: float, g: torch.Generator, dev) -> dict:
+    """An ASR batch: Bn rows of `seconds` of random mel, ASR_INSTR
+    instruction, ASR_HINTS hint and ASR_LABELS label tokens, every mask one."""
+    T_mel = int(seconds * 100)
+    ids = lambda n: torch.randint(1, 65536, (Bn, n), generator=g).to(dev)
+    ones = lambda n: torch.ones(Bn, n, dtype=torch.int32, device=dev)
+    return {"mel": torch.randn(Bn, T_mel, cfg.whisper.n_mels, generator=g).to(dev),
+            "mel_mask": ones(T_mel), "text_ids": ids(ASR_INSTR), "text_mask": ones(ASR_INSTR),
+            "hints_ids": ids(ASR_HINTS), "hints_mask": ones(ASR_HINTS),
+            "labels": ids(ASR_LABELS), "labels_mask": ones(ASR_LABELS)}
+
+
+def rwkv_stacks(task: str, cfg) -> list:
+    """The RWKV stacks a task's step runs, by their layer counts."""
+    if task == "sfm_flow":
+        return []
+    if task == "asr":
+        return [cfg.adapter.num_layers, cfg.llm.num_layers]
+    if task == "tts_two_tower":
+        return [cfg.text.num_layers, cfg.audio.num_layers]
+    return [cfg.backbone.num_layers]
+
+
+def sfm_fixed_draws_loss():
+    """The sfm_flow adapter with its draws made on the CPU from seed 71 and
+    moved to the batch's device, so the card and the CPU take one step."""
+    from rwkvtts_torch.codecs import flow
+
+    def fixed(params, cfg, batch, generator):
+        x1 = batch["feat"]
+        g = torch.Generator().manual_seed(71)
+        draws = {"x0": torch.randn(x1.shape, generator=g), "t_u": torch.rand(x1.shape[0], 1, 1,
+                                                                             generator=g),
+                 "keep": torch.rand(x1.shape[0], generator=g) > flow.TRAINING_CFG_RATE}
+        total, _ = flow.sfm_loss(params, cfg, *(batch[k] for k in (
+            "tokens", "token_mask", "feat", "feat_mask", "embedding")),
+            **{k: v.to(x1.device) for k, v in draws.items()})
+        return total, batch["feat_mask"].sum().to(torch.int32)
+
+    return fixed
+
+
+def phase_train_tasks_small(dev) -> dict:
+    """Kernels 4-5 against their plain version at the train tasks' shapes
+    (TASK_FUSED_SHAPES), then each of the nine tasks at LM 128 x 2 in f32
+    (the SFM flow at FlowConfig(sfm=True); spark_global on the unfused pair):
+    one train step on the card vs the same step on the CPU's plain path,
+    loss within 1e-4 and grad norm within 1e-3, and the pair's launches, 2 L
+    and L a step a stack."""
+    import types
+
+    from rwkvtts_torch.models import asr, rwkv7
+    from rwkvtts_torch.ops import wkv7_cuda
+    from rwkvtts_torch.parallel import train_step as ts
+    from rwkvtts_torch.train import cli, trainer
+    from rwkvtts_torch.train import optimizer as opt_lib
+
+    g = torch.Generator(device=dev).manual_seed(70)
+    out = {"kernels": {name: task_fused_check(dev, g, name, *shape)
+                       for name, *shape in TASK_FUSED_SHAPES}, "steps": {}}
+    args = types.SimpleNamespace(pad_to=None, packed=False, seed=0, drop_prompt_audio_rate=0.5)
+    for task in TASKS:
+        fuse = task != "spark_global"  # one task on the unfused pair, kernels 2-3
+        cfg = task_configs(task, 128, 2, torch.float32, fuse)
+        if task == "asr":
+            params = asr.init_params(torch.Generator().manual_seed(3), cfg)
+        else:
+            params = cli.build_model(task, types.SimpleNamespace(
+                hidden=128, layers=2, head_size=64, bf16=False, no_wkv_fuse_prep=False, seed=3),
+                torch.device("cpu"))[1]
+        gr = torch.Generator().manual_seed(72)
+        for tree in [params, *params.values()]:
+            if isinstance(tree, dict) and "blocks" in tree and "att" in tree["blocks"]:
+                randomize(tree, gr)
+        if task == "asr":
+            batch = {k: v.cpu() for k, v in asr_train_batch(cfg, 3, 0.6, torch.Generator()
+                                                            .manual_seed(73), "cpu").items()}
+        else:
+            rows = task_rows(task, 74, 3, 24 if task == "sfm_flow" else 160)
+            args.pad_to = 24 if task == "sfm_flow" else None
+            batch = cli.build_collate(task, args, cfg)(rows)
+            batch = {k: v if k.startswith("_") else torch.as_tensor(v) for k, v in batch.items()}
+        loss_fn = sfm_fixed_draws_loss() if task == "sfm_flow" else trainer.LOSS_FNS[task]
+        res = {}
+        for where in ("cpu", dev):
+            p = rwkv7.tree_map(lambda t: t.to(where).clone(), params)
+            opt = opt_lib.AdamW(p, warmup_steps=0, frozen=ts.frozen_prefixes(cfg))
+            step = ts.make_train_step(cfg, opt, loss_fn)
+            wkv7_cuda.reset_launches()
+            _, m = step(ts.init_train_state(p, opt), {k: v if k.startswith("_") else v.to(where)
+                                                      for k, v in batch.items()}, None)
+            res[str(where)] = (m["loss"].item(), m["grad_norm"].item(), int(m["skipped"]),
+                               dict(wkv7_cuda.launches))
+        (lc, gc, _, _), (lg, gg, skipped, launches) = res["cpu"], res[str(dev)]
+        el, eg = abs(lg - lc) / abs(lc), abs(gg - gc) / abs(gc)
+        stacks = rwkv_stacks(task, cfg)
+        want = (2 * sum(stacks), sum(stacks))
+        pair = ("wkv7_fused_fwd", "wkv7_fused_bwd") if fuse else ("wkv7_fwd", "wkv7_bwd")
+        got = tuple(launches[k] for k in pair)
+        out["steps"][task] = {"loss": lg, "loss_cpu": lc, "loss_rel": el, "grad_norm_rel": eg,
+                              "launches": dict(zip(pair, got))}
+        print(f"train tasks small: {task} {'LM 128 x 2' if stacks else 'FlowConfig(sfm=True)'} "
+              f"f32{'' if fuse else ', unfused'}: loss {lg:.6f} vs {lc:.6f} on the CPU (rel "
+              f"{el:.2e}, limit 1e-4), grad norm {gg:.6f} vs {gc:.6f} (rel {eg:.2e}, limit "
+              f"1e-3); {' / '.join(pair)} launches {got} (want {want})")
+        check(el <= 1e-4 and eg <= 1e-3 and skipped == 0,
+              f"train tasks small: {task}'s step disagrees with the CPU")
+        check(got == want, f"train tasks small: {task} launches {got}, want {want}")
+    return out
+
+
+def _task_cli_args(task, dev, data, run_dir, C, L, Bn, pad_to, extra=()):
+    return ["--task", task, "--data", data, "--run-dir", run_dir, "--device", str(dev),
+            "--hidden", str(C), "--layers", str(L), "--batch-size", str(Bn),
+            "--pad-to", str(pad_to), "--log-every", "1", "--save-steps", "0", *extra]
+
+
+def phase_train_tasks_main(dev, card: str) -> dict:
+    """Each task through train.cli.main (ASR through Trainer) at its
+    family's width, random weights from seed 0, bf16 over f32 masters, the
+    fused pair: TASK_WARM warm-up and TASK_TIMED timed steps (the CLI runs
+    one more, TASK_WARM's comment). Gates: finite
+    losses, no skipped step, the first loss within 0.5 of ln(vocabulary)
+    where one head is trained, exactly 2 L kernel-4 and L kernel-5 launches a
+    step a stack, the Whisper leaves bit-identical. Prints ms a step,
+    positions/s and peak memory; then one mu_bf16 step at 1024 x 24. The
+    end-of-epoch checkpoint of each run is not written (phase 10 writes
+    one): its bytes are not the step's."""
+    from rwkvtts_torch.models import asr
+    from rwkvtts_torch.ops import wkv7_cuda
+    from rwkvtts_torch.train import cli, trainer
+    from rwkvtts_torch.train import optimizer as opt_lib
+
+    n_steps = TASK_WARM + 1 + TASK_TIMED
+    vocab = {"spark_properties": 8193, "spark_global": 8193, "spark": 8193, "cosy": 6562,
+             "asr": 65536, "s2s": 8192, "tts_two_tower": 12289}  # s2s: its first batch is audio
+    # (task, hidden, layers, batch rows, pad_to, row length, extra flags, positions a step)
+    C, L = TASK_C, TASK_L
+    plan = [("spark_properties", C, L, TASK_B // 2, TASK_T, TASK_T, (), TASK_B * TASK_T),
+            ("spark_global", C, L, 64, 128, 40, (), 64 * 128),
+            ("cosy", COSY_C, L, TASK_B, TASK_T, TASK_T, ("--drop-prompt-audio-rate", "0.5"),
+             TASK_B * TASK_T),
+            ("xy", C, L, TASK_B, TASK_T, TASK_T, (), TASK_B * TASK_T),
+            ("asr", ASR_C, ASR_L, ASR_B, None, None, (), None),
+            ("s2s", C, L, TASK_B, TASK_T, TASK_T, (), TASK_B * TASK_T),
+            ("tts_two_tower", C, L, TASK_B, TASK_T, TASK_T, (), TASK_B * (TT_TEXT + TASK_T)),
+            ("sfm_flow", None, None, TASK_B, SFM_TOKENS, SFM_TOKENS, (), TASK_B * 2 * SFM_TOKENS),
+            ("spark", SPARK_BIG_C, L, 2, TASK_T, TASK_T, ("--low-memory-opt", "adafactor"),
+             2 * TASK_T)]
+    saves = []
+    real_save = trainer.Trainer.save
+    trainer.Trainer.save = lambda self, epoch, batch: saves.append(self.state.step)
+    out: dict = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for task, C, L, Bn, pad_to, T, extra, positions in plan:
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                wkv7_cuda.reset_launches()
+                t_task = time.perf_counter()
+                if task == "asr":
+                    cfg = task_configs("asr", C, L, torch.bfloat16)
+                    params = asr.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+                    whisper0 = {p: t.clone() for p, t in opt_lib.flatten(params["whisper"]).items()}
+                    tcfg = trainer.TrainerConfig(run_dir=os.path.join(tmp, task), save_steps=0,
+                                                 log_every=1)
+                    tr = trainer.Trainer(cfg, params, trainer.LOSS_FNS["asr"], tcfg, dev)
+                    batch = asr_train_batch(cfg, Bn, ASR_SECONDS, torch.Generator().manual_seed(0),
+                                            dev)
+                    positions = Bn * (ASR_INSTR + ASR_FRAMES + ASR_HINTS + ASR_LABELS)
+                    losses, skipped = [], 0
+                    for i in range(TASK_WARM + TASK_TIMED):
+                        if i == TASK_WARM:
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                        tr.state, m = tr.step_fn(tr.state, batch, tr.generator)
+                        losses.append(m["loss"])
+                        skipped += m["skipped"]
+                    torch.cuda.synchronize()
+                    step_s = (time.perf_counter() - t0) / TASK_TIMED
+                    losses, skipped = [x.item() for x in losses], int(skipped)
+                    after = opt_lib.flatten(tr.state.params["whisper"])
+                    frozen_same = all(torch.equal(after[p], t) for p, t in whisper0.items())
+                    check(frozen_same, "train tasks main: asr: a Whisper leaf moved")
+                    check(not any(p.startswith("whisper/") for p in tr.optimizer.labels),
+                          "train tasks main: asr: the Whisper encoder is in the optimizer")
+                    del whisper0, batch
+                else:
+                    data = os.path.join(tmp, f"{task}.jsonl")
+                    with open(data, "w") as f:
+                        for row in task_rows(task, 80, Bn * n_steps, T):
+                            f.write(json.dumps(row) + "\n")
+                    run_dir = os.path.join(tmp, task)
+                    args = _task_cli_args(task, dev, data, run_dir, C or 64, L or 1, Bn, pad_to,
+                                          extra)
+                    tr = cli.main(args)
+                    torch.cuda.synchronize()
+                    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                        recs = [json.loads(line) for line in f]
+                    check(len(recs) == n_steps, f"train tasks main: {task}: {len(recs)} steps")
+                    losses = [r["loss"] for r in recs]
+                    skipped = sum(int(r["skipped"]) for r in recs)
+                    # log k (from 1) is stamped at the end of step k + 1, the last
+                    # two at the end of the last step (TASK_WARM's comment)
+                    t = [r["time"] for r in recs]
+                    step_s = (t[n_steps - 2] - t[TASK_WARM - 1]) / TASK_TIMED
+                    cfg = tr.model_cfg
+                launches = dict(wkv7_cuda.launches)
+                peak = torch.cuda.max_memory_allocated()
+                stacks = rwkv_stacks(task, cfg)
+                steps = len(losses)
+                want = (2 * sum(stacks) * steps, sum(stacks) * steps)
+                got = (launches["wkv7_fused_fwd"], launches["wkv7_fused_bwd"])
+                n_params = sum(x.numel() for x in opt_lib.flatten(tr.state.params).values())
+                r = {"hidden": C, "layers": L, "batch": Bn, "positions_a_step": positions,
+                     "params": n_params, "losses": losses, "step_ms": 1e3 * step_s,
+                     "positions_per_s": positions / step_s, "peak_gib": peak / 2**30,
+                     "fused_launches_a_step": [x / steps for x in got],
+                     "optimizer": tr.optimizer.low_memory or "adamw",
+                     "task_s": time.perf_counter() - t_task}
+                out[task] = r
+                print(f"train tasks main: {task} {C} x {L} ({n_params / 1e9:.3f} B params, "
+                      f"{r['optimizer']}), {Bn} rows, {positions} positions a step: losses "
+                      f"{[round(x, 4) for x in losses]}; {r['step_ms']:.2f} ms a step over "
+                      f"{TASK_TIMED} steps, {r['positions_per_s']:.1f} positions/s, peak memory "
+                      f"{r['peak_gib']:.2f} GiB on {card}; kernels 4 / 5 {got} (want {want}); "
+                      f"{r['task_s']:.1f} s in all")
+                check(all(math.isfinite(x) for x in losses), f"{task}: non-finite loss {losses}")
+                check(skipped == 0, f"train tasks main: {task}: a step was skipped")
+                if task in vocab:
+                    check(abs(losses[0] - math.log(vocab[task])) <= 0.5,
+                          f"train tasks main: {task}: first loss {losses[0]:.4f} not within 0.5 "
+                          f"of ln {vocab[task]}")
+                check(got == want, f"train tasks main: {task} launches {got}, want {want}")
+                if task == "spark":
+                    check("v_row" in tr.state.opt_state, "spark 1.4B: not the adafactor state")
+                del tr
+            # one mu_bf16 step at 1024 x 24: an epoch of one batch
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            wkv7_cuda.reset_launches()
+            data = os.path.join(tmp, "spark_mu.jsonl")
+            with open(data, "w") as f:
+                for row in task_rows("spark", 81, TASK_B, TASK_T):
+                    f.write(json.dumps(row) + "\n")
+            run_dir = os.path.join(tmp, "spark_mu")
+            C, L = TASK_C, TASK_L
+            tr = cli.main(_task_cli_args("spark", dev, data, run_dir, C, L, TASK_B, TASK_T,
+                                         ("--low-memory-opt", "mu_bf16")))
+            with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                rec = json.loads(f.readline())
+            m_dtype = next(iter(tr.state.opt_state["mu"].values())).dtype
+            got = (wkv7_cuda.launches["wkv7_fused_fwd"], wkv7_cuda.launches["wkv7_fused_bwd"])
+            peak = torch.cuda.max_memory_allocated()
+            out["spark_mu_bf16"] = {"loss": rec["loss"], "fused_launches": got,
+                                    "mu_dtype": str(m_dtype), "peak_gib": peak / 2**30}
+            print(f"train tasks main: spark {C} x {L} mu_bf16, one step: loss {rec['loss']:.4f}, "
+                  f"first moment {m_dtype}, kernels 4 / 5 {got} (want {(2 * L, L)}), peak memory "
+                  f"{peak / 2**30:.2f} GiB")
+            check(m_dtype == torch.bfloat16 and got == (2 * L, L) and rec["skipped"] == 0
+                  and abs(rec["loss"] - math.log(8193)) <= 0.5, "train tasks main: the mu_bf16 step")
+            del tr
+            torch.cuda.empty_cache()
+    finally:
+        trainer.Trainer.save = real_save
+    print(f"train tasks main: end-of-epoch checkpoints not written at steps {saves}")
+    return out
+
+
+def train_tasks_of_tree(what: str = "train tasks") -> dict:
+    """Phases 28-29 alone (kernels 4-5 at the train tasks' shapes, the nine
+    tasks small on card vs CPU, then each at its family's width) with
+    whichever rwkvtts_torch is imported, TF32 off; prints their numbers as
+    one JSON line."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(card)
+    out = {"small": phase_train_tasks_small(dev), "main": phase_train_tasks_main(dev, card)}
+    print(f"{what}: " + json.dumps(out))
+    return out
+
+
 def build_log(log: str) -> None:
     """Print ptxas's registers, shared memory and spills of every kernel,
     and fail if a chunked WKV7 kernel (forward, backward, fused pair)
@@ -4229,6 +4803,8 @@ def main() -> None:
     xy_run = run(phase_xy_main, dev, card)
     asr_small = run(phase_asr_small, dev)
     asr_run = run(phase_asr_main, dev, card)
+    tasks_small = run(phase_train_tasks_small, dev)
+    tasks_run = run(phase_train_tasks_main, dev, card)
 
     rows["wkv7_fwd"]["launches"] = main_run["launches"]["wkv7_fwd"]
     rows["wkv7_fwd"]["train_forward"] = train_fwd  # its training-shape numbers, unfused path
@@ -4265,6 +4841,22 @@ def main() -> None:
         rows["wkv7_fwd"][key] = asr_run[path]["launches"]["wkv7_fwd"]
         rows["wkv7_step"][key] = asr_run[path]["launches"]["wkv7_step"]
     rows["wkv7_fwd"]["by_shape"].update(asr_small["wkv7_fwd_times"])
+    for name, k in tasks_small["kernels"].items():
+        shape = {key: k[key] for key in ("B", "T", "H")}
+        rows["wkv7_fused_fwd"].setdefault("by_shape", {})[name] = {
+            **shape, "rel": k["rel"], "plain_fwd_ms": k["plain_fwd_ms"],
+            **{key: v for key, v in k.items() if key.startswith(("fwd_", "primal_bound"))}}
+        rows["wkv7_fused_bwd"].setdefault("by_shape", {})[name] = {
+            **shape, "plain_bwd_ms": k["plain_bwd_ms"],
+            **{key: v for key, v in k.items() if key.startswith("bwd_")}}
+    unfused = tasks_small["steps"]["spark_global"]["launches"]  # LM 128 x 2, one step
+    rows["wkv7_fwd"]["launches_train_task_unfused_step"] = unfused["wkv7_fwd"]
+    rows["wkv7_bwd"]["launches_train_task_unfused_step"] = unfused["wkv7_bwd"]
+    for key in ("wkv7_fused_fwd", "wkv7_fused_bwd"):
+        i = key == "wkv7_fused_bwd"
+        rows[key]["launches_train_tasks_a_step"] = {
+            t: r["fused_launches_a_step"][i] for t, r in tasks_run.items()
+            if "fused_launches_a_step" in r}
     rows["wkv7_step"]["asr_s2s_two_tower"] = asr_small["wkv7_step_times"]
     print("train: " + json.dumps({k: v for k, v in train_run.items()
                                   if k not in ("launches", "unfused")}))
@@ -4276,6 +4868,7 @@ def main() -> None:
     print("cosy serve: " + json.dumps({k: v for k, v in cs_run.items() if k != "launches"}))
     print("xy: " + json.dumps(xy_run))
     print("asr: " + json.dumps({"small": asr_small, "main": asr_run}))
+    print("train tasks: " + json.dumps({"small": tasks_small, "main": tasks_run}))
     seconds["total"] = round(time.perf_counter() - t_start, 1)
     print("phase seconds: " + json.dumps(seconds))
     print(json.dumps({"kernels": [rows[k] for k in ("wkv7_fwd", "decode_b64_step", "wkv7_bwd",

@@ -158,10 +158,13 @@ s2s_params_from_numpy = two_tower_params_from_numpy = params_from_numpy
 
 
 def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
-    """The port's parameter tree -> numpy leaves (bf16 as exact f32): the
-    inverse of ``params_from_numpy``. Numpy leaves pass through."""
+    """The port's parameter tree (dicts and lists) -> numpy leaves (bf16 as
+    exact f32): the inverse of ``params_from_numpy``. Numpy leaves pass
+    through."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_to_numpy(v) for v in tree]
     return to_numpy(tree)
 
 

@@ -11,8 +11,10 @@ over absolute frames once (``NoiseTable``) and indexes it with the same
 absolute-index formula. Every noise input can be passed in explicitly.
 The SFM fast path (``sfm_inference`` and its windowed hop,
 model/flow/flow.py:132-180 of the reference) starts the ODE at the SFM
-head's coarse prediction. The training losses are not ported yet.
-Channels-last (B, T, C).
+head's coarse prediction. The training losses: ``cfm_loss`` (the plain
+CFM objective, flow_matching.py:145-185) and ``sfm_loss`` (the four-term
+SFM objective, model/flow/flow.py:64-121); their random draws come from a
+``torch.Generator`` or are passed in. Channels-last (B, T, C).
 """
 from __future__ import annotations
 
@@ -70,7 +72,8 @@ class FlowConfig:
 
 def _sinusoidal_t_emb(t: torch.Tensor, dim: int, scale: float = 1000.0) -> torch.Tensor:
     half = dim // 2
-    freqs = torch.exp(torch.arange(half, device=t.device) * -(math.log(10000.0) / (half - 1)))
+    freqs = torch.exp(torch.arange(half, device=t.device, dtype=t.dtype)
+                      * -(math.log(10000.0) / (half - 1)))
     ang = scale * t[:, None] * freqs[None, :]
     return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
 
@@ -225,6 +228,41 @@ def cfm_solve(p_est: Params, est_cfg: EstimatorConfig, cfm: CFMConfig, z, mu, ma
         v = (1.0 + rate) * v2[:B] - rate * v2[B:]
         x = x + (ts[i + 1] - ts[i]) * v
     return x
+
+
+# the CFG training drop: a row's conditions are dropped with this probability
+TRAINING_CFG_RATE = 0.2
+
+
+def _keep_mask(B: int, keep, generator, device) -> torch.Tensor:
+    """The rows whose conditions survive the CFG training drop (a uniform
+    draw > TRAINING_CFG_RATE), as 0 / 1."""
+    if keep is None:
+        keep = torch.rand(B, generator=generator, device=device) > TRAINING_CFG_RATE
+    return keep.to(device)
+
+
+def cfm_loss(p_est: Params, est_cfg: EstimatorConfig, cfm: CFMConfig, x1, mask, mu, spks,
+             cond, generator: Optional[torch.Generator] = None, t=None, z=None, keep=None):
+    """The CFM training loss (flow_matching.py:145-185): x1 / mu / cond (B, T,
+    80), mask (B, T), spks (B, D). Draws from `generator` on x1's device,
+    in this order, unless passed in: `t` (B, 1, 1) uniform (before the
+    t-schedule), `z` like x1 normal, `keep` (B,) bool, the rows whose
+    conditions survive the CFG drop. Returns (loss, y), y the noisy input
+    at t."""
+    B, dev = x1.shape[0], x1.device
+    if t is None:
+        t = torch.rand(B, 1, 1, generator=generator, device=dev)
+    t = 1 - torch.cos(t.reshape(B, 1, 1).to(x1.dtype) * 0.5 * math.pi)
+    if z is None:
+        z = torch.randn(x1.shape, generator=generator, device=dev)
+    y = (1 - (1 - cfm.sigma_min) * t) * z + t * x1
+    u = x1 - (1 - cfm.sigma_min) * z
+    k = _keep_mask(B, keep, generator, dev).to(mu.dtype)
+    mu, spks, cond = mu * k[:, None, None], spks * k[:, None], cond * k[:, None, None]
+    pred = estimator_apply(p_est, est_cfg, y, mask, mu, t[:, 0, 0], spks, cond)
+    m = mask[:, :, None]
+    return (((pred - u) * m) ** 2).sum() / (m.sum() * u.shape[-1]), y
 
 
 # ---------------------------------------------------------------------------
@@ -412,3 +450,61 @@ def sfm_inference_window(p: Params, cfg: FlowConfig, tokens, token_mask, prompt_
         return noise[:, idx.to(noise.device)]
 
     return _sfm_solve(p, cfg, tokens, token_mask, spk_embedding, noise_at, n_timesteps)
+
+
+def sfm_loss(p: Params, cfg: FlowConfig, tokens, token_mask, x1, feat_mask, spk_embedding,
+             generator: Optional[torch.Generator] = None, x0=None, t_u=None, keep=None):
+    """The four-term SFM training loss (model/flow/flow.py:64-121):
+    L_coarse + L_t + L_sigma + (L_cfm + L_mu). tokens / token_mask (B, Tt),
+    x1 the target mel (B, Tt x ratio, 80), feat_mask (B, Tt x ratio),
+    spk_embedding (B, 192). The targets of the head (t_true, sigma_true)
+    and the piecewise path's start are taken without gradient, as the
+    reference's stop-gradients. Draws from `generator` on x1's device, in
+    this order, unless passed in: `x0` like x1 normal, `t_u` (B, 1, 1)
+    uniform, `keep` (B,) bool (the CFG drop). Returns (total, the five
+    terms by name)."""
+    sigma_min = cfg.cfm.sigma_min
+    B, dev = x1.shape[0], x1.device
+    spks = _spks(p, spk_embedding)
+    h = encode_tokens(p, cfg, tokens, token_mask)
+    x_g = nn.linear(p["encoder_proj"], h)
+    x_h, t_h, log_sig = sfm_head_apply(p["sfm_head"], h, cfg.output_size)
+
+    m = feat_mask[:, :, None]
+    loss_coarse = (x_g * m - x1 * m).abs().mean()
+
+    # orthogonal projection targets (flow.py:87-98)
+    x_h_sg = x_h.detach()
+    dot = (x_h_sg * x1).sum((1, 2))
+    t_true = (dot / ((x1 * x1).sum((1, 2)) + 1e-8)).clamp(0.0, 1.0)[:, None]
+    sig_sq_true = ((x_h_sg - t_true[:, :, None] * x1) ** 2).mean((1, 2)).clamp_min(1e-7)[:, None]
+    loss_t = ((t_h - t_true) ** 2).mean()
+    loss_sigma = ((log_sig - torch.log(sig_sq_true)) ** 2).mean()
+
+    # the piecewise CFM (flow_matching.py:176-227)
+    delta = ((1 - sigma_min) * t_true + torch.sqrt(sig_sq_true)).clamp_min(1.0)
+    x_h_bar = (1.0 / delta)[:, :, None] * x_h
+    t_h_bar = ((1.0 / delta) * t_true)[:, :, None]
+    sig_sq_bar = (1.0 / delta ** 2) * sig_sq_true
+    if x0 is None:
+        x0 = torch.randn(x1.shape, generator=generator, device=dev)
+    noise_sq = ((1 - (1 - sigma_min) * t_h_bar[:, :, 0]) ** 2 - sig_sq_bar).clamp_min(0.0)
+    x_t_h = torch.sqrt(noise_sq)[:, :, None] * x0 + x_h_bar
+    if t_u is None:
+        t_u = torch.rand(B, 1, 1, generator=generator, device=dev)
+    t_u = t_u.reshape(B, 1, 1).to(x1.dtype) * (1 - t_h_bar) + t_h_bar
+    target = x1 + sigma_min * x0
+    x_t = (1 - t_u) * x_t_h.detach() + t_u * target
+    u_t = (1.0 / (1.0 - t_true[:, :, None] + 1e-8)) * (target - x_t_h.detach())
+    t_s = (1 - t_h_bar) * t_u + t_h_bar
+
+    mu, cond = x_g, torch.zeros_like(x_g)
+    k = _keep_mask(B, keep, generator, dev).to(mu.dtype)
+    mu, spks = mu * k[:, None, None], spks * k[:, None]
+    pred = estimator_apply(p["estimator"], cfg.estimator, x_t, feat_mask, mu, t_s[:, 0, 0],
+                           spks, cond)
+    loss_cfm = (((pred - u_t) * m) ** 2).sum() / (m.sum() * u_t.shape[-1])
+    loss_mu = ((x_h - t_true[:, :, None] * x1) ** 2).mean()
+    total = loss_coarse + loss_t + loss_sigma + loss_cfm + loss_mu
+    return total, {"loss_coarse": loss_coarse, "loss_t": loss_t, "loss_sigma": loss_sigma,
+                   "loss_cfm": loss_cfm, "loss_mu": loss_mu}

@@ -1,6 +1,6 @@
 """Pretrained speech checkpoints -> the port's parameter trees (counterpart
 of rwkvtts_tpu/convert/speech_init.py; the Spark, Cosy, XY and ASR
-loaders, XY's init from a text RWKV-7, and the S2S vocabulary
+loaders, Spark's and XY's init from a text RWKV-7, and the S2S vocabulary
 enlargement)."""
 from __future__ import annotations
 
@@ -86,6 +86,18 @@ def s2s_enlarge_vocab(text_sd_blinkdl: Mapping[str, np.ndarray], cfg,
 
 
 _BACKBONE_KEYS = ("blocks", "ln0_scale", "ln0_bias", "ln_out_scale", "ln_out_bias")
+
+
+def spark_from_text(text_sd: Mapping[str, np.ndarray], spark_params: Params, cfg) -> Params:
+    """Seed a Spark model from a pretrained text RWKV-7 (the reference's
+    spark_llm.py:174-201): the backbone copied, text_embedder from the text
+    model's embeddings; the semantic embedding, the head and the other
+    embedders keep `spark_params`' (tensors or numpy). Returns numpy."""
+    out = dict(bridge.params_to_numpy(spark_params))
+    bb = rwkv7_ckpt.fla_to_rwkv7(text_sd, cfg.backbone)
+    out.update({k: bb[k] for k in _BACKBONE_KEYS})
+    out["text_embedder"] = np.asarray(text_sd["model.embeddings.weight"])
+    return out
 
 
 def xy_from_text(text_sd: Mapping[str, np.ndarray], xy_params: Params, cfg,

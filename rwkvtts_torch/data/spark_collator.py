@@ -1,9 +1,12 @@
-"""Spark-TTS prompt-layout collator, token domain (a copy of the plain
-collator and the inference prompt of rwkvtts_tpu/data/spark_collator.py;
-the properties and global-token collators come later).
+"""Spark-TTS prompt-layout collators, token domain (a copy of
+rwkvtts_tpu/data/spark_collator.py).
 
 Layout: [TAG2][text][TAG0][global x 32][TAG1][semantic ...][EOS]; labels
-are -100 over the prefix, then the semantic tokens and EOS. Padded, every
+are -100 over the prefix, then the semantic tokens and EOS. The
+properties collator adds, for each row, an SPCT-prefixed copy whose labels
+also cover the global tokens (voice design); the global-token collator
+keeps only [SPCT props][TAG0][global x 32][TAG1] and labels the globals
+(reference utils/multiple_jsonl.py:139-233, 313-400). Padded, every
 sample is a row padded to ``pad_to``; packed, all samples of a batch share
 one row and each starts with a reset flag. The model does the table
 lookups from the (tokens, modality) pairs (models/spark.py embed_layout).
@@ -15,6 +18,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from rwkvtts_torch.data.properties import properties_string
 from rwkvtts_torch.models.spark import (
     MOD_GLOBAL,
     MOD_PAD,
@@ -126,6 +130,57 @@ def collate_plain(rows, tokenizer, eos_id: int, pad_to=None, packed=False):
                     eos_id)
         for r in rows
     ]
+    return pack_batch(samples, pad_to) if packed else pad_batch(samples, pad_to)
+
+
+def _props_prefix(row, tokenizer) -> Sample:
+    """The row's SPCT property string as unlabelled text."""
+    props = properties_string(row["age"], row["gender"], row["emotion"], row["pitch"],
+                              row["speed"])
+    prop_ids = tokenizer.encode(props)
+    return Sample([], [], []).extend(prop_ids, MOD_TEXT, [IGNORE] * len(prop_ids))
+
+
+def collate_with_properties(rows, tokenizer, eos_id: int, pad_to=None, packed=False,
+                            mark_phonemes_prob: float = 0.0):
+    """Two samples a row: the plain one, and the SPCT-prefixed one whose
+    labels also cover the 32 global tokens. Rows also carry age, gender,
+    emotion, pitch and speed. The tokenizer must know the 64 SPCT tokens
+    (``get_world_tokenizer(n_spct=64)``).
+
+    ``mark_phonemes_prob`` > 0 (the reference's pronunciation-controllable
+    fine-tune) needs the text frontend's phoneme marking, which the port
+    does not have yet (ROADMAP queue 1, item 10): it raises rather than
+    train on unmarked text."""
+    if mark_phonemes_prob > 0:
+        raise NotImplementedError(
+            "mark_phonemes_prob > 0 needs data/text_frontend.mark_phonemes, not ported yet "
+            "(ROADMAP queue 1, item 10)")
+    samples: List[Sample] = []
+    for r in rows:
+        text_ids = tokenizer.encode(r["text"])
+        samples.append(_spark_core(text_ids, r["global_tokens"], r["semantic_tokens"], eos_id))
+        s = _props_prefix(r, tokenizer)
+        core = _spark_core(text_ids, r["global_tokens"], r["semantic_tokens"], eos_id,
+                           label_globals=True)
+        s.tokens += core.tokens
+        s.modality += core.modality
+        s.labels += core.labels
+        samples.append(s)
+    return pack_batch(samples, pad_to) if packed else pad_batch(samples, pad_to)
+
+
+def collate_global_tokens(rows, tokenizer, eos_id: int, pad_to=None, packed=False):
+    """The voice designer: predict only the 32 global (speaker) tokens from
+    the SPCT property prefix. `eos_id` is unused (no semantic part); it is
+    taken for the collators' common signature."""
+    samples: List[Sample] = []
+    for r in rows:
+        s = _props_prefix(r, tokenizer)
+        s.extend([TAG_GLOBAL], MOD_TAG, [IGNORE])
+        s.extend(list(r["global_tokens"]), MOD_GLOBAL, list(r["global_tokens"]))
+        s.extend([TAG_SEMANTIC], MOD_TAG, [IGNORE])
+        samples.append(s)
     return pack_batch(samples, pad_to) if packed else pad_batch(samples, pad_to)
 
 

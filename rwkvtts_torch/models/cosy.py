@@ -11,11 +11,12 @@ text, special and speech tables live here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from rwkvtts_torch.models import rwkv7
+from rwkvtts_torch.ops import loss as loss_ops
 
 MOD_PAD = 0
 MOD_TEXT = 1
@@ -33,6 +34,9 @@ class CosyConfig:
     backbone: rwkv7.RWKV7Config
     text_vocab_size: int = 65536
     speech_token_size: int = 6561  # EOS == speech_token_size
+    lsm_weight: float = 0.0  # label smoothing of the training loss
+    length_normalized_loss: bool = True  # divide by the tokens, else by the rows
+    drop_ratio: float = 0.0  # input-embedding dropout in training
 
     @property
     def speech_head_size(self) -> int:
@@ -76,11 +80,28 @@ def embed_layout(params, cfg: CosyConfig, tokens: torch.Tensor,
     return out.to(dt)
 
 
-def forward(params, cfg: CosyConfig, tokens, modality, attention_mask=None, resets=None):
-    """Hidden states (B, T, C) of a [SOS][text][TASK][speech] batch."""
+def forward(params, cfg: CosyConfig, tokens, modality, labels=None, attention_mask=None,
+            resets=None, dropout_generator: Optional[torch.Generator] = None):
+    """A [SOS][text][TASK][speech] batch. Without labels -> hidden (B, T, C);
+    with labels, pre-aligned by the collator (position t predicts
+    labels[t], the reference's lm_target[:, 1:], cosy_llm.py:121) ->
+    (loss, n_valid): the fused linear CE through the biased head with
+    label smoothing ``lsm_weight``, divided by the tokens or, without
+    ``length_normalized_loss``, by the rows. Input dropout (``drop_ratio``)
+    draws from `dropout_generator` (on the tokens' device) and is off
+    without one."""
     x = embed_layout(params, cfg, tokens, modality)
-    return rwkv7.forward(params, cfg.backbone, inputs_embeds=x,
-                         attention_mask=attention_mask, resets=resets)
+    if dropout_generator is not None and cfg.drop_ratio > 0:
+        keep = torch.rand(x.shape, generator=dropout_generator,
+                          device=x.device) >= cfg.drop_ratio
+        x = torch.where(keep, x / (1 - cfg.drop_ratio), 0.0).to(x.dtype)
+    h = rwkv7.forward(params, cfg.backbone, inputs_embeds=x,
+                      attention_mask=attention_mask, resets=resets)
+    if labels is None:
+        return h
+    return loss_ops.fused_linear_cross_entropy(
+        h, params["head"], labels, bias=params.get("head_bias"), shift=False,
+        smoothing=cfg.lsm_weight, normalize_length=cfg.length_normalized_loss)
 
 
 def prefill(params, cfg: CosyConfig, tokens, modality, attention_mask=None):

@@ -1,5 +1,7 @@
 """Training orchestration: step, data, checkpoints (counterpart of
-rwkvtts_tpu/train/trainer.py, one device, the ``spark`` task).
+rwkvtts_tpu/train/trainer.py, one device): every task of the JAX
+trainer's ``LOSS_FNS``, the low-memory optimizer modes, and frozen
+parameters kept out of the optimizer.
 
 The host keeps one step pending: step N's metrics are read (a device
 sync) only after step N+1 has been issued, so the host prepares the next
@@ -11,7 +13,7 @@ import dataclasses
 import logging
 import math
 import os
-from typing import Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -24,7 +26,17 @@ log = logging.getLogger("rwkvtts_torch")
 
 
 # per-task loss adapters: loss_fn(params, cfg, batch, generator) -> (loss, n_valid)
-LOSS_FNS: Dict[str, Callable] = {"spark": ts.spark_loss_fn}
+LOSS_FNS: Dict[str, Callable] = {
+    "spark": ts.spark_loss_fn,
+    "spark_properties": ts.spark_loss_fn,
+    "spark_global": ts.spark_loss_fn,
+    "cosy": ts.cosy_loss_fn,
+    "xy": ts.xy_loss_fn,
+    "asr": ts.asr_loss_fn,
+    "tts_two_tower": ts.two_tower_loss_fn,
+    "s2s": ts.s2s_loss_fn,
+    "sfm_flow": ts.sfm_loss_fn,
+}
 
 
 @dataclasses.dataclass
@@ -40,6 +52,9 @@ class TrainerConfig:
     total_steps: int = 100_000
     weight_decay: float = 0.01
     grad_clip: float = 1.0
+    # None | "mu_bf16" | "adafactor": the optimizer's moment estimator
+    # (train/optimizer.py)
+    low_memory_opt: Optional[str] = None
     seed: int = 0
 
 
@@ -53,6 +68,7 @@ class Trainer:
             params, peak_lr=tcfg.peak_lr, final_lr=tcfg.final_lr,
             warmup_steps=tcfg.warmup_steps, total_steps=tcfg.total_steps,
             weight_decay=tcfg.weight_decay, grad_clip=tcfg.grad_clip,
+            low_memory=tcfg.low_memory_opt, frozen=ts.frozen_prefixes(model_cfg),
         )
         self.state = ts.init_train_state(params, self.optimizer)
         self.loss_fn = loss_fn
@@ -68,10 +84,13 @@ class Trainer:
     def ckpt_dir(self) -> str:
         return os.path.join(self.tcfg.run_dir, "ckpt")
 
-    def to_device(self, batch) -> Dict[str, torch.Tensor]:
-        """A collated numpy batch -> tensors on the trainer's device."""
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
-                for k, v in batch.items() if not k.startswith("_")}
+    def to_device(self, batch) -> Dict[str, Any]:
+        """A collated numpy batch -> tensors on the trainer's device; the
+        '_'-prefixed metadata (S2S's `_is_text`) stays a host value in the
+        dict the loss sees."""
+        return {k: v if k.startswith("_") else torch.as_tensor(v).to(self.device,
+                                                                      non_blocking=True)
+                for k, v in batch.items()}
 
     def maybe_resume(self) -> bool:
         step = ckpt_lib.latest_step(self.ckpt_dir)
