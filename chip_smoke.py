@@ -36,7 +36,12 @@ the Higgs codec; then the ASR, S2S and two-tower families:
 (``benchmarks/bench_families_scale.py``'s cells); then every training task of
 the train CLI at its family's width (Spark with properties and global
 tokens, Cosy at 2048, XY, ASR with the whisper-large-v3 encoder frozen,
-S2S, two-tower, the SFM flow, Spark 1.4B with adafactor).
+S2S, two-tower, the SFM flow, Spark 1.4B with adafactor); then long-form
+text and the seed-tts eval: ``CosyPipeline.synthesize_long`` at the 1.5B
+pairing, the phoneme-marked Spark training through the train CLI, the
+seed-tts harness (``generate_testset``, ``evaluate_wer`` on the ASR model
+at asr-0.4B's widths, ``evaluate_sim`` on CAM++), the WER ranking demo, and
+greedy Spark generation at 1024 x 24.
 
 Phases, each printing its own lines; any failure raises, so the run exits
 non-zero and prints no result:
@@ -231,6 +236,36 @@ non-zero and prints no result:
              first loss within 0.5 of ln(vocabulary) (one head), exact fused
              launches (ASR 60 / 30, two-tower 96 / 48, sfm_flow 0 a step), the
              Whisper leaves bit-identical; ms a step, positions/s, peak memory
+ 30. cosy long  CosyPipeline.synthesize_long at phase 20's 1.5B pairing with
+             the world tokenizer (the B=1 kernel route) from a 6 s prompt, on a
+             zh and an en paragraph of 7-8 sentences (digits, a date, a time,
+             a percentage, a phone number, a unit), chunks of <= 80 text
+             tokens, <= 400 speech tokens each: the normalized text, the
+             chunks (= the host's text frontend), each chunk's tokens and
+             decode steps, the wall by frontend / LM / flow / HiFT, the RTF;
+             = the chunks' synthesize(chunk_i, seed + i) on the same frontend
+             outputs (tokens equal, wav within 1e-5, bit-identical or not);
+             kernel 2 24 a chunk, kernel 6 121 a decode step
+ 31. long train  train.cli --task spark_properties --mark-phonemes-prob 0.5
+             at 1024 x 24, 4 rows (8 sequences <= 2048) a step, rows mixing zh
+             and en words of the native tables: the first batch = the host's
+             collate_with_properties(rng=random.Random(0)); one warm-up and 3
+             timed steps: finite losses, none skipped, ms a step, positions/s,
+             peak memory, the texts marked, 48 / 24 fused launches a step
+ 32. seed tts  a 4-row zh/meta.lst with 6 s prompt clips: generate_testset
+             through phase 30's pipeline, evaluate_wer with asr_transcribe_fn
+             at asr-0.4B-whisper-large-v3's widths (32 steps; 30 kernel-2 and
+             768 kernel-7 launches a transcribe; n_ref_tokens = normalize_text's
+             count), evaluate_sim with campplus_embed_fn (values in [-1, 1]),
+             whisper_transcribe_fn on a tiny saved Whisper model; ms a row by
+             stage; WER and SIM of random weights
+ 33. ranking demo  rwkvtts_torch.eval.ranking_demo.run on the card (8
+             sentences, 300 + 300 steps, 128 x 2 at head size 64): trained WER
+             < 0.35, untrained > 0.7, gap > 0.4; final losses, wall, launches
+ 34. spark generate  greedy_spark_generate at spark.default_config(1024, 24)
+             (matrices bf16), B = 8, 128 + 256 tokens: = spark_generate at
+             top-k 1; 24 kernel-2 launches, 24 kernel-7 launches a step over
+             256 steps; ms a token
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -323,9 +358,12 @@ TF32_TC_FLOPS = 495e12
 
 # host seconds before and after the launches inside a retried profiler session
 PROFILE_PAD_S = 0.05
-# clock cycles of the sleeping kernel queued_ms puts before its window (~10 ms
-# on an H100 at 1.98 GHz; the host issues a few calls in well under 1 ms)
+# clock cycles of the sleeping kernel queued_ms puts before its first window
+# (~10 ms on an H100 at 1.98 GHz; the host issues a few calls in well under
+# 1 ms unless it is held up), and the windows it takes at most, each behind a
+# sleep four times as long as the last (the fourth ~0.65 s)
 QUEUE_SLEEP_CYCLES = 20_000_000
+QUEUE_SLEEP_TRIES = 4
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
@@ -1083,24 +1121,39 @@ def chunk_kernel_bits(dev) -> dict:
     return out
 
 
-def queued_ms(fn, reps: int) -> float:
-    """Mean device milliseconds a call of fn after one warm call: CUDA
-    events around `reps` calls enqueued behind a sleeping kernel
-    (QUEUE_SLEEP_CYCLES), so the card runs the calls' kernels back to back
-    and the window holds none of the host's time. Fails if the card
-    reached the window before the host had issued every call."""
+def queued_ms(fn, reps: int) -> tuple[float, int]:
+    """Mean device milliseconds a call of fn after one warm call, and the
+    calls of fn made in all: CUDA events around `reps` calls enqueued behind
+    a sleeping kernel (QUEUE_SLEEP_CYCLES), so the card runs the calls'
+    kernels back to back and the window holds none of the host's time. A
+    window that the card reached before the host had issued every call (the
+    host held up: another thread, a collection) is thrown away and taken
+    again behind a sleep four times as long, at most QUEUE_SLEEP_TRIES
+    windows in all; fails if the last one was reached early too."""
+    import threading
+
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    check(not start.query(), "queued_ms: the sleep ended before every call was issued")
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    calls, cycles = 1, QUEUE_SLEEP_CYCLES
+    for _ in range(QUEUE_SLEEP_TRIES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        calls += reps
+        early = start.query()
+        end.synchronize()
+        if not early:
+            return start.elapsed_time(end) / reps, calls
+        print(f"queued_ms: the card reached the window before the host had issued {reps} calls "
+              f"behind {cycles} cycles of sleep (live threads: "
+              f"{[t.name for t in threading.enumerate()]}); taking it again behind {4 * cycles}")
+        cycles *= 4
+    check(False, f"queued_ms: the sleep ended before every call was issued in "
+                 f"{QUEUE_SLEEP_TRIES} windows")
 
 
 def fused_times(seq, prm, reps: int = 5, device: bool = False) -> dict:
@@ -1134,9 +1187,9 @@ def fused_times(seq, prm, reps: int = 5, device: bool = False) -> dict:
             out[f"{name}_ms"] = cuda_ms(fn, reps)
             continue
         before = dict(wkv7_cuda.launches)
-        out[f"{name}_device_ms"] = queued_ms(fn, reps)
+        out[f"{name}_device_ms"], calls = queued_ms(fn, reps)
         got = {k: n - before[k] for k, n in wkv7_cuda.launches.items() if n != before[k]}
-        check(got == {kernel: reps + 1}, f"fused times: {name}'s timed calls launched {got}")
+        check(got == {kernel: calls}, f"fused times: {name}'s {calls} calls launched {got}")
     return out
 
 
@@ -4730,6 +4783,493 @@ def train_tasks_of_tree(what: str = "train tasks") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 30-34. Long-form text, phoneme-marked training and the seed-tts eval
+# ---------------------------------------------------------------------------
+
+# phase 30: two paragraphs of 6-8 sentences through synthesize_long at the
+# 1.5B pairing, chunks of at most LONG_MAX_N text tokens, each capped at
+# LONG_CAP speech tokens; together they hold digits, a date, a time, a
+# percentage, a phone number and a unit
+LONG_ZH = ("今天是2024年3月15日，天气很好。我们上午9:30在公园门口见面。请带上2瓶水和3个苹果。"
+           "公园离这里大约3.5km，走路要四十分钟。门票价格是¥25.5，学生可以打8折。"
+           "去年参观的人数增长了35%，达到了1,200,000人。如果有问题，请拨打13812345678联系我。"
+           "下午的气温大约是26℃，记得带好帽子。")
+LONG_EN = ("On March 3, 2024 the meeting starts at 10:45 on floor 2. We expect 125 people to attend. "
+           "Last year the company grew by 18% and hired 42 engineers. "
+           "The new office is 2.5 km from the station. "
+           "Please call 555 0199 if you need directions. "
+           "Lunch will be served at 12:30 for everyone. "
+           "The event ends at 5 in the afternoon, and the doors close at 6.")
+LONG_MAX_N, LONG_CAP, LONG_SEED = 80, 400, 7
+# phase 31: the pronunciation fine-tune through the train CLI (spark_properties,
+# 1024 x 24, 4 rows = 8 sequences of at most 2048): rows leave room for the marks
+MARK_PROB, MARK_ROOM = 0.5, 96
+# phase 32: a 4-row zh/meta.lst, 6 s prompt clips, the transcription backend's steps
+SEED_ROWS, SEED_NEW, SEED_ASR_NEW = 4, 200, 32
+SEED_TEXTS = ("今天的天气非常好，我们一起去公园散步吧。", "人工智能正在改变世界，语音合成技术让机器开口说话。",
+              "请在下午三点之前把报告发给我。", "这家餐厅的菜很好吃，价格也不贵。")
+# phase 33: the JAX ranking test's sizes (tests/test_ranking_demo.py:10-18)
+RANK_SENTENCES, RANK_STEPS = 8, 300
+# phase 34: greedy Spark generation at 1024 x 24, B = 8, 128 + 256 tokens
+GREEDY_C, GREEDY_L, GREEDY_B, GREEDY_PROMPT, GREEDY_NEW = 1024, 24, 8, 128, 256
+
+
+def all_launches() -> dict:
+    """The seven kernels' launch counts since their last reset."""
+    from rwkvtts_torch.ops import decode_mega as dm
+    from rwkvtts_torch.ops import decode_mega_b64 as dmb
+    from rwkvtts_torch.ops import wkv7_cuda
+    from rwkvtts_torch.ops import wkv7_step_packed as sp
+
+    return {**wkv7_cuda.launches, "decode_b64_step": dmb.launches, "decode_b1_step": dm.launches,
+            "wkv7_step": sp.launches}
+
+
+def reset_all_launches() -> None:
+    from rwkvtts_torch.ops import decode_mega as dm
+
+    reset_xy_launches()
+    dm.reset_launches()
+
+
+def long_pipeline(dev):
+    """The 1.5B pairing of phase 20 (random weights, seeds 0-4, matrices
+    bf16) with the port's world tokenizer: a CosyPipeline on its default
+    route, the B=1 kernel."""
+    from rwkvtts_torch.codecs import campplus as cp
+    from rwkvtts_torch.codecs import flow, hift
+    from rwkvtts_torch.codecs import s3_tokenizer as s3
+    from rwkvtts_torch.infer.cosy_pipeline import CosyPipeline
+    from rwkvtts_torch.models import cosy
+    from rwkvtts_torch.utils.tokenizer import get_world_tokenizer
+
+    cfg = cosy.default_config(hidden_size=COSY_C, num_layers=COSY_L)
+    gen_dev = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    params = _bf16_matrices(cosy.init_params(gen_dev(0), cfg))
+    fcfg, hcfg = flow.FlowConfig(), hift.HiFTConfig()
+    s3cfg, ccfg = s3.S3TokenizerConfig(), cp.CampplusConfig()
+    return CosyPipeline(cfg, params, get_world_tokenizer(), fcfg, flow.init_params(gen_dev(1), fcfg),
+                        hcfg, hift.init_params(gen_dev(2), hcfg), s3_cfg=s3cfg,
+                        s3_params=s3.init_params(gen_dev(3), s3cfg), campplus_cfg=ccfg,
+                        campplus_params=cp.init_params(gen_dev(4), ccfg), device=dev)
+
+
+def decoded_steps(pipe, chunk: str, prompt_text: str, n_tokens: int, chunk_len: int = 64) -> int:
+    """The decode steps cosy_generate runs for a chunk that gave n_tokens:
+    all max_len without an EOS, else up to the end of the 64-step chunk in
+    which it came (its early exit)."""
+    from rwkvtts_torch.data import cosy_collator
+
+    ids = pipe.tok.encode(prompt_text) + pipe.tok.encode(chunk)
+    max_len = min(int(cosy_collator.content_length(ids) * 20), LONG_CAP)
+    if n_tokens >= max_len:
+        return max_len
+    return min(max_len, chunk_len * (n_tokens // chunk_len + 1))
+
+
+def phase_cosy_long(dev, card: str) -> dict:
+    """CosyPipeline.synthesize_long at the 1.5B pairing (phase 20's
+    configuration, the world tokenizer, the B=1 kernel route) on a zh and
+    an en paragraph from a 6 s prompt: the normalized text, the chunks (=
+    the port's text frontend on the host), each chunk's tokens, the wall
+    split into frontend, LM, flow and HiFT, the RTF; the result = the
+    concatenation of synthesize(chunk_i, seed + i) on the same frontend
+    outputs (tokens equal, wav within 1e-5 of its largest sample), kernel
+    2 run 24 times a chunk and kernel 6 121 times a decoded token."""
+    import numpy as np
+
+    from rwkvtts_torch.data import text_frontend
+    from rwkvtts_torch.ops import decode_mega as dm
+
+    t0 = time.perf_counter()
+    pipe = long_pipeline(dev)
+    clip = prompt_clip(ZS_PROMPT_S, seed=5)
+    prompt_text = "这是一段提示语音。"
+    pipe.synthesize("你好。", prompt_wav=clip, max_new_tokens=16)  # warm
+    torch.cuda.synchronize()
+    print(f"cosy long: the 1.5B pairing built and warm in {time.perf_counter() - t0:.1f} s")
+    a_token = sum(dm.launches_per_step(COSY_L).values())
+    f1, f2 = pipe.frontend_zero_shot(clip), pipe.frontend_zero_shot(clip)
+    same_frontend = all(np.array_equal(a, b) for a, b in zip(f1, f2))
+    feats = dict(zip(("prompt_speech_tokens", "prompt_mel", "spk_embedding"), f1))
+    out: dict = {"frontend_bit_identical": same_frontend}
+    for lang, text in (("zh", LONG_ZH), ("en", LONG_EN)):
+        norm = text_frontend.basic_normalize(text)
+        host = text_frontend.split_paragraph(norm, pipe.tok.encode,
+                                             token_max_n=LONG_MAX_N) or [norm]
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t = time.perf_counter()
+        res = pipe.synthesize_long(text, prompt_text=prompt_text, prompt_wav=clip,
+                                   seed=LONG_SEED, token_max_n=LONG_MAX_N,
+                                   max_new_tokens=LONG_CAP)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = all_launches()
+        audio_s = len(res.wav) / res.sample_rate
+        steps = [decoded_steps(pipe, c, prompt_text, n) for c, n in zip(res.chunks, res.chunk_tokens)]
+        print(f"cosy long: {lang}: normalized: {norm}")
+        for i, (c, n, s) in enumerate(zip(res.chunks, res.chunk_tokens, steps)):
+            print(f"cosy long: {lang}: chunk {i} ({len(pipe.tok.encode(c))} text tokens, "
+                  f"{n} speech tokens, {s} decode steps): {c}")
+        print(f"cosy long: {lang}: {wall:.3f} s wall for {audio_s:.3f} s of audio on {card}: "
+              f"frontend {res.frontend_s:.3f} s, LM {res.llm_s:.3f} s, flow {res.flow_s:.3f} s, "
+              f"HiFT {res.vocoder_s:.3f} s; RTF {wall / audio_s:.4f} (without the frontend "
+              f"{res.rtf:.4f}); launches {launches}")
+        check(res.chunks == host, f"cosy long: {lang}: chunks {res.chunks} != the host's {host}")
+        check(len(host) >= 2, f"cosy long: {lang}: one chunk only")
+        up = pipe.hift_cfg.total_upsample * pipe.flow_cfg.token_mel_ratio
+        check(bool(np.isfinite(res.wav).all()) and res.wav.shape == (len(res.speech_tokens) * up,),
+              f"cosy long: {lang}: wav {res.wav.shape} for {len(res.speech_tokens)} tokens")
+        want = {"wkv7_fwd": COSY_L * len(host), "decode_b1_step": a_token * sum(steps)}
+        got = {k: launches[k] for k in want}
+        check(got == want and launches["wkv7_step"] == 0,
+              f"cosy long: {lang}: launches {launches}, want {want}")
+        parts = [pipe.synthesize(c, prompt_text, None, seed=LONG_SEED + i,
+                                 max_new_tokens=LONG_CAP, **feats) for i, c in enumerate(host)]
+        ref_wav = np.concatenate([p.wav for p in parts])
+        ref_tok = np.concatenate([p.speech_tokens for p in parts])
+        same_tokens = np.array_equal(ref_tok, res.speech_tokens)
+        err = (float(np.abs(ref_wav - res.wav).max() / np.abs(ref_wav).max())
+               if ref_wav.shape == res.wav.shape else float("inf"))
+        identical = same_tokens and err == 0.0
+        print(f"cosy long: {lang}: vs the chunks' synthesize calls: tokens equal {same_tokens}, "
+              f"wav max error {err:.3e} of its largest sample, bit-identical {identical} "
+              f"(frontend bit-identical across calls: {same_frontend})")
+        check(same_tokens and err <= 1e-5, f"cosy long: {lang}: not the chunks' synthesize calls")
+        out[lang] = {"chunks": len(host), "chunk_tokens": res.chunk_tokens, "decode_steps": steps,
+                     "wall_s": wall, "audio_s": audio_s, "rtf_wall": wall / audio_s,
+                     "rtf": res.rtf, "frontend_s": res.frontend_s, "llm_s": res.llm_s,
+                     "flow_s": res.flow_s, "hift_s": res.vocoder_s, "launches": got,
+                     "bit_identical": identical}
+    del pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def marked_rows(seed: int, n: int, T: int):
+    """spark_properties rows whose texts mix zh characters of the pinyin
+    table and en words of the G2P dictionary, filling about T - MARK_ROOM
+    positions (the room the marks take)."""
+    import numpy as np
+
+    from rwkvtts_torch.data import en_g2p, pinyin
+    from rwkvtts_torch.utils.tokenizer import get_world_tokenizer
+
+    tok = get_world_tokenizer()
+    rng = np.random.default_rng(seed)
+    zh, en = list(pinyin.pinyin_table())[:800], sorted(en_g2p.EXCEPTIONS)
+    rows = []
+    for i in range(n):
+        parts = []
+        for _ in range(int(rng.integers(4, 9))):
+            if rng.random() < 0.5:
+                parts.append("".join(rng.choice(zh, int(rng.integers(2, 6)))))
+            else:
+                parts.append(" ".join(rng.choice(en, int(rng.integers(1, 4)))))
+        text = " ".join(parts)
+        n_sem = T - 42 - len(tok.encode(text)) - MARK_ROOM
+        rows.append({"text": text, "global_tokens": rng.integers(0, 4096, 32).tolist(),
+                     "semantic_tokens": rng.integers(0, 8192, n_sem).tolist(),
+                     "age": "youth-adult", "gender": ("female", "male")[i % 2],
+                     "emotion": ("HAPPY", "NEUTRAL")[i % 2],
+                     "pitch": float(rng.uniform(100, 260)), "speed": float(rng.uniform(2, 6))})
+    return rows
+
+
+def phase_long_train(dev, card: str) -> dict:
+    """python -m rwkvtts_torch.train.cli --task spark_properties
+    --mark-phonemes-prob 0.5 at 1024 x 24, 4 rows (8 sequences) a batch
+    padded to 2048: one warm-up and TASK_TIMED timed steps. The CLI's
+    first batch = collate_with_properties(rows, rng=random.Random(seed)) on
+    the host; finite losses, none skipped; 2 L kernel-4 and L kernel-5
+    launches a step. Prints ms a step, positions/s, peak memory and how
+    many texts were marked."""
+    import random
+
+    import numpy as np
+
+    from rwkvtts_torch.data import spark_collator, text_frontend
+    from rwkvtts_torch.ops import wkv7_cuda
+    from rwkvtts_torch.train import cli, trainer
+    from rwkvtts_torch.utils.tokenizer import get_world_tokenizer
+
+    Bn, L, n_steps = TASK_B // 2, TASK_L, TASK_WARM + 1 + TASK_TIMED
+    seen, marked = [], [0]
+    real_collate, real_mark = spark_collator.collate_with_properties, text_frontend.mark_phonemes
+    real_save = trainer.Trainer.save
+
+    def collate(rows, *a, **k):
+        batch = real_collate(rows, *a, **k)
+        seen.append((list(rows), batch))
+        return batch
+
+    def mark(*a, **k):
+        marked[0] += 1
+        return real_mark(*a, **k)
+
+    spark_collator.collate_with_properties, text_frontend.mark_phonemes = collate, mark
+    trainer.Trainer.save = lambda self, epoch, batch: None
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            data = os.path.join(tmp, "rows.jsonl")
+            with open(data, "w") as f:
+                for row in marked_rows(82, Bn * n_steps, TASK_T):
+                    f.write(json.dumps(row) + "\n")
+            run_dir = os.path.join(tmp, "run")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            wkv7_cuda.reset_launches()
+            tr = cli.main(_task_cli_args("spark_properties", dev, data, run_dir, TASK_C, L, Bn,
+                                         TASK_T, ("--mark-phonemes-prob", str(MARK_PROB),
+                                                  "--seed", "0")))
+            torch.cuda.synchronize()
+            with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+    finally:
+        spark_collator.collate_with_properties, text_frontend.mark_phonemes = real_collate, real_mark
+        trainer.Trainer.save = real_save
+    peak = torch.cuda.max_memory_allocated()
+    launches = (wkv7_cuda.launches["wkv7_fused_fwd"], wkv7_cuda.launches["wkv7_fused_bwd"])
+    losses = [r["loss"] for r in recs]
+    t = [r["time"] for r in recs]
+    step_s = (t[n_steps - 2] - t[TASK_WARM - 1]) / TASK_TIMED
+    positions = [int(b["attention_mask"].sum()) for _, b in seen]
+    rows0, batch0 = seen[0]
+    want0 = real_collate(rows0, get_world_tokenizer(n_spct=64), 8192, pad_to=TASK_T,
+                         mark_phonemes_prob=MARK_PROB, rng=random.Random(0))
+    same = batch0.keys() == want0.keys() and all(np.array_equal(batch0[k], want0[k])
+                                                 for k in want0)
+    n_texts = Bn * len(seen)
+    r = {"losses": losses, "step_ms": 1e3 * step_s,
+         "positions_per_s": float(np.mean(positions)) / step_s, "positions_a_step": positions,
+         "peak_gib": peak / 2**30, "texts": n_texts, "marked": marked[0],
+         "fused_launches_a_step": [x / len(recs) for x in launches], "first_batch_equal": same}
+    print(f"long train: spark_properties {TASK_C} x {L}, --mark-phonemes-prob {MARK_PROB}, {Bn} "
+          f"rows (8 sequences of <= {TASK_T}) a step: losses {[round(x, 4) for x in losses]}; "
+          f"{r['step_ms']:.2f} ms a step over {TASK_TIMED} steps, {r['positions_per_s']:.1f} "
+          f"positions/s ({positions} a step), peak memory {r['peak_gib']:.2f} GiB on {card}; "
+          f"{marked[0]} of {n_texts} texts marked; kernels 4 / 5 {launches} over {len(recs)} "
+          f"steps; the first batch = the host's collate: {same}")
+    check(same, "long train: the CLI's first batch is not the host's collate_with_properties")
+    check(len(recs) == n_steps and all(math.isfinite(x) for x in losses)
+          and sum(int(r["skipped"]) for r in recs) == 0, f"long train: steps {recs}")
+    check(0 < marked[0] < n_texts, f"long train: {marked[0]} of {n_texts} texts marked")
+    check(launches == (2 * L * len(recs), L * len(recs)),
+          f"long train: kernels 4 / 5 {launches}, want {(2 * L * len(recs), L * len(recs))}")
+    del tr
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_seed_tts(dev, card: str) -> dict:
+    """The seed-tts harness on a 4-row zh/meta.lst written to a temporary
+    directory (6 s seeded 16 kHz prompt clips): generate_testset through
+    phase 30's pipeline, evaluate_wer with asr_transcribe_fn at
+    asr-0.4B-whisper-large-v3's widths (random, matrices bf16; 30 kernel-2
+    and 24 x steps kernel-7 launches a transcribe), evaluate_sim with
+    campplus_embed_fn on the pipeline's CAM++, whisper_transcribe_fn once
+    on a tiny saved Whisper model. WER and SIM come from random weights."""
+    import dataclasses
+
+    import numpy as np
+
+    from rwkvtts_torch.eval import seed_tts, sim
+    from rwkvtts_torch.models import asr, whisper
+    from rwkvtts_torch.utils import audio_io, fixtures
+    from rwkvtts_torch.utils.tokenizer import get_world_tokenizer
+
+    t0 = time.perf_counter()
+    pipe = long_pipeline(dev)
+    cfg = dataclasses.replace(asr.default_config(ASR_C, ASR_L, adapter_layers=ASR_ADAPTER_L),
+                              whisper=whisper.WhisperEncoderConfig(**WHISPER_LARGE_V3))
+    params = _bf16_matrices(asr.init_params(torch.Generator(device=dev).manual_seed(0), cfg))
+    torch.cuda.synchronize()
+    print(f"seed tts: the 1.5B pairing and asr-0.4B-whisper-large-v3 built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "eval", "zh")
+        os.makedirs(os.path.join(d, "prompt-wavs"))
+        lines = []
+        for i, text in enumerate(SEED_TEXTS[:SEED_ROWS]):
+            audio_io.save_wav(os.path.join(d, "prompt-wavs", f"p{i}.wav"),
+                              prompt_clip(ZS_PROMPT_S, seed=40 + i), 16000)
+            lines.append(f"utt{i}|这是提示语音的文本。|prompt-wavs/p{i}.wav|{text}")
+        with open(os.path.join(d, "meta.lst"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        pipe.synthesize("你好。", prompt_wav=prompt_clip(ZS_PROMPT_S, seed=40),
+                        max_new_tokens=16)  # warm
+        (wavs, synth_s) = _timed(lambda: seed_tts.generate_testset(
+            pipe, os.path.join(tmp, "eval"), "zh", os.path.join(tmp, "out"),
+            max_new_tokens=SEED_NEW, seed=3))
+        rows = seed_tts.read_meta_lst(os.path.join(d, "meta.lst"))
+        check([u for u, _ in wavs] == [r.utt_id for r in rows], f"seed tts: ids {wavs}")
+
+        fn = seed_tts.asr_transcribe_fn(params, cfg, get_world_tokenizer(), lang="zh",
+                                        max_new_tokens=SEED_ASR_NEW)
+        per_call, times = [], []
+
+        def counted(path):
+            torch.cuda.synchronize()
+            reset_all_launches()
+            t = time.perf_counter()
+            text = fn(path)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            per_call.append(all_launches())
+            return text
+
+        counted(wavs[0][1])  # warm
+        per_call.clear(), times.clear()
+        pairs = [(p, r.text) for (_, p), r in zip(wavs, rows)]
+        res = seed_tts.evaluate_wer(pairs, "zh", counted)
+        transcribe_s = list(times)
+        n_ref = sum(len(seed_tts.normalize_text(r.text, "zh")) for r in rows)
+        want = {"wkv7_fwd": ASR_ADAPTER_L + ASR_L, "wkv7_step": ASR_L * SEED_ASR_NEW}
+        got = [{k: c[k] for k in want} for c in per_call]
+        print(f"seed tts: generate_testset {len(wavs)} rows in {synth_s:.3f} s "
+              f"({1e3 * synth_s / len(wavs):.1f} ms a row); transcribe "
+              f"{1e3 * np.mean(transcribe_s):.1f} ms a row; WER (random weights) {res}; "
+              f"launches a transcribe {got} (want {want}) on {card}")
+        check(all(math.isfinite(res[k]) for k in ("wer", "substitutions", "deletions",
+                                                   "insertions")), f"seed tts: WER {res}")
+        check(res["n_ref_tokens"] == n_ref, f"seed tts: n_ref_tokens {res['n_ref_tokens']} "
+              f"!= normalize_text's {n_ref}")
+        check(len(got) == len(rows) and all(g == want for g in got),
+              f"seed tts: launches a transcribe {got}, want {want}")
+
+        embed = sim.campplus_embed_fn(pipe.campplus_params, pipe.campplus_cfg)
+        embed(audio_io.load_wav(wavs[0][1], 16000))  # warm
+        clips = [(audio_io.load_wav(p, 16000),
+                  audio_io.load_wav(os.path.join(d, r.prompt_wav), 16000))
+                 for (_, p), r in zip(wavs, rows)]
+        sres, sim_s = _timed(lambda: sim.evaluate_sim(clips, embed))
+        vals = sres.per_utt + sres.per_utt_centered
+        print(f"seed tts: SIM (random weights) mean {sres.mean:.4f} centered "
+              f"{sres.centered_mean:.4f} per utterance {[round(v, 4) for v in sres.per_utt]}; "
+              f"embed {1e3 * sim_s / (2 * len(clips)):.1f} ms a wav")
+        check(all(-1.0 - 1e-9 <= v <= 1.0 + 1e-9 for v in vals), f"seed tts: SIM {vals}")
+
+        wdir = fixtures.write_tiny_whisper(os.path.join(tmp, "whisper"))
+        wfn = seed_tts.whisper_transcribe_fn(wdir, "zh", device=dev)
+        text, w_s = _timed(lambda: wfn(wavs[0][1]))
+        print(f"seed tts: whisper_transcribe_fn on a tiny saved Whisper model ({dev}): "
+              f"{text!r} in {1e3 * w_s:.1f} ms")
+        check(isinstance(text, str), "seed tts: whisper_transcribe_fn")
+        out = {"rows": len(wavs), "synthesize_ms_a_row": 1e3 * synth_s / len(wavs),
+               "transcribe_ms_a_row": 1e3 * float(np.mean(transcribe_s)),
+               "embed_ms_a_wav": 1e3 * sim_s / (2 * len(clips)), "wer": res,
+               "sim_mean": sres.mean, "sim_centered_mean": sres.centered_mean,
+               "launches_a_transcribe": got[0], "whisper_ms": 1e3 * w_s}
+    del pipe, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ranking_demo(dev, card: str) -> dict:
+    """rwkvtts_torch.eval.ranking_demo.run on the card at the JAX test's
+    sizes (8 sentences, 300 + 300 steps): trained WER < 0.35, untrained
+    WER > 0.7, the gap > 0.4 (tests/test_ranking_demo.py:10-18); launches
+    of the kernels its training, synthesis and transcription drive
+    (kernels 4-5 and 7; the fused-prep configs prefill on kernel 4)."""
+    from rwkvtts_torch.eval import ranking_demo
+
+    reset_all_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = ranking_demo.run(n_sentences=RANK_SENTENCES, tts_steps=RANK_STEPS,
+                               asr_steps=RANK_STEPS, out_dir=tmp, verbose=True, device=dev)
+    torch.cuda.synchronize()
+    res["launches"] = all_launches()
+    print(f"ranking demo: trained WER {res['trained']:.3f}, untrained {res['untrained']:.3f}, "
+          f"final losses tts {res['tts_loss']:.4f} / asr {res['asr_loss']:.4f}, "
+          f"{res['seconds']:.1f} s on {card}; launches {res['launches']}")
+    check(res["trained"] < 0.35 and res["untrained"] > 0.7
+          and res["untrained"] - res["trained"] > 0.4, f"ranking demo: {res}")
+    # training on the fused pair; the prefills of synthesis and transcription
+    # take the fused forward too (the demo's configs set wkv_fuse_prep), the
+    # decode steps kernel 7
+    for k in ("wkv7_fused_fwd", "wkv7_fused_bwd", "wkv7_step"):
+        check(res["launches"][k] > 0, f"ranking demo: no {k} launch")
+    return res
+
+
+def phase_spark_generate(dev, card: str) -> dict:
+    """greedy_spark_generate at spark.default_config(1024, 24) (random,
+    matrices bf16, the decode-packed tree), B = 8 left-padded 128-token
+    prompts, 256 new tokens: the tokens = spark_generate at top-k 1 on
+    greedy's generator seed (on another seed, where bf16 logits tie at the
+    top, the draws part: reported); kernel 2 24 launches, kernel 7 24 a decode step
+    (256 steps: every draw's step runs, the last one's too, as in JAX's
+    scan); ms a token."""
+    from rwkvtts_torch.infer import generate as gen
+    from rwkvtts_torch.models import rwkv7, spark
+
+    cfg = spark.default_config(hidden_size=GREEDY_C, num_layers=GREEDY_L)
+    params = _bf16_matrices(spark.init_params(torch.Generator(device=dev).manual_seed(0), cfg))
+    packed = rwkv7.pack_decode_params(params, cfg.backbone)
+    g = torch.Generator().manual_seed(8)
+    tokens, modality, mask = (x[:GREEDY_B].to(dev) for x in left_padded_prompt(g, GREEDY_PROMPT))
+    args = (packed, cfg, tokens, modality, mask)
+    gen.greedy_spark_generate(*args, max_new_tokens=4)  # warm
+    reset_all_launches()
+    (toks, lengths), wall = _timed(lambda: gen.greedy_spark_generate(
+        *args, max_new_tokens=GREEDY_NEW))
+    launches = all_launches()
+    # top-k 1 keeps every logit tied with the largest, and the draw's noise
+    # picks among them: spark_generate at greedy's settings and generator seed
+    # gives its tokens; a second greedy call shows that the loop is
+    # deterministic, and another seed how soon the bf16 logits tie at the top
+    first_diff = lambda a: (lambda d: int(d[0]) if len(d) else None)((a != toks).any(0).nonzero())
+    again, _ = gen.greedy_spark_generate(*args, max_new_tokens=GREEDY_NEW)
+    other, _ = gen.spark_generate(*args, max_new_tokens=GREEDY_NEW, top_k=1, top_p=1.0,
+                                  temperature=1e-6,
+                                  generator=torch.Generator(device=dev).manual_seed(0))
+    reseeded, _ = gen.spark_generate(*args, max_new_tokens=GREEDY_NEW, top_k=1, top_p=1.0,
+                                     temperature=1e-6,
+                                     generator=torch.Generator(device=dev).manual_seed(7))
+    firsts = {"second_greedy_call": first_diff(again), "spark_generate_top_k1": first_diff(other),
+              "another_seed": first_diff(reseeded)}
+    same = firsts["spark_generate_top_k1"] is None
+    r = {"B": GREEDY_B, "prompt": GREEDY_PROMPT, "new": GREEDY_NEW, "wall_s": wall,
+         "ms_a_token": 1e3 * wall / GREEDY_NEW, "tok_s": GREEDY_B * GREEDY_NEW / wall,
+         "lengths": lengths.tolist(), "launches": launches, "equal_top_k1": same,
+         "first_step_that_differs": firsts}
+    print(f"spark generate: greedy_spark_generate {GREEDY_C} x {GREEDY_L} bf16, B={GREEDY_B}, "
+          f"{GREEDY_PROMPT} + {GREEDY_NEW} tokens: {wall:.3f} s, {r['ms_a_token']:.2f} ms a "
+          f"token ({r['tok_s']:.1f} tok/s), lengths {r['lengths']}, launches {launches}; "
+          f"the first step where a row differs from it (None: none): {firsts} on {card}")
+    check(same, "spark generate: greedy != spark_generate at top-k 1")
+    want = {"wkv7_fwd": GREEDY_L, "wkv7_step": GREEDY_L * GREEDY_NEW}
+    check({k: launches[k] for k in want} == want and launches["decode_b64_step"] == 0,
+          f"spark generate: launches {launches}, want {want}")
+    del params, packed
+    torch.cuda.empty_cache()
+    return r
+
+
+def long_of_tree(what: str = "long", phases=None) -> dict:
+    """Phases 30-34 alone (or the named ones of them) with whichever
+    rwkvtts_torch is imported, TF32 off; prints their numbers and each
+    phase's seconds as one JSON line."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(card)
+    out = {}
+    for fn in (phase_cosy_long, phase_long_train, phase_seed_tts, phase_ranking_demo,
+               phase_spark_generate):
+        if phases is None or fn.__name__ in phases:
+            t = time.perf_counter()
+            out[fn.__name__] = fn(dev, card)
+            out[fn.__name__ + "_s"] = round(time.perf_counter() - t, 1)
+    print(f"{what}: " + json.dumps(out))
+    return out
+
+
 def build_log(log: str) -> None:
     """Print ptxas's registers, shared memory and spills of every kernel,
     and fail if a chunked WKV7 kernel (forward, backward, fused pair)
@@ -4805,6 +5345,11 @@ def main() -> None:
     asr_run = run(phase_asr_main, dev, card)
     tasks_small = run(phase_train_tasks_small, dev)
     tasks_run = run(phase_train_tasks_main, dev, card)
+    long_run = run(phase_cosy_long, dev, card)
+    mark_run = run(phase_long_train, dev, card)
+    seed_run = run(phase_seed_tts, dev, card)
+    rank_run = run(phase_ranking_demo, dev, card)
+    greedy_run = run(phase_spark_generate, dev, card)
 
     rows["wkv7_fwd"]["launches"] = main_run["launches"]["wkv7_fwd"]
     rows["wkv7_fwd"]["train_forward"] = train_fwd  # its training-shape numbers, unfused path
@@ -4858,6 +5403,17 @@ def main() -> None:
             t: r["fused_launches_a_step"][i] for t, r in tasks_run.items()
             if "fused_launches_a_step" in r}
     rows["wkv7_step"]["asr_s2s_two_tower"] = asr_small["wkv7_step_times"]
+    for lang in ("zh", "en"):
+        rows["wkv7_fwd"][f"launches_cosy_long_{lang}"] = long_run[lang]["launches"]["wkv7_fwd"]
+        rows["decode_b1_step"][f"launches_cosy_long_{lang}"] = long_run[lang]["launches"][
+            "decode_b1_step"]
+    for i, key in enumerate(("wkv7_fused_fwd", "wkv7_fused_bwd")):
+        rows[key]["launches_mark_phonemes_a_step"] = mark_run["fused_launches_a_step"][i]
+    for key in ("wkv7_fwd", "wkv7_step"):
+        rows[key]["launches_seed_tts_a_transcribe"] = seed_run["launches_a_transcribe"][key]
+        rows[key]["launches_greedy_spark_generate"] = greedy_run["launches"][key]
+    for key in ("wkv7_fwd", "wkv7_fused_fwd", "wkv7_fused_bwd", "wkv7_step"):
+        rows[key]["launches_ranking_demo"] = rank_run["launches"][key]
     print("train: " + json.dumps({k: v for k, v in train_run.items()
                                   if k not in ("launches", "unfused")}))
     print("cosy: " + json.dumps({k: v for k, v in cosy_run.items() if k != "launches"}))
@@ -4869,6 +5425,9 @@ def main() -> None:
     print("xy: " + json.dumps(xy_run))
     print("asr: " + json.dumps({"small": asr_small, "main": asr_run}))
     print("train tasks: " + json.dumps({"small": tasks_small, "main": tasks_run}))
+    print("long: " + json.dumps({"cosy_long": long_run, "mark_phonemes": mark_run,
+                                 "seed_tts": seed_run, "ranking_demo": rank_run,
+                                 "greedy_spark_generate": greedy_run}))
     seconds["total"] = round(time.perf_counter() - t_start, 1)
     print("phase seconds: " + json.dumps(seconds))
     print(json.dumps({"kernels": [rows[k] for k in ("wkv7_fwd", "decode_b64_step", "wkv7_bwd",

@@ -18,6 +18,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from rwkvtts_torch.data import text_frontend
 from rwkvtts_torch.data.properties import properties_string
 from rwkvtts_torch.models.spark import (
     MOD_GLOBAL,
@@ -142,23 +143,29 @@ def _props_prefix(row, tokenizer) -> Sample:
 
 
 def collate_with_properties(rows, tokenizer, eos_id: int, pad_to=None, packed=False,
-                            mark_phonemes_prob: float = 0.0):
+                            mark_phonemes_prob: float = 0.0, rng=None,
+                            mark_phonemes_strict: bool = True):
     """Two samples a row: the plain one, and the SPCT-prefixed one whose
     labels also cover the 32 global tokens. Rows also carry age, gender,
     emotion, pitch and speed. The tokenizer must know the 64 SPCT tokens
     (``get_world_tokenizer(n_spct=64)``).
 
-    ``mark_phonemes_prob`` > 0 (the reference's pronunciation-controllable
-    fine-tune) needs the text frontend's phoneme marking, which the port
-    does not have yet (ROADMAP queue 1, item 10): it raises rather than
-    train on unmarked text."""
-    if mark_phonemes_prob > 0:
-        raise NotImplementedError(
-            "mark_phonemes_prob > 0 needs data/text_frontend.mark_phonemes, not ported yet "
-            "(ROADMAP queue 1, item 10)")
+    ``mark_phonemes_prob`` > 0 is the reference's pronunciation-controllable
+    fine-tune: with that probability a row's text is marked by
+    ``text_frontend.mark_phonemes`` before it is tokenized, both draws from
+    `rng`, a ``random.Random`` that the caller keeps across batches (the
+    JAX collator falls back to a module-level ``Random(0)``; here it is
+    required). Strict by default: a zh character outside the pinyin table
+    raises rather than train on a non-pronunciation."""
+    if mark_phonemes_prob > 0 and rng is None:
+        raise ValueError("collate_with_properties: mark_phonemes_prob > 0 needs rng, "
+                         "a random.Random")
     samples: List[Sample] = []
     for r in rows:
-        text_ids = tokenizer.encode(r["text"])
+        text = r["text"]
+        if mark_phonemes_prob > 0 and rng.random() < mark_phonemes_prob:
+            text = text_frontend.mark_phonemes(text, rng=rng, strict=mark_phonemes_strict)
+        text_ids = tokenizer.encode(text)
         samples.append(_spark_core(text_ids, r["global_tokens"], r["semantic_tokens"], eos_id))
         s = _props_prefix(r, tokenizer)
         core = _spark_core(text_ids, r["global_tokens"], r["semantic_tokens"], eos_id,

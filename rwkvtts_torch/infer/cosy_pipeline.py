@@ -18,12 +18,16 @@
     for an SFM flow) over prompt + tokens, an optional speed resize of the
     mel, HiFT;
   * the modes: ``synthesize`` (zero-shot), ``synthesize_cross_lingual``,
-    ``synthesize_instruct``, ``voice_convert`` (no LM) and
+    ``synthesize_instruct``, ``voice_convert`` (no LM),
     ``synthesize_streaming`` (``infer/streaming.stream_synthesize``, on the
-    same decode route).
+    same decode route) and ``synthesize_long`` (long text: the frontend
+    once, ``text_frontend.basic_normalize`` and ``split_paragraph`` into
+    chunks of at most ``token_max_n`` text tokens, each chunk synthesized
+    with its own prefill, so the state never grows across sentences, and
+    the wavs and tokens concatenated).
 
 Not ported: int4 decode weights and the sampler's bf16 candidate ranking
-(the constructor refuses them) and ``synthesize_long``.
+(the constructor refuses them).
 
 Everything runs on `device`, a CUDA device unless the caller asks for
 the CPU (where the kernels' plain versions run). Random draws come from the
@@ -35,7 +39,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,7 +49,7 @@ from rwkvtts_torch.codecs import dsp
 from rwkvtts_torch.codecs import flow as flow_lib
 from rwkvtts_torch.codecs import hift as hift_lib
 from rwkvtts_torch.codecs import s3_tokenizer as s3
-from rwkvtts_torch.data import cosy_collator
+from rwkvtts_torch.data import cosy_collator, text_frontend
 from rwkvtts_torch.data.spark_collator import pad_prompts_left
 from rwkvtts_torch.infer import generate as gen
 from rwkvtts_torch.models import rwkv7
@@ -55,6 +59,10 @@ from rwkvtts_torch.utils import audio_io
 
 @dataclasses.dataclass
 class CosyTTSResult:
+    """A synthesis: the wav, its speech tokens, the wall seconds of each
+    stage (the frontend's only where this call ran it) and the RTF of the
+    stages after the frontend; ``synthesize_long`` also gives its text
+    chunks and each chunk's token count."""
     wav: np.ndarray
     sample_rate: int
     speech_tokens: np.ndarray
@@ -62,6 +70,9 @@ class CosyTTSResult:
     llm_s: float
     flow_s: float
     vocoder_s: float
+    frontend_s: float = 0.0
+    chunks: Optional[List[str]] = None
+    chunk_tokens: Optional[List[int]] = None
 
 
 class CosyPipeline:
@@ -167,6 +178,15 @@ class CosyPipeline:
         its head), the mel resized to 1 / `speed` of its
         frames (jax.image.resize's antialiased linear, ``dsp.resize_linear``),
         then HiFT (noise from `seed + 1`)."""
+        mel = self.token2mel(speech_tokens, prompt_tokens, prompt_mel, spk_embedding,
+                             n_timesteps, seed, speed)
+        return self.mel2wav(mel, seed)
+
+    @torch.inference_mode()
+    def token2mel(self, speech_tokens, prompt_tokens=(), prompt_mel=None, spk_embedding=None,
+                  n_timesteps: int = 10, seed: int = 0, speed: float = 1.0) -> torch.Tensor:
+        """``token2wav``'s flow stage: the mel (1, frames, n_mels) on the
+        device."""
         if self.flow_params is None or self.hift_params is None:
             raise RuntimeError("flow / HiFT parameters not loaded")
         fcfg, dev = self.flow_cfg, self.device
@@ -192,6 +212,11 @@ class CosyPipeline:
                 prompt_mel.shape[0], spk, noise, n_timesteps=n_timesteps)
         if speed != 1.0:  # the reference's speed control (cli/model.py:398-401)
             mel = dsp.resize_linear(mel, int(mel.shape[1] / speed))
+        return mel
+
+    @torch.inference_mode()
+    def mel2wav(self, mel: torch.Tensor, seed: int = 0) -> np.ndarray:
+        """``token2wav``'s vocoder stage: HiFT (noise from `seed + 1`)."""
         wav, _ = hift_lib.inference(self.hift_params, self.hift_cfg, mel,
                                     generator=torch.Generator().manual_seed(seed + 1))
         return wav[0].cpu().numpy()
@@ -236,20 +261,67 @@ class CosyPipeline:
         prompt features. `lm_prompt_tokens` replaces the speech prompt the
         LM sees ([] for the cross-lingual and instruct modes); the flow
         always gets the whole prompt condition."""
+        t0 = time.perf_counter()
         if prompt_wav is not None:
             prompt_speech_tokens, prompt_mel, spk_embedding = self.frontend_zero_shot(prompt_wav)
         if lm_prompt_tokens is None:
             lm_prompt_tokens = prompt_speech_tokens
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
         tokens = self.generate_speech_tokens(text, prompt_text, lm_prompt_tokens, seed=seed,
                                              **gen_kw)
-        t1 = time.perf_counter()
-        wav = self.token2wav(tokens, prompt_speech_tokens, prompt_mel, spk_embedding, seed=seed,
-                             speed=speed)
         t2 = time.perf_counter()
+        mel = self.token2mel(tokens, prompt_speech_tokens, prompt_mel, spk_embedding, seed=seed,
+                             speed=speed)
+        if self.device.type == "cuda":  # the flow's time, not HiFT's
+            torch.cuda.synchronize(self.device)
+        t3 = time.perf_counter()
+        wav = self.mel2wav(mel, seed)
+        t4 = time.perf_counter()
         return CosyTTSResult(wav=wav, sample_rate=self.sample_rate, speech_tokens=tokens,
-                             rtf=(t2 - t0) / max(len(wav) / self.sample_rate, 1e-9),
-                             llm_s=t1 - t0, flow_s=t2 - t1, vocoder_s=0.0)
+                             rtf=(t4 - t1) / max(len(wav) / self.sample_rate, 1e-9),
+                             llm_s=t2 - t1, flow_s=t3 - t2, vocoder_s=t4 - t3,
+                             frontend_s=t1 - t0)
+
+    def synthesize_long(
+        self,
+        text: str,
+        prompt_text: str = "",
+        prompt_wav: Optional[np.ndarray] = None,
+        prompt_speech_tokens: Sequence[int] = (),
+        prompt_mel: Optional[np.ndarray] = None,
+        spk_embedding: Optional[np.ndarray] = None,
+        seed: int = 0,
+        token_max_n: int = 80,
+        **gen_kw,
+    ) -> CosyTTSResult:
+        """Long text (the reference's cli/cosyvoice.py:78-99): the
+        zero-shot frontend once, the text normalized
+        (``text_frontend.basic_normalize``) and split at sentence ends into
+        chunks of at most `token_max_n` text tokens (``split_paragraph``
+        with the pipeline's tokenizer), chunk i synthesized with
+        ``synthesize(..., seed=seed + i)`` in the same voice, each with its
+        own prefill (the state never grows across sentences), and the wavs
+        and the tokens concatenated. `gen_kw` reaches every chunk's
+        ``synthesize`` (e.g. ``max_new_tokens``, ``speed``)."""
+        t0 = time.perf_counter()
+        if prompt_wav is not None:
+            prompt_speech_tokens, prompt_mel, spk_embedding = self.frontend_zero_shot(prompt_wav)
+        frontend_s = time.perf_counter() - t0
+        norm = text_frontend.basic_normalize(text)
+        chunks = text_frontend.split_paragraph(norm, self.tok.encode,
+                                               token_max_n=token_max_n) or [norm]
+        t1 = time.perf_counter()
+        parts = [self.synthesize(chunk, prompt_text, None, prompt_speech_tokens, prompt_mel,
+                                 spk_embedding, seed=seed + i, **gen_kw)
+                 for i, chunk in enumerate(chunks)]
+        wav = np.concatenate([r.wav for r in parts])
+        return CosyTTSResult(
+            wav=wav, sample_rate=self.sample_rate,
+            speech_tokens=np.concatenate([r.speech_tokens for r in parts]),
+            rtf=(time.perf_counter() - t1) / max(len(wav) / self.sample_rate, 1e-9),
+            llm_s=sum(r.llm_s for r in parts), flow_s=sum(r.flow_s for r in parts),
+            vocoder_s=sum(r.vocoder_s for r in parts), frontend_s=frontend_s, chunks=chunks,
+            chunk_tokens=[len(r.speech_tokens) for r in parts])
 
     def synthesize_cross_lingual(
         self,

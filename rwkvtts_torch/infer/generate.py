@@ -1,6 +1,7 @@
 """Autoregressive generation (counterpart of rwkvtts_tpu/infer/generate.py):
 Spark B=64 batched generation (``spark_generate_mega_b64``), Spark
-generation of any batch through the model's decode step with an early
+generation of any batch through the model's decode step, all steps
+(``spark_generate``, ``greedy_spark_generate``) or with an early
 exit between chunks (``spark_prefill_carry`` + ``spark_decode_chunk``,
 ``spark_generate_early_exit``), the voice designer's global-token draw
 (``spark_global_generate``); Cosy generation with RAS sampling on either
@@ -179,6 +180,45 @@ def spark_decode_chunk(
         h, state = rwkv7.decode_step(params, bb, spark.decode_embed(params, cfg, tok), state)
         n = n + 1
     return (h, state, done, n), torch.stack(toks, 1), done
+
+
+def spark_generate(
+    params, cfg: spark.SparkTTSConfig, tokens: torch.Tensor, modality: torch.Tensor,
+    attention_mask: torch.Tensor, *,
+    max_new_tokens: int = 1024,
+    min_new_tokens: int = 0,
+    temperature: float = 1.0,
+    top_k: int = 50,
+    top_p: float = 0.95,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched Spark semantic-token generation of any batch (the JAX
+    package's XLA route): the prefill of the left-padded prompt (B, T)
+    (the WKV7 forward kernel on a card), then `max_new_tokens` steps of
+    ``spark_decode_chunk`` through ``rwkv7.decode_step`` (the WKV step
+    kernel on a card), each step's decode included, as JAX's scan runs
+    them; no early exit. `params` may be the model's tree or
+    ``rwkv7.pack_decode_params``'s. Draws from `generator` or from
+    `noise[step]` (per-step Gumbel noise of the sampler's candidate shape).
+    Returns (generated (B, max_new_tokens), lengths (B,)) on the device;
+    after EOS a row repeats EOS."""
+    carry = spark_prefill_carry(params, cfg, tokens, modality, attention_mask)
+    _, out, _ = spark_decode_chunk(params, cfg, carry, chunk_len=max_new_tokens,
+                                   min_new_tokens=min_new_tokens, temperature=temperature,
+                                   top_k=top_k, top_p=top_p, generator=generator, noise=noise)
+    return out, _eos_lengths(out, cfg.eos_token_id, max_new_tokens)
+
+
+def greedy_spark_generate(params, cfg: spark.SparkTTSConfig, tokens: torch.Tensor,
+                          modality: torch.Tensor, attention_mask: torch.Tensor, **kw):
+    """Greedy ``spark_generate``, as JAX's: temperature 1e-6 and top-k 1,
+    so logits that tie at the top after the scaling (bf16 logits do) are
+    drawn among by noise from a generator seeded 0 on the tokens' device;
+    `kw` as ``spark_generate``'s (``max_new_tokens``, ``min_new_tokens``)."""
+    g = torch.Generator(device=tokens.device).manual_seed(0)
+    return spark_generate(params, cfg, tokens, modality, attention_mask, temperature=1e-6,
+                          top_k=1, top_p=1.0, generator=g, **kw)
 
 
 def spark_generate_early_exit(

@@ -17,10 +17,14 @@ text RWKV-7 checkpoint. Checkpoints rotate under <run-dir>/ckpt, metrics
 go to <run-dir>/metrics.jsonl, and ``--resume`` continues from the newest
 checkpoint, mid-epoch data position included.
 
+``--mark-phonemes-prob`` marks the spark_properties task's texts with
+their pronunciation (``text_frontend.mark_phonemes``), the draws from one
+``random.Random(--seed)`` kept across batches; another task refuses it
+(the JAX CLI ignores it there).
+
 Not here: the webdataset format and inline tokenization (``--data-format``,
 ``--codec-dir``), ``--remat-policy``, wandb, the device mesh and
-multi-host flags, and the phoneme marking of ``--mark-phonemes-prob`` > 0
-(refused); ``--no-layer-unroll`` and ``--wkv-mm`` are TPU layout and
+multi-host flags; ``--no-layer-unroll`` and ``--wkv-mm`` are TPU layout and
 precision devices without a counterpart.
 """
 from __future__ import annotations
@@ -30,6 +34,7 @@ import functools
 import importlib
 import logging
 import math
+import random
 import signal
 from typing import Callable
 
@@ -80,8 +85,10 @@ def build_model(task: str, args, device: torch.device):
 
 def build_collate(task: str, args, model_cfg) -> Callable:
     """The task's jsonl collator. Cosy's prompt-drop coin comes from one
-    numpy generator seeded with --seed; S2S batches alternate audio and
-    text, the first one audio, as the JAX CLI's toggle does."""
+    numpy generator seeded with --seed, spark_properties' phoneme marking
+    from one ``random.Random(--seed)`` (with --seed 0 the JAX CLI's
+    module-level ``Random(0)`` in a fresh process); S2S batches alternate
+    audio and text, the first one audio, as the JAX CLI's toggle does."""
     from rwkvtts_torch.utils.tokenizer import get_world_tokenizer
 
     tok = get_world_tokenizer(n_spct=64 if task in ("spark_properties", "spark_global") else 0)
@@ -90,8 +97,11 @@ def build_collate(task: str, args, model_cfg) -> Callable:
 
         fn = {"spark": sc.collate_plain, "spark_properties": sc.collate_with_properties,
               "spark_global": sc.collate_global_tokens}[task]
+        kw = {}
+        if task == "spark_properties" and getattr(args, "mark_phonemes_prob", 0.0) > 0:
+            kw = dict(mark_phonemes_prob=args.mark_phonemes_prob, rng=random.Random(args.seed))
         return functools.partial(fn, tokenizer=tok, eos_id=model_cfg.eos_token_id,
-                                 pad_to=args.pad_to, packed=args.packed)
+                                 pad_to=args.pad_to, packed=args.packed, **kw)
     if task == "cosy":
         from rwkvtts_torch.data import cosy_collator as cc
 
@@ -182,15 +192,15 @@ def main(argv=None):
     p.add_argument("--drop-prompt-audio-rate", type=float, default=0.5,
                    help="cosy: the probability that a batch drops its prompts")
     p.add_argument("--mark-phonemes-prob", type=float, default=0.0,
-                   help="phoneme marking of the text; > 0 is not ported yet (refused)")
+                   help="spark_properties: the probability that a row's text is marked "
+                        "with its pronunciation")
     p.add_argument("--max-rows", type=int, default=None)
     p.add_argument("--dry-run", action="store_true",
                    help="load model and data, run one collated batch through the "
                         "train step, then exit")
     args = p.parse_args(argv)
-    if args.mark_phonemes_prob > 0:
-        p.error("--mark-phonemes-prob > 0 needs the text frontend's phoneme marking, "
-                "not ported yet (ROADMAP queue 1, item 10)")
+    if args.mark_phonemes_prob > 0 and args.task != "spark_properties":
+        p.error("--mark-phonemes-prob marks the texts of --task spark_properties only")
 
     metrics_lib.setup_logging()
     device = pick_device(args.device)

@@ -11,6 +11,7 @@ adapter layer, a 1-layer Whisper of width 32), f32. The weights are JAX's
 seed, carried to the port by ``bridge.asr_params_from_numpy``. Tolerances:
 forward values 1e-5 relative, gradients 1e-4 relative to each leaf's
 largest, tokens exact."""
+import concurrent.futures
 import dataclasses
 import functools
 
@@ -120,9 +121,23 @@ def _jax_loss_grad(jcfg):
 # JAX's transcribe compiled once a config and setting (cfg, max_new_tokens,
 # temperature, top_k, top_p static); eager, it dispatches op by op for seconds
 _jax_transcribe = jax.jit(jasr.transcribe, static_argnums=(1, 3, 4, 5, 6))
+# XLA's backend at -O0: the same programs, compiled in about two thirds of the time
+_FAST = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 
 
-def test_pack_whisper_and_hf_import():
+def _compiled(jobs, options=_FAST):
+    """{name: (jitted function, its arguments[, keyword arguments])} ->
+    {name: the compiled program, called with the non-static arguments}:
+    traced here one after another, compiled with XLA's `options` (-O0 by
+    default) on threads (XLA compiles outside the GIL)."""
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        futures = {k: ex.submit(lambda lo: lo.compile(compiler_options=options),
+                                job[0].lower(*job[1], **(job[2] if len(job) > 2 else {})))
+                   for k, job in jobs.items()}
+        return {k: f.result() for k, f in futures.items()}
+
+
+def test_pack_whisper_and_hf_import(monkeypatch):
     """Named checks: right_align_pack = JAX's (three segments with labels,
     then an overflow: more valid positions than T_total) and differentiable;
     whisper.apply with a mask within 1e-5 of JAX's, its padded outputs
@@ -156,25 +171,30 @@ def test_pack_whisper_and_hf_import():
 
     jcfg = jwhisper.WhisperEncoderConfig(**MINI_WHISPER)
     tcfg = whisper.WhisperEncoderConfig(**MINI_WHISPER)
-    jp = jax.tree.map(np.asarray, jwhisper.init_params(jax.random.PRNGKey(1), jcfg))
+    # JAX's init and apply as compiled programs (op by op, each primitive
+    # would compile on its own)
+    jp = jax.tree.map(np.asarray, jax.jit(jwhisper.init_params, static_argnums=1)(
+        jax.random.PRNGKey(1), jcfg))
+    japply = jax.jit(jwhisper.apply, static_argnums=1, compiler_options=_FAST)
     tp = bridge.codec_params_from_numpy(jp)
     mel = rng.standard_normal((2, 20, 8)).astype(np.float32)
     mask = np.ones((2, 20), np.int32)
     mask[1, 12:] = 0
     got = whisper.apply(tp, tcfg, torch.from_numpy(mel), torch.from_numpy(mask))
-    want = np.asarray(jwhisper.apply(jax.tree.map(jnp.asarray, jp), jcfg, jnp.asarray(mel),
-                                     jnp.asarray(mask)))
+    want = np.asarray(japply(jax.tree.map(jnp.asarray, jp), jcfg, jnp.asarray(mel),
+                             jnp.asarray(mask)))
     assert got.shape == (2, 10, 32) and got.dtype == torch.float32
     assert _rel(got.numpy(), want) <= RTOL
     assert not got[1, 6:].any()
     # bf16 weights: the encoder still computes in f32 (JAX's promotion)
     got16 = whisper.apply(rwkv7.tree_map(lambda t: t.to(torch.bfloat16), tp), tcfg,
                           torch.from_numpy(mel), torch.from_numpy(mask))
-    want16 = jwhisper.apply(jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), jp), jcfg,
-                            jnp.asarray(mel), jnp.asarray(mask))
+    want16 = japply(jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), jp), jcfg,
+                    jnp.asarray(mel), jnp.asarray(mask))
     assert got16.dtype == torch.float32 and want16.dtype == jnp.float32
     assert _rel(got16.numpy(), np.asarray(want16)) <= RTOL
 
+    monkeypatch.setenv("USE_TF", "0")  # no TensorFlow import under transformers (seconds)
     from transformers import WhisperConfig
     from transformers.models.whisper.modeling_whisper import WhisperEncoder
 
@@ -208,15 +228,25 @@ def test_asr_forward_grads_and_transcribe():
     one), and sampled on
     the whisper variant at temperature 1, top-k 8, top-p 0.9 on JAX's
     Gumbel draws (tokens and lengths exact)."""
-    n = 6
+    n, key = 6, jax.random.PRNGKey(7)
+    setups, jobs = {}, {}
     for variant, seed in (("whisper", 3), ("discrete", 4)):
         jcfg, tcfg = _configs(variant)
         jp, tp = _weights(jcfg, seed)
         batch = _batch(variant)
         jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        jt = {k: v for k, v in jb.items() if not k.startswith("label")}
+        setups[variant] = (jcfg, tcfg, jp, tp, batch, jb, jt)
+        jobs[variant, "loss"] = (_jax_loss_grad(jcfg), (jp, jb))
+        sampling = (jp, jcfg, jt, n, 0.0, 0, 0.0) if variant == "discrete" else (
+            jp, jcfg, jt, n, 1.0, 8, 0.9, key)
+        jobs[variant, "transcribe"] = (_jax_transcribe, sampling)
+    programs = _compiled(jobs)
+    for variant in ("whisper", "discrete"):
+        jcfg, tcfg, jp, tp, batch, jb, jt = setups[variant]
         tb = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
 
-        loss_j, grads_j = _jax_loss_grad(jcfg)(jp, jb)
+        loss_j, grads_j = programs[variant, "loss"](jp, jb)
         leaves = rwkv7.tree_map(lambda t: t.clone().requires_grad_(), tp)
         loss_t, n_t = asr.forward(leaves, tcfg, tb)
         loss_t.backward()
@@ -233,10 +263,9 @@ def test_asr_forward_grads_and_transcribe():
             err = np.abs(g - want).max()
             assert err <= GRAD_RTOL * max(np.abs(want).max(), 1e-6), (variant, path, err)
 
-        jt = {k: v for k, v in jb.items() if not k.startswith("label")}
         tt = {k: v for k, v in tb.items() if not k.startswith("label")}
         if variant == "discrete":
-            toks_j, len_j = _jax_transcribe(jp, jcfg, jt, n, 0.0, 0, 0.0)
+            toks_j, len_j = programs[variant, "transcribe"](jp, jt)
             toks_t, len_t = asr.transcribe(tp, tcfg, tt, max_new_tokens=n)
             np.testing.assert_array_equal(toks_t.numpy(), np.asarray(toks_j))
             np.testing.assert_array_equal(len_t.numpy(), np.asarray(len_j))
@@ -246,8 +275,7 @@ def test_asr_forward_grads_and_transcribe():
             np.testing.assert_array_equal(asr.transcribe(tp, tcfg, no_mask, max_new_tokens=n)[0],
                                           asr.transcribe(tp, tcfg, ones, max_new_tokens=n)[0])
         else:
-            key = jax.random.PRNGKey(7)
-            toks_j, len_j = _jax_transcribe(jp, jcfg, jt, n, 1.0, 8, 0.9, key)
+            toks_j, len_j = programs[variant, "transcribe"](jp, jt, key)
             noise = np.stack([np.asarray(jax.random.gumbel(k, (3, 8), jnp.float32))
                               for k in jax.random.split(key, n)])
             toks_t, len_t = asr.transcribe(tp, tcfg, tt, max_new_tokens=n, temperature=1.0,

@@ -12,6 +12,8 @@ losses 1e-4 relative (f32 and f64), gradients in f64 1e-4 relative to each
 leaf's largest (exactly zero where JAX's is zero; 1e-9 of the largest
 gradient for a leaf whose gradient is zero but for rounding), other
 collated arrays exact."""
+import concurrent.futures
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -153,6 +155,12 @@ def _losses(jp, tp, jcfg, tcfg, b, dtype, seeds, grads=True):
                                       jnp.asarray(cond))))
     sfm_grad = jax.jit(with_grad(
         lambda p, key: jflow.sfm_loss(p, jcfg, key, *(jb[k] for k in args))))
+    # traced here, the two compiled at once on threads (XLA compiles outside the GIL)
+    key0 = jax.random.PRNGKey(seeds[0])
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        cfm_grad, sfm_grad = [f.result() for f in [
+            ex.submit(lo.compile) for lo in (cfm_grad.lower(jp["estimator"], key0),
+                                              sfm_grad.lower(jp, key0))]]
     port_fn = _port_grads if grads else lambda fn, tree: (*fn(tree), None)
     as_t = lambda a: torch.from_numpy(np.array(a))
     for seed in seeds:
@@ -207,8 +215,11 @@ def test_cfm_and_sfm_losses_match_jax():
 
     jp = jax.tree.map(jnp.asarray, npp)
     tb = {k: torch.from_numpy(v) for k, v in b.items()}
-    # the JAX adapter is sfm_loss on the rng it is given; the port's on its generator
-    total_j, n_j = jtrainer.LOSS_FNS["sfm_flow"](jp, jcfg, b, jax.random.PRNGKey(1))
+    # the JAX adapter is sfm_loss on the rng it is given; the port's on its
+    # generator (the JAX adapter as one compiled program: op by op, each of its
+    # primitives would compile on its own)
+    adapter = jax.jit(lambda p, batch, key: jtrainer.LOSS_FNS["sfm_flow"](p, jcfg, batch, key))
+    total_j, n_j = adapter(jp, b, jax.random.PRNGKey(1))
     assert np.isfinite(float(total_j))
     loss, n = trainer.LOSS_FNS["sfm_flow"](tp, tcfg, tb, torch.Generator().manual_seed(3))
     want, _ = flow.sfm_loss(tp, tcfg, *(tb[k] for k in ("tokens", "token_mask", "feat",

@@ -27,6 +27,8 @@ from rwkvtts_torch.data import s2s_collator
 from rwkvtts_torch.models import rwkv7, s2s
 from rwkvtts_torch.models import tts_two_tower as tt
 
+from test_torch_asr import _compiled
+
 torch.set_num_threads(2)
 
 RTOL, GRAD_RTOL = 1e-5, 1e-4
@@ -75,6 +77,7 @@ def _gumbel(key, steps, B, width):
 _S2S_GEN = jax.jit(js2s.generate, static_argnums=(1,), static_argnames=(
     "is_text", "max_new_tokens", "temperature", "top_k", "top_p", "eos_id"))
 _TT_GEN = jax.jit(jtt.generate, static_argnums=(1, 5, 6, 7, 8))
+_S2S_FWD = jax.jit(js2s.forward, static_argnums=(1,), static_argnames=("is_text",))
 
 
 def test_s2s_matches_jax():
@@ -97,34 +100,44 @@ def test_s2s_matches_jax():
     mask[2, 5:] = 0
     labels = rng.integers(0, 24, (3, 8))
     T = lambda a: torch.from_numpy(a)
+    B, n = 3, 8
+    # row 2 is 5 tokens, right-padded to 8 as collate_s2s pads; greedy
+    greedy = dict(is_text=False, max_new_tokens=n, temperature=0.0, eos_id=-1)
+    key = jax.random.PRNGKey(0)
+    sampled = ((True, dict(top_k=0, top_p=1.0), 40), (False, dict(top_k=5, top_p=0.9), 5))
+    jids, jmask = jnp.asarray(ids), jnp.asarray(mask)
+    jobs = {"alone": (_S2S_GEN, (jp, jcfg, jnp.asarray(ids[2:, :5]), key), greedy),
+            "padded": (_S2S_GEN, (jp, jcfg, jids, key), dict(greedy, attention_mask=jmask))}
+    for is_text, gen_kw, _ in sampled:
+        lab = jnp.asarray(labels % (40 if is_text else 24))
+        jobs["forward", is_text] = (_S2S_FWD, (jp, jcfg, jids, jmask), dict(is_text=is_text))
+        jobs["loss", is_text] = (_S2S_FWD, (jp, jcfg, jids, jmask),
+                                 dict(is_text=is_text, labels=lab))
+        jobs["generate", is_text] = (_S2S_GEN, (jp, jcfg, jids, jax.random.PRNGKey(2 if is_text else 3)),
+                                     dict(is_text=is_text, max_new_tokens=n, temperature=1.0,
+                                          eos_id=3, **gen_kw))
+    programs = _compiled(jobs)
     for is_text in (True, False):
         got = s2s.forward(tp, tcfg, T(ids), T(mask), is_text=is_text)
-        want = js2s.forward(jp, jcfg, jnp.asarray(ids), jnp.asarray(mask), is_text=is_text)
+        want = programs["forward", is_text](jp, jids, jmask)
         assert got.shape == (3, 8, 40 if is_text else 24) and _rel(got, want) <= RTOL
         lab = labels % (40 if is_text else 24)
         loss_t, n_t = s2s.forward(tp, tcfg, T(ids), T(mask), is_text=is_text, labels=T(lab))
-        loss_j, n_j = js2s.forward(jp, jcfg, jnp.asarray(ids), jnp.asarray(mask),
-                                   is_text=is_text, labels=jnp.asarray(lab))
+        loss_j, n_j = programs["loss", is_text](jp, jids, jmask, labels=jnp.asarray(lab))
         assert int(n_t) == int(n_j) and _rel(loss_t.item(), float(loss_j)) <= RTOL
 
-    B, n = 3, 8
-    for is_text, gen_kw, width in ((True, dict(top_k=0, top_p=1.0), 40),
-                                   (False, dict(top_k=5, top_p=0.9), 5)):
+    for is_text, gen_kw, width in sampled:
         key = jax.random.PRNGKey(2 if is_text else 3)
-        toks_j, len_j = _S2S_GEN(jp, jcfg, jnp.asarray(ids), key, is_text=is_text,
-                                 max_new_tokens=n, temperature=1.0, eos_id=3, **gen_kw)
+        toks_j, len_j = programs["generate", is_text](jp, jids, key)
         toks_t, len_t = s2s.generate(tp, tcfg, T(ids), is_text=is_text, max_new_tokens=n,
                                      temperature=1.0, eos_id=3, noise=_gumbel(key, n, B, width),
                                      **gen_kw)
         np.testing.assert_array_equal(toks_t.numpy(), np.asarray(toks_j))
         np.testing.assert_array_equal(len_t.numpy(), np.asarray(len_j))
 
-    # row 2 is 5 tokens, right-padded to 8 as collate_s2s pads; greedy
-    greedy = dict(is_text=False, max_new_tokens=n, temperature=0.0, eos_id=-1)
     key = jax.random.PRNGKey(0)
-    alone_j, _ = _S2S_GEN(jp, jcfg, jnp.asarray(ids[2:, :5]), key, **greedy)
-    padded_j, _ = _S2S_GEN(jp, jcfg, jnp.asarray(ids), key, attention_mask=jnp.asarray(mask),
-                           **greedy)
+    alone_j, _ = programs["alone"](jp, jnp.asarray(ids[2:, :5]), key)
+    padded_j, _ = programs["padded"](jp, jids, key, attention_mask=jmask)
     assert not np.array_equal(np.asarray(padded_j)[2], np.asarray(alone_j)[0])
     alone_t, _ = s2s.generate(tp, tcfg, T(ids[2:, :5]), **greedy)
     padded_t, _ = s2s.generate(tp, tcfg, T(ids), attention_mask=T(mask), **greedy)
@@ -133,8 +146,7 @@ def test_s2s_matches_jax():
     left = np.ascontiguousarray(mask[:, ::-1])
     np.testing.assert_array_equal(
         s2s.generate(tp, tcfg, T(ids), attention_mask=T(left), **greedy)[0].numpy(),
-        np.asarray(_S2S_GEN(jp, jcfg, jnp.asarray(ids), key, attention_mask=jnp.asarray(left),
-                            **greedy)[0]))
+        np.asarray(programs["padded"](jp, jids, key, attention_mask=jnp.asarray(left))[0]))
 
 
 def test_two_tower_matches_jax():
@@ -157,9 +169,22 @@ def test_two_tower_matches_jax():
     audio_mask = np.array([[0, 0, 1, 1, 1, 1], [1, 1, 1, 1, 1, 0]], np.int32)
     labels = np.where(audio_mask > 0, audio_ids, -100)
     args = [text_ids, text_mask, audio_ids, audio_mask, labels]
+    B, n = 2, 8
+    ones = np.ones((B, 5), np.int32)
+    key = jax.random.PRNGKey(6)
+    # row 1's prompt is 4 tokens, right-padded to 5 as collate_two_tower pads
+    pad_mask = np.array([[1, 1, 1, 1, 1], [1, 1, 1, 1, 0]], np.int32)
+    jids = jnp.asarray(text_ids)
+    programs = _compiled({
+        "loss": (jax.jit(jax.value_and_grad(lambda p, *a: jtt.forward(p, jcfg, *a)[0])),
+                 (jp, *map(jnp.asarray, args))),
+        "generate": (_TT_GEN, (jp, jcfg, jids, jnp.asarray(ones), key, n, 1.0, 50, 0.95)),
+        "alone": (_TT_GEN, (jp, jcfg, jnp.asarray(text_ids[1:, :4]), jnp.ones((1, 4), jnp.int32),
+                            key, n, 1.0, 1, 0.95)),
+        "padded": (_TT_GEN, (jp, jcfg, jids, jnp.asarray(pad_mask), key, n, 1.0, 1, 0.95))},
+        options={})
 
-    loss_j, grads_j = jax.jit(jax.value_and_grad(
-        lambda p, *a: jtt.forward(p, jcfg, *a)[0]))(jp, *map(jnp.asarray, args))
+    loss_j, grads_j = programs["loss"](jp, *map(jnp.asarray, args))
     leaves = rwkv7.tree_map(lambda t: t.clone().requires_grad_(), tp)
     loss_t, n_t = tt.forward(leaves, tcfg, *map(torch.from_numpy, args))
     loss_t.backward()
@@ -171,23 +196,16 @@ def test_two_tower_matches_jax():
         err = np.abs(g - gj[path]).max()
         assert err <= GRAD_RTOL * max(np.abs(gj[path]).max(), 1e-6), (path, err)
 
-    B, n = 2, 8
-    ones = np.ones((B, 5), np.int32)
-    key = jax.random.PRNGKey(6)
-    toks_j, len_j = _TT_GEN(jp, jcfg, jnp.asarray(text_ids), jnp.asarray(ones), key, n, 1.0, 50,
-                            0.95)
+    toks_j, len_j = programs["generate"](jp, jids, jnp.asarray(ones), key)
     toks_t, len_t = tt.generate(tp, tcfg, torch.from_numpy(text_ids), torch.from_numpy(ones),
                                 max_new_tokens=n, noise=_gumbel(key, n, B, 50))
     np.testing.assert_array_equal(toks_t.numpy(), np.asarray(toks_j))
     np.testing.assert_array_equal(len_t.numpy(), np.asarray(len_j))
     assert int(toks_t.max()) < tt.AUDIO_VOCAB
 
-    # row 1's prompt is 4 tokens, right-padded to 5 as collate_two_tower pads
-    pad_mask = np.array([[1, 1, 1, 1, 1], [1, 1, 1, 1, 0]], np.int32)
-    alone_j, _ = _TT_GEN(jp, jcfg, jnp.asarray(text_ids[1:, :4]), jnp.ones((1, 4), jnp.int32),
-                         key, n, 1.0, 1, 0.95)
-    padded_j, _ = _TT_GEN(jp, jcfg, jnp.asarray(text_ids), jnp.asarray(pad_mask), key, n, 1.0, 1,
-                          0.95)
+    alone_j, _ = programs["alone"](jp, jnp.asarray(text_ids[1:, :4]), jnp.ones((1, 4), jnp.int32),
+                                   key)
+    padded_j, _ = programs["padded"](jp, jids, jnp.asarray(pad_mask), key)
     assert not np.array_equal(np.asarray(padded_j)[1], np.asarray(alone_j)[0])
     greedy = dict(max_new_tokens=n, top_k=1, generator=torch.Generator().manual_seed(0))
     alone_t, _ = tt.generate(tp, tcfg, torch.from_numpy(text_ids[1:, :4]),

@@ -53,9 +53,10 @@ def test_prefill_matches_jax_pallas():
     jcfg, tcfg = _configs(wkv_impl="pallas", wkv_chunk=64)
     params = jax.tree.map(np.asarray, jspark.init_params(jax.random.PRNGKey(0), jcfg))
     tokens, modality, mask = _prompt(4, 20, seed=1)
-    h_j, st_j = jspark.prefill(jax.tree.map(jnp.asarray, params), jcfg,
-                               jnp.asarray(tokens), jnp.asarray(modality),
-                               jnp.asarray(mask))
+    # one compiled program (op by op, each primitive would compile on its own)
+    h_j, st_j = jax.jit(jspark.prefill, static_argnums=1)(
+        jax.tree.map(jnp.asarray, params), jcfg, jnp.asarray(tokens), jnp.asarray(modality),
+        jnp.asarray(mask))
     tp = bridge.params_from_numpy(params)
     h_t, st_t = tspark.prefill(tp, tcfg, torch.from_numpy(tokens),
                                torch.from_numpy(modality), torch.from_numpy(mask))

@@ -34,6 +34,8 @@ from rwkvtts_torch.train import optimizer as topt
 from rwkvtts_torch.train import trainer as ttrainer
 from rwkvtts_torch.utils import tokenizer as ttokenizer
 
+from test_torch_asr import _compiled
+
 torch.set_num_threads(2)
 
 
@@ -186,12 +188,14 @@ def spark_slice():
     rows = _rows(6, 2)
     batches = {"padded": collate(rows, pad_to=128), "packed": collate(rows, pad_to=192,
                                                                      packed=True)}
+    jp = jax.tree.map(jnp.asarray, params)
+    grad_fn = jax.jit(jax.value_and_grad(lambda p, b: jspark_loss_fn(p, jcfg, b, None),
+                                         has_aux=True))
+    jbs = {name: {k: jnp.asarray(v) for k, v in batch.items()} for name, batch in batches.items()}
+    programs = _compiled({name: (grad_fn, (jp, jb)) for name, jb in jbs.items()})
     ref = {}
-    for name, batch in batches.items():
-        jb = {k: jnp.asarray(v) for k, v in batch.items()}
-        (loss, n), grads = jax.jit(jax.value_and_grad(
-            lambda p: jspark_loss_fn(p, jcfg, jb, None), has_aux=True))(
-                jax.tree.map(jnp.asarray, params))
+    for name, jb in jbs.items():
+        (loss, n), grads = programs[name](jp, jb)
         ref[name] = (float(loss), int(n), _flat(jax.tree.map(np.asarray, grads)))
     return params, batches, ref
 

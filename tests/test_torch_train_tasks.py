@@ -16,6 +16,7 @@ n_valid and collated arrays exact, optimizer parameters 1e-6."""
 import concurrent.futures
 import dataclasses
 import json
+import random
 from types import SimpleNamespace
 
 import jax
@@ -81,12 +82,14 @@ def _weights(init, jcfg, seed, to_port=bridge.params_from_numpy):
     return npp, to_port(npp)
 
 
-def _jax_programs(cases):
+def _jax_results(cases, ex):
     """jax.value_and_grad of the JAX trainer's adapter for each case's task,
     with the batch's static '_'-metadata merged in as Trainer._step_for
     does; one program for cases that share task, config, metadata and
-    shapes. The programs are traced one after another and compiled on
-    threads (XLA compiles outside the GIL)."""
+    shapes. The programs are traced one after another here, and compiled
+    and run on `ex`'s threads (XLA compiles and runs outside the GIL), so
+    the caller goes on meanwhile. Returns a future a case of JAX's
+    (loss, n_valid, gradients as numpy in JAX's tree)."""
     def key(case):
         task, jcfg, _, _, _, batch = case[:6]
         meta = tuple(sorted((k, v) for k, v in batch.items() if k.startswith("_")))
@@ -103,13 +106,18 @@ def _jax_programs(cases):
         fn = jax.jit(jax.value_and_grad(loss, has_aux=True))
         return fn.lower(jax.tree.map(jnp.asarray, npp), _jax_batch(batch))
 
+    def run(case):
+        npp, batch = case[3], case[5]
+        (loss, n), grads = programs[key(case)].result()(jax.tree.map(jnp.asarray, npp),
+                                                         _jax_batch(batch))
+        return float(loss), int(n), jax.tree.map(np.asarray, grads)
+
     firsts = {key(c): c for c in reversed(cases)}
-    with concurrent.futures.ThreadPoolExecutor(4) as ex:
-        # trace here, compile there: each compile runs while the next traces
-        futures = {k: ex.submit(lambda lo: lo.compile(compiler_options=_FAST), lower(c))
-                   for k, c in firsts.items()}
-        programs = {k: f.result() for k, f in futures.items()}
-    return [programs[key(c)] for c in cases]
+    # trace here, compile there: each compile runs while the next traces; the
+    # runs queue behind every compile
+    programs = {k: ex.submit(lambda lo: lo.compile(compiler_options=_FAST), lower(c))
+                for k, c in firsts.items()}
+    return [ex.submit(run, c) for c in cases]
 
 
 def _jax_batch(batch):
@@ -126,13 +134,15 @@ def _port_loss_grads(task, tcfg, tp, batch):
                                  for p, g in zip(leaves, grads)}
 
 
-def _check_task(program, task, jcfg, tcfg, npp, tp, batch, to_port=bridge.params_from_numpy):
-    """Loss within 1e-4, n_valid exact, every gradient within 1e-4 of the
-    leaf's largest (a leaf the port leaves without gradient: JAX's is
-    zero). Returns JAX's gradients, numpy, in JAX's tree."""
-    (loss_j, n_j), grads_j = program(jax.tree.map(jnp.asarray, npp), _jax_batch(batch))
-    loss_j, n_j, grads_j = float(loss_j), int(n_j), jax.tree.map(np.asarray, grads_j)
-    loss_t, n_t, grads_t = _port_loss_grads(task, tcfg, tp, batch)
+def _check_task(jax_result, port_result, task, jcfg, tcfg, npp, tp, batch,
+                to_port=bridge.params_from_numpy):
+    """JAX's (loss, n_valid, gradients) against the port's
+    (``_port_loss_grads``): loss within 1e-4, n_valid exact, every gradient
+    within 1e-4 of the leaf's largest (a leaf the port leaves without
+    gradient: JAX's is zero). Returns JAX's gradients, numpy, in JAX's
+    tree."""
+    loss_j, n_j, grads_j = jax_result
+    loss_t, n_t, grads_t = port_result
     assert n_t == n_j, task
     assert abs(loss_t - loss_j) <= 1e-4 * abs(loss_j), (task, loss_t, loss_j)
     want = topt.flatten(bridge.params_to_numpy(to_port(grads_j)))
@@ -188,7 +198,8 @@ def _assert_batches_equal(a, b, what):
 def test_collators_match_jax():
     """Named checks: the properties and global-token collators padded and
     packed, equal to JAX's array for array (the SPCT tokenizer); the
-    properties collator refuses phoneme marking; Cosy's collator on the
+    properties collator's phoneme marking on one random.Random a side
+    (tests/test_torch_long_eval.py holds it further); Cosy's collator on the
     same numpy generator as JAX's over eight batches, dropping and keeping
     the prompts, padded and packed; the CLI's S2S toggle starts on an
     audio batch and alternates as JAX's does."""
@@ -199,8 +210,11 @@ def test_collators_match_jax():
             kw = dict(eos_id=8192, pad_to=pad_to, packed=packed)
             _assert_batches_equal(getattr(spark_collator, name)(rows, tt_, **kw),
                                   getattr(jsc, name)(rows, jt, **kw), f"{name} packed={packed}")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        spark_collator.collate_with_properties(rows, tt_, 8192, mark_phonemes_prob=0.3)
+    rt, rj = random.Random(5), random.Random(5)
+    kw = dict(eos_id=8192, pad_to=192, mark_phonemes_prob=0.5)
+    _assert_batches_equal(spark_collator.collate_with_properties(rows, tt_, rng=rt, **kw),
+                          jsc.collate_with_properties(rows, jt, rng=rj, **kw), "marked")
+    assert rt.random() == rj.random()
 
     rows = _task_rows("cosy", 2, 3)
     jw, tw = jtok.get_world_tokenizer(), get_world_tokenizer()
@@ -317,7 +331,12 @@ def test_task_losses_and_grads_match_jax():
                                          is_text=is_text, pad_to=48)
         cases.append(("s2s", jcfg, tcfg, npp, tp, batch))
 
-    grads = [_check_task(prog, *case) for prog, case in zip(_jax_programs(cases), cases)]
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+        jax_results = _jax_results(cases, ex)
+        # the port's side meanwhile, on this thread
+        port_results = [_port_loss_grads(case[0], case[2], case[4], case[5]) for case in cases]
+        grads = [_check_task(r.result(), p, *case)
+                 for r, p, case in zip(jax_results, port_results, cases)]
     for case, g in zip(cases, grads):
         if case[0] == "s2s":
             used, unused = ("head", "audio_head") if case[5]["_is_text"] else ("audio_head", "head")
@@ -368,7 +387,7 @@ def test_low_memory_optimizers_frozen_encoder_and_cli(tmp_path):
     outside the optimizer state; train.cli.main --dry-run for each of the
     nine tasks at tiny width (with both low-memory modes once); a
     --warm-start dry run = JAX's spark_from_text on the same checkpoint;
-    --mark-phonemes-prob refused."""
+    --mark-phonemes-prob refused outside spark_properties."""
     jspc = jspark.default_config(hidden_size=C, num_layers=L, dtype=jnp.float32)
     npp, _ = _weights(jspark.init_params, jspc, 30)
     kw = dict(peak_lr=1e-3, final_lr=1e-4, warmup_steps=1, total_steps=4, weight_decay=0.1,
@@ -376,9 +395,9 @@ def test_low_memory_optimizers_frozen_encoder_and_cli(tmp_path):
     for mode in ("mu_bf16", "adafactor"):
         tx = jopt.build_optimizer(npp, low_memory=mode, **kw)
         update = jax.jit(lambda g, s, p: (lambda u, s2: (optax.apply_updates(p, u), s2))(
-            *tx.update(g, s, p)))
+            *tx.update(g, s, p)), compiler_options=_FAST)
         jp = jax.tree.map(jnp.asarray, npp)
-        js = tx.init(jp)
+        js = jax.jit(tx.init)(jp)  # one program (op by op, each leaf's zeros would compile)
         tp = bridge.params_from_numpy(npp)
         opt = topt.AdamW(tp, low_memory=mode, **kw)
         ts_ = opt.init(tp)
