@@ -41,7 +41,13 @@ text and the seed-tts eval: ``CosyPipeline.synthesize_long`` at the 1.5B
 pairing, the phoneme-marked Spark training through the train CLI, the
 seed-tts harness (``generate_testset``, ``evaluate_wer`` on the ASR model
 at asr-0.4B's widths, ``evaluate_sim`` on CAM++), the WER ranking demo, and
-greedy Spark generation at 1024 x 24.
+greedy Spark generation at 1024 x 24; then training from raw audio: a seeded
+corpus written as webdataset tars and streamed back through the C++ tar
+streamer, the offline token extractors on BiCodec, XY_Tokenizer, Higgs, S3
+and CAM++ at their published widths, Spark 1024 x 24 trained from the tars
+through the train CLI with BiCodec tokenizing inline (``--data-format
+webdataset --codec-dir``), and the trained model exported as one
+flat-vocabulary BlinkDL model.
 
 Phases, each printing its own lines; any failure raises, so the run exits
 non-zero and prints no result:
@@ -266,6 +272,34 @@ non-zero and prints no result:
              (matrices bf16), B = 8, 128 + 256 tokens: = spark_generate at
              top-k 1; 24 kernel-2 launches, 24 kernel-7 launches a step over
              256 steps; ms a token
+ 35. corpus  g++ of the tar streamer and the world-tokenizer trie (seconds);
+             64 seeded utterances of 3-20 s at 16 kHz with zh / en texts and
+             speaker properties through write_shards, 4 shards of 16;
+             stream_tars (the C++ streamer) = read_tars_plain (tarfile: keys,
+             texts, bit-identical audio), each one's MB/s; shard 0 cut half
+             way into a member: each whole sample once on both paths, the cut
+             sample dropped; the trie's ids = the Python matcher's on the
+             texts, each one's encode ms
+ 36. extract  extract_spark_tokens at BiCodecConfig() with the xlsr-53-shaped
+             frontend (and the model directory it is written to, ~1.3 GB),
+             run_sharded with 2 spawned workers = the single-process rows,
+             extract_xy_tokens at XYTokenizerConfig(), extract_higgs_tokens at
+             HiggsConfig() with a random hubert-base teacher, S3 rows and
+             CAM++ x-vector rows (2 a speaker) at their published widths: each codec's ms
+             per audio second, the rows' shapes and ranges
+ 37. train wds  train.cli --task spark --data-format webdataset --codec-dir
+             at 1024 x 24, B = 8 rows padded to 2048, 1 warm-up + 3 timed
+             steps: every row's inline tokens = phase 36's row of its key,
+             48 / 24 fused launches a step, none skipped; the inline
+             tokenization's ms and the step's apart, positions/s, peak
+             memory, the card's busy share with and without the tokenization
+             in front (torch.profiler, CUDA activity only, 3 steps each);
+             one spark_properties step over the tars through its own
+             collator (SPCT tokens)
+ 38. export  spark_to_flat of the trained model, blinkdl_to_rwkv7 on the
+             card: its logits on flat_ids_from_parts' ids = the Spark model's
+             semantic logits within 2e-2 of the largest (bf16), zeros beyond;
+             cast_fp32_to_bf16 of the export
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -3256,19 +3290,25 @@ def phase_cosy_serve_main(dev, card: str) -> dict:
     return out
 
 
-def trace_numbers(prof, wall_s: float) -> dict:
+def trace_numbers(prof, wall_s: float, kernels: str = "") -> dict:
     """From a torch.profiler run with CUDA activity: the device's busy
     share (the union of its kernel, copy and fill intervals over `wall_s`)
     and the host's synchronizing CUDA calls (their count and the
-    milliseconds the calling threads spent in them)."""
+    milliseconds the calling threads spent in them); with `kernels`, the
+    device ms a launch of each kernel whose name holds it (read from the
+    same events, without ``key_averages``)."""
     import collections
 
     spans, syncs = [], collections.Counter()
     sync_ms = 0.0
+    picked = collections.defaultdict(lambda: [0.0, 0])
     for e in prof.profiler.kineto_results.events():
         dt, name = e.device_type(), e.name()
         if getattr(dt, "name", str(dt)).endswith("CUDA"):
             spans.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+            if kernels and kernels in name:
+                picked[name][0] += e.duration_ns() / 1e6
+                picked[name][1] += 1
         elif "Synchronize" in name or name == "cudaMemcpy":
             syncs[name] += 1
             sync_ms += e.duration_ns() / 1e6
@@ -3279,8 +3319,11 @@ def trace_numbers(prof, wall_s: float) -> dict:
             busy_ns, end = busy_ns + b - a, b
         elif b > end:
             busy_ns, end = busy_ns + b - end, b
-    return {"device_busy_share": busy_ns / 1e9 / wall_s, "device_busy_s": busy_ns / 1e9,
-            "device_ops": len(spans), "syncs": dict(syncs), "sync_ms": sync_ms}
+    out = {"device_busy_share": busy_ns / 1e9 / wall_s, "device_busy_s": busy_ns / 1e9,
+           "device_ops": len(spans), "syncs": dict(syncs), "sync_ms": sync_ms}
+    if kernels:
+        out["device_ms_a_launch"] = {k[:60]: t / n for k, (t, n) in picked.items()}
+    return out
 
 
 def _cosy_serve_traffic(card, pipe, voices, clips, start_bytes) -> dict:
@@ -5270,6 +5313,589 @@ def long_of_tree(what: str = "long", phases=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 35-38. Training from raw audio: corpus -> tokens -> training -> export
+# ---------------------------------------------------------------------------
+
+# phase 35: a seeded corpus of 64 utterances at 16 kHz, 3-20 s each, written by
+# the port's write_shards in 4 shards of 16 (pcm16 wav + json: text, speaker,
+# language, the five speaker properties)
+CORPUS_N, CORPUS_PER_SHARD, CORPUS_S, CORPUS_SR = 64, 16, (3.0, 20.0), 16000
+CORPUS_TEXTS = ("今天的天气非常好，我们一起去公园散步吧。", "人工智能正在改变世界，语音合成技术让机器开口说话。",
+                "请在下午三点之前把报告发给我。", "这家餐厅的菜很好吃，价格也不贵。",
+                "The quick brown fox jumps over the lazy dog by the river bank.",
+                "Please call me when you arrive at the station tomorrow morning.",
+                "We expect more than one hundred people to attend the meeting.",
+                "Reading a good book on a rainy afternoon is a simple pleasure.")
+# the host C++ libraries of rwkvtts_torch/csrc/ (utils/native.py builds them)
+HOST_LIBRARIES = ("tar_stream", "world_tokenizer")
+# the cut shard: shard 0 cut half way into its sixth member (sample 2's json)
+CORPUS_CUT_MEMBER = 5
+# phase 37: Spark 1024 x 24 from the tars, B = 8 rows padded to 2048, the
+# warm-up, the timed steps and the step the CLI's metrics lag adds
+WDS_B, WDS_T, WDS_STEPS = 8, 2048, TASK_WARM + 1 + TASK_TIMED
+# the steps profiled with and without the inline tokenization
+WDS_PROFILED = 3
+# phase 36: CAM++ x-vector rows of at most 2 clips a speaker (the reference's
+# cap is 10 a speaker and language; 2 keeps the eager CAM++ to 16 clips)
+CAMPPLUS_CAP = 2
+# phase 38: the export's logits against the Spark model's, bf16 (the gates' 2e-2)
+EXPORT_TOL = 2e-2
+
+
+def corpus_samples(seed: int = 35) -> list:
+    """CORPUS_N utterances: a voiced tone (5 harmonics of a gliding f0, a
+    syllable-rate envelope) and a little noise, texts from CORPUS_TEXTS,
+    8 speakers, the five properties spark_properties reads."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(CORPUS_N):
+        n = int(rng.uniform(*CORPUS_S) * CORPUS_SR)
+        t = np.arange(n) / CORPUS_SR
+        f0 = rng.uniform(90, 260) * (1 + 0.08 * np.sin(2 * np.pi * rng.uniform(0.3, 1.0) * t))
+        phase = 2 * np.pi * np.cumsum(f0) / CORPUS_SR
+        env = 0.5 + 0.5 * np.abs(np.sin(2 * np.pi * rng.uniform(2, 5) * t))
+        wav = sum(np.sin(k * phase) / k for k in range(1, 6)) * env * 0.25
+        wav = (wav + 0.01 * rng.standard_normal(n)).astype(np.float32)
+        text = CORPUS_TEXTS[i % len(CORPUS_TEXTS)]
+        out.append({"__key__": f"utt{i:04d}", "audio": np.clip(wav, -1, 1), "text": text,
+                    "speaker": f"spk{i % 8}", "language": "zh" if ord(text[0]) > 127 else "en",
+                    "age": ("youth-adult", "middle-aged")[i % 2],
+                    "gender": ("female", "male")[(i // 2) % 2],
+                    "emotion": ("NEUTRAL", "HAPPY", "SAD")[i % 3],
+                    "pitch": float(rng.uniform(100, 260)), "speed": float(rng.uniform(2, 6))})
+    return out
+
+
+def _same_samples(a: list, b: list) -> bool:
+    import numpy as np
+
+    if [s["__key__"] for s in a] != [s["__key__"] for s in b]:
+        return False
+    for x, y in zip(a, b):
+        if x.keys() != y.keys():
+            return False
+        for k in x:
+            if isinstance(x[k], np.ndarray):
+                if x[k].dtype != y[k].dtype or not np.array_equal(x[k], y[k]):
+                    return False
+            elif x[k] != y[k]:
+                return False
+    return True
+
+
+def phase_corpus(dev, card: str, work: str) -> dict:
+    """The corpus side on the host: g++ of the tar streamer and the trie
+    (timed, where this process built them), the seeded corpus through
+    write_shards, stream_tars (the C++ streamer) = read_tars_plain (its
+    tarfile version: keys, texts, bit-identical audio) with each one's
+    MB/s, a shard cut inside a member (each whole sample once on both, the
+    cut sample dropped), the trie's ids = the plain Python matcher's on the
+    corpus texts and each one's encode ms."""
+    import tarfile
+
+    from rwkvtts_torch.data import corpus_tools, webdataset
+    from rwkvtts_torch.utils import native
+    from rwkvtts_torch.utils.profiling import PhaseTimer
+    from rwkvtts_torch.utils.tokenizer import WorldTokenizer
+
+    timer = PhaseTimer()
+    for name in HOST_LIBRARIES:
+        native.load(name)
+    builds = {k: round(v, 3) for k, v in native.build_seconds.items()}
+    with timer.phase("write shards"):
+        shards = corpus_tools.write_shards(corpus_samples(), os.path.join(work, "shards"),
+                                           samples_per_shard=CORPUS_PER_SHARD)
+    mb = sum(os.path.getsize(p) for p in shards) / 1e6
+    readers = {True: webdataset.stream_tars, False: webdataset.read_tars_plain}
+    streams = {}
+    for native_path, read in readers.items():
+        with timer.phase(read.__name__):
+            streams[native_path] = list(read(shards))
+    same = _same_samples(streams[True], streams[False])
+    audio_s = sum(len(s["audio"]) for s in streams[True]) / CORPUS_SR
+    rate = {k: mb / timer.stats[read.__name__].seconds for k, read in readers.items()}
+
+    cut = os.path.join(work, "cut.tar")
+    with tarfile.open(shards[0]) as tf:
+        m = [m for m in tf if m.isfile()][CORPUS_CUT_MEMBER]
+    with open(shards[0], "rb") as f:
+        data = f.read(m.offset_data + m.size // 2)
+    with open(cut, "wb") as f:
+        f.write(data)
+    cut_runs = {k: list(read([cut, shards[1]])) for k, read in readers.items()}
+    whole = CORPUS_CUT_MEMBER // 2
+    want_keys = ([f"utt{i:04d}" for i in range(whole)]
+                 + [f"utt{i:04d}" for i in range(CORPUS_PER_SHARD, 2 * CORPUS_PER_SHARD)])
+    cut_keys = [s["__key__"] for s in cut_runs[True]]
+    cut_same = _same_samples(cut_runs[True], cut_runs[False])
+
+    tok = WorldTokenizer()
+    texts = [s["text"] for s in streams[True]]
+    ids = {}
+    for encode, name in ((tok.encode, "trie"), (tok.encode_plain, "python")):
+        with timer.phase(f"encode {name}"):
+            for _ in range(10):
+                ids[name] = [encode(t) for t in texts]
+    enc_ms = {k: 1e3 * timer.stats[f"encode {k}"].seconds / 10 for k in ("trie", "python")}
+    r = {"g++_s": builds, "shards": len(shards), "samples": len(streams[True]), "mb": mb,
+         "audio_s": audio_s, "native_mb_per_s": rate[True], "tarfile_mb_per_s": rate[False],
+         "native_equals_tarfile": same, "cut_keys": cut_keys, "cut_paths_equal": cut_same,
+         "trie_equals_python": ids["trie"] == ids["python"],
+         "encode_ms_a_pass": enc_ms, "timer": timer.summary()}
+    print(f"corpus: g++ {builds} s; {len(shards)} shards, {len(streams[True])} utterances, "
+          f"{audio_s:.1f} s of audio, {mb:.1f} MB; stream_tars (C++ streamer) {rate[True]:.1f} "
+          f"MB/s, read_tars_plain (tarfile) {rate[False]:.1f} MB/s (both decode the wavs), the "
+          f"same samples (keys, "
+          f"texts, bit-identical audio): {same}")
+    print(f"corpus: shard 0 cut half way into member {CORPUS_CUT_MEMBER}: {cut_keys[:whole + 1]} "
+          f"... ({len(cut_keys)} samples), streamer = tarfile: {cut_same}; the cut sample "
+          f"utt{whole:04d} is dropped by both")
+    print(f"corpus: the trie's ids = the Python matcher's on the {len(texts)} texts: "
+          f"{r['trie_equals_python']}; encode of the {len(texts)} texts: trie "
+          f"{enc_ms['trie']:.3f} ms, Python {enc_ms['python']:.3f} ms (host, on {card})")
+    check(same, "corpus: the C++ streamer's samples differ from tarfile's")
+    check(len(streams[True]) == CORPUS_N, f"corpus: {len(streams[True])} samples")
+    check(cut_keys == want_keys and cut_same, f"corpus: the cut shard gave {cut_keys}")
+    check(r["trie_equals_python"], "corpus: the trie's ids differ from the Python matcher's")
+    return {**r, "shard_paths": shards}
+
+
+def extract_configs():
+    """The codecs of phase 36 at their published widths: BiCodec with the
+    xlsr-53-shaped frontend, XY_Tokenizer, Higgs with a hubert-base-shaped
+    teacher, S3 and CAM++."""
+    from transformers import HubertConfig
+
+    from rwkvtts_torch.codecs import campplus as cp
+    from rwkvtts_torch.codecs import higgs
+    from rwkvtts_torch.codecs import s3_tokenizer as s3
+    from rwkvtts_torch.codecs import xy_tokenizer as xt
+
+    return {"bicodec": wav_codec_config(), "wav2vec2": xlsr53_config(),
+            "xy": xt.XYTokenizerConfig(), "higgs": higgs.HiggsConfig(),
+            "hubert": HubertConfig(), "s3": s3.S3TokenizerConfig(), "campplus": cp.CampplusConfig()}
+
+
+def phase_extract(dev, card: str, work: str, shards: list) -> dict:
+    """The offline extractors over the corpus on the card: BiCodec
+    (extract_spark_tokens, one utterance at a time; then run_sharded with 2
+    spawned workers reading the written model directory = the same rows),
+    XY_Tokenizer (batches of 8 padded to 30 s), Higgs (batches of 4, the
+    HuBERT teacher of a saved random hubert-base), S3 rows and CAM++
+    x-vector rows. Each codec's ms per audio second (after a warm-up batch),
+    rows' shapes and ranges."""
+    import threading
+
+    import numpy as np
+    from transformers import HubertModel
+
+    from rwkvtts_torch.codecs import bicodec, campplus as cp, higgs
+    from rwkvtts_torch.codecs import s3_tokenizer as s3
+    from rwkvtts_torch.codecs import xy_tokenizer as xt
+    from rwkvtts_torch.codecs.spark_tokenizer import SparkAudioTokenizer, Wav2Vec2Frontend
+    from rwkvtts_torch.data import corpus_tools, extract, webdataset
+    from rwkvtts_torch.utils.profiling import PhaseTimer
+
+    cfgs = extract_configs()
+    samples = list(webdataset.stream_tars(shards))
+    audio_s = sum(len(s["audio"]) for s in samples) / CORPUS_SR
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    timer = PhaseTimer()
+    out_dir = os.path.join(work, "rows")
+    os.makedirs(out_dir, exist_ok=True)
+    rows_of = lambda name: [json.loads(line) for line in open(os.path.join(out_dir, name))]
+
+    # BiCodec, and its model directory for phase 37 and the workers
+    codec = SparkAudioTokenizer(cfgs["bicodec"], bicodec.init_params(gen(0), cfgs["bicodec"]),
+                                Wav2Vec2Frontend.from_config(cfgs["wav2vec2"], seed=0, device=dev))
+    codec_dir = os.path.join(work, "Spark-TTS")
+    with timer.phase("write model dir"):
+        codec.save_pretrained(codec_dir)
+    dir_gb = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(codec_dir)
+                 for f in fs) / 1e9
+    codec.tokenize(samples[0]["audio"])
+    keyed = lambda s: {"__key__": s["__key__"]}
+    with timer.phase("bicodec", audio_seconds=audio_s):
+        extract.extract_spark_tokens(samples, codec, os.path.join(out_dir, "spark.jsonl"), keyed)
+    spark_rows = rows_of("spark.jsonl")
+    del codec
+    torch.cuda.empty_cache()
+
+    # the 2 spawned workers start (a CUDA context, the model directory read)
+    # while this process builds the other codecs; they are joined before
+    # those are timed
+    sharded_run = {}
+
+    def sharded_job():
+        with timer.phase("run_sharded 2 workers"):
+            sharded_run["rows"] = extract.run_sharded(
+                shards, extract.SparkTarWorker(codec_dir, device=str(dev),
+                                               properties=("__key__",)),
+                os.path.join(work, "sharded"), num_workers=2)
+
+    job = threading.Thread(target=sharded_job)
+    job.start()
+
+    def warm_then_time(name, fn, warm):
+        fn(warm, os.path.join(out_dir, f"warm_{name}.jsonl"))
+        torch.cuda.synchronize()
+        with timer.phase(name, audio_seconds=audio_s):
+            n = fn(samples, os.path.join(out_dir, f"{name}.jsonl"))
+            torch.cuda.synchronize()
+        return n
+
+    xcfg, hcfg, s3cfg, ccfg = cfgs["xy"], cfgs["higgs"], cfgs["s3"], cfgs["campplus"]
+    xp, hp = xt.init_params(gen(1), xcfg), higgs.init_params(gen(2), hcfg)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        HubertModel(cfgs["hubert"]).save_pretrained(os.path.join(work, "hubert"))
+    teacher = higgs.hubert_feature_fn(os.path.join(work, "hubert"), device=dev)
+    s3p, cpp = s3.init_params(gen(3), s3cfg), cp.init_params(gen(4), ccfg)
+    on_card = lambda w: torch.from_numpy(np.asarray(w, np.float32))[None].to(dev)
+    s3fn = lambda w: s3.tokenize(s3p, s3cfg, on_card(w))[0].cpu().numpy()
+    embed = lambda w: cp.embed_wav(cpp, ccfg, on_card(w))[0].cpu().numpy()
+    job.join()
+    n_sharded = sharded_run.get("rows", 0)
+    sharded = [json.loads(line) for p in shards
+               for line in open(os.path.join(work, "sharded", os.path.basename(p) + ".jsonl"))]
+
+    warm_then_time("xy", lambda s, o: extract.extract_xy_tokens(s, xcfg, xp, o), samples[:8])
+    warm_then_time("higgs", lambda s, o: extract.extract_higgs_tokens(s, hcfg, hp, teacher, o),
+                   samples[:4])
+    warm_then_time("s3", lambda s, o: extract.extract_cosy_tokens(s, s3fn, o), samples[:1])
+    # x-vector rows, at most CAMPPLUS_CAP a speaker and language (8 speakers)
+    embed(samples[0]["audio"])
+    xrow = corpus_tools.xvector_row_fn(embed, per_speaker_cap=CAMPPLUS_CAP)
+    t = time.perf_counter()
+    xvec, xvec_audio = [], 0
+    for smp in samples:
+        r = xrow(smp)
+        if r is not None:
+            xvec.append(r)
+            xvec_audio += len(smp["audio"])
+    torch.cuda.synchronize()
+    timer.stats["campplus"].calls, timer.stats["campplus"].seconds = 1, time.perf_counter() - t
+    timer.stats["campplus"].audio_seconds = xvec_audio / CORPUS_SR
+    del xp, hp, teacher, s3p, cpp
+    torch.cuda.empty_cache()
+
+    xy_rows, higgs_rows, s3_rows = rows_of("xy.jsonl"), rows_of("higgs.jsonl"), rows_of("s3.jsonl")
+    lens = [len(s["audio"]) for s in samples]
+
+    def frames(n: int) -> int:  # the wav2vec2 feature extractor's output length
+        for k, st in zip(cfgs["wav2vec2"].conv_kernel, cfgs["wav2vec2"].conv_stride):
+            n = (n - k) // st + 1
+        return n
+
+    ms = {k: 1e3 * v.rtf for k, v in timer.stats.items() if v.audio_seconds}
+    ok = {
+        "bicodec": len(spark_rows) == CORPUS_N and all(
+            len(r["global_tokens"]) == 32 and len(r["semantic_tokens"]) == frames(n)
+            and 0 <= min(r["semantic_tokens"]) and max(r["semantic_tokens"]) < 8192
+            for r, n in zip(spark_rows, lens)),
+        "xy": [np.shape(r["audio_tokens"]) for r in xy_rows] == [
+            (xcfg.nq, max(min(n, 30 * CORPUS_SR) // 1280, 1)) for n in lens],
+        "higgs": [np.shape(r["audio_tokens"]) for r in higgs_rows] == [
+            (hcfg.nq, max(n // hcfg.hop_length, 1)) for n in lens],
+        "s3": len(s3_rows) == CORPUS_N and all(
+            0 < len(r["tts_speech_tokens"]) and max(r["tts_speech_tokens"]) < s3cfg.vocab_size
+            for r in s3_rows),
+        "campplus": len(xvec) == 8 * CAMPPLUS_CAP and all(
+            len(r["embedding"]) == ccfg.embedding_size and np.isfinite(r["embedding"]).all()
+            for r in xvec),
+    }
+    r = {"audio_s": audio_s, "ms_per_audio_s": ms, "rows_ok": ok,
+         "sharded_rows": n_sharded, "sharded_equal": sharded == spark_rows,
+         "model_dir_gb": dir_gb, "timer": timer.summary()}
+    print(f"extract: {CORPUS_N} utterances, {audio_s:.1f} s of audio on {card}: ms per audio "
+          f"second " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f"; rows' shapes and "
+          f"ranges {ok}")
+    print(f"extract: the model directory ({dir_gb:.2f} GB) written in "
+          f"{timer.stats['write model dir'].seconds:.2f} s; run_sharded, 2 spawned workers: "
+          f"{n_sharded} rows in {timer.stats['run_sharded 2 workers'].seconds:.2f} s, = the "
+          f"single-process rows: {r['sharded_equal']}")
+    check(all(ok.values()), f"extract: rows {ok}")
+    check(r["sharded_equal"] and n_sharded == CORPUS_N,
+          "extract: run_sharded's rows differ from the single-process rows")
+    return {**r, "codec_dir": codec_dir,
+            "spark_tokens": {row["__key__"]: (row["global_tokens"], row["semantic_tokens"])
+                             for row in spark_rows}}
+
+
+def phase_train_wds(dev, card: str, work: str, shards: list, extracted: dict) -> dict:
+    """python -m rwkvtts_torch.train.cli --task spark --data-format webdataset
+    --codec-dir <phase 36's directory> at 1024 x 24, B = 8 rows padded to
+    2048, one warm-up and TASK_TIMED timed steps: every row's inline tokens
+    = phase 36's extracted row of its key, 2 L / L fused launches a step,
+    no step skipped. The inline tokenization's ms and the step's apart,
+    positions/s, peak memory, and the card's busy share with and without
+    the inline tokenization in front (WDS_PROFILED steps each under
+    torch.profiler, CUDA activity only).
+    Then one spark_properties step over the same tars: its batch is
+    collate_with_properties' (two sequences a row, SPCT tokens)."""
+    import functools
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from rwkvtts_torch.data import inline_spark, spark_collator
+    from rwkvtts_torch.models.spark import MOD_TEXT
+    from rwkvtts_torch.ops import wkv7_cuda
+    from rwkvtts_torch.train import cli, trainer
+    from rwkvtts_torch.utils.profiling import PhaseTimer
+    from rwkvtts_torch.utils.tokenizer import get_world_tokenizer
+
+    L, timer = TASK_L, PhaseTimer()
+    seen, batches, props, held = {}, [], [], {}
+    real = (inline_spark.tokenize_rows, spark_collator.collate_plain,
+            spark_collator.collate_with_properties, cli.inline_codec, cli.load_rows,
+            trainer.Trainer.save)
+
+    def tokenize_rows(rows, codec):
+        with timer.phase("inline tokenize"):
+            out = real[0](rows, codec)
+        seen.update({r["__key__"]: (r["global_tokens"], r["semantic_tokens"]) for r in out})
+        return out
+
+    def collate_plain(rows, *a, **k):
+        with timer.phase("collate"):
+            batch = real[1](rows, *a, **k)
+        batches.append(batch)
+        return batch
+
+    def collate_with_properties(rows, *a, **k):
+        batch = real[2](rows, *a, **k)
+        props.append(batch)
+        return batch
+
+    def inline_codec(d, device):
+        held["codec"] = real[3](d, device)
+        return held["codec"]
+
+    def load_rows(args):
+        held["rows"] = real[4](args)
+        return held["rows"]
+
+    (inline_spark.tokenize_rows, spark_collator.collate_plain,
+     spark_collator.collate_with_properties, cli.inline_codec, cli.load_rows) = (
+        tokenize_rows, collate_plain, collate_with_properties, inline_codec, load_rows)
+    trainer.Trainer.save = lambda self, epoch, batch: None
+    data = os.path.join(os.path.dirname(shards[0]), "*.tar")
+    wds = ("--data-format", "webdataset", "--codec-dir", extracted["codec_dir"], "--seed", "0")
+    try:
+        run_dir = os.path.join(work, "run")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        wkv7_cuda.reset_launches()
+        t0 = time.perf_counter()
+        tr = cli.main(_task_cli_args("spark", dev, data, run_dir, TASK_C, L, WDS_B, WDS_T,
+                                     wds + ("--max-rows", str(WDS_B * WDS_STEPS))))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = (wkv7_cuda.launches["wkv7_fused_fwd"], wkv7_cuda.launches["wkv7_fused_bwd"])
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        per_call = {k: 1e3 * v.seconds / v.calls for k, v in timer.stats.items()}
+        n_seen = len(seen)
+
+        # the card's busy share with the inline tokenization in front and on
+        # batches made before: WDS_PROFILED steps each under torch.profiler
+        # (CUDA activity only, the lightest trace), the same rows both times
+        tok = get_world_tokenizer()
+        collate = inline_spark.inline_collate(functools.partial(
+            real[1], tokenizer=tok, eos_id=8192, pad_to=WDS_T), held["codec"])
+        rows = held["rows"]
+        ready = [tr.to_device(collate(rows[i * WDS_B:(i + 1) * WDS_B]))
+                 for i in range(WDS_PROFILED)]
+        shares = {}
+        for name in ("inline", "ready"):
+            state = tr.state
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                for i in range(WDS_PROFILED):
+                    batch = (tr.to_device(collate(rows[i * WDS_B:(i + 1) * WDS_B]))
+                             if name == "inline" else ready[i])
+                    state, m = tr.step_fn(state, batch, tr.generator)
+                m["loss"].item()
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t1
+            shares[name] = {**trace_numbers(prof, prof_wall, kernels="wkv7_fused"),
+                            "wall_s": prof_wall}
+            tr.state = state
+        params, cfg = tr.state.params, tr.model_cfg
+        del tr
+        torch.cuda.empty_cache()
+
+        # one spark_properties step over the same tars
+        wkv7_cuda.reset_launches()
+        tr = cli.main(_task_cli_args("spark_properties", dev, data, os.path.join(work, "props"),
+                                     TASK_C, L, WDS_B // 2, WDS_T,
+                                     wds + ("--max-rows", str(WDS_B // 2), "--dry-run")))
+        torch.cuda.synchronize()
+        props_launches = (wkv7_cuda.launches["wkv7_fused_fwd"],
+                          wkv7_cuda.launches["wkv7_fused_bwd"])
+        del tr
+        torch.cuda.empty_cache()
+    finally:
+        (inline_spark.tokenize_rows, spark_collator.collate_plain,
+         spark_collator.collate_with_properties, cli.inline_codec, cli.load_rows,
+         trainer.Trainer.save) = real
+
+    n_steps = len(recs)
+    losses = [r["loss"] for r in recs]
+    t = [r["time"] for r in recs]
+    step_s = (t[n_steps - 2] - t[TASK_WARM - 1]) / TASK_TIMED
+    positions = [int(b["attention_mask"].sum()) for b in batches[:n_steps]]
+    tok_ms, col_ms = per_call["inline tokenize"], per_call["collate"]
+    mismatched = [k for k, v in seen.items() if extracted["spark_tokens"][k] != v]
+    pb = props[0] if props else {}
+    spct = bool(props) and bool(((pb["tokens"] >= 65536) & (pb["modality"] == MOD_TEXT)).any())
+    want = (2 * L * n_steps, L * n_steps)
+    r = {"losses": losses, "step_ms": 1e3 * step_s, "inline_tokenize_ms_a_step": tok_ms,
+         "collate_ms_a_step": col_ms, "train_step_ms": 1e3 * step_s - tok_ms - col_ms,
+         "positions_per_s": float(np.mean(positions)) / step_s, "positions_a_step": positions,
+         "peak_gib": peak / 2**30, "wall_s": wall, "rows_tokenized": n_seen,
+         "tokens_equal_extracted": not mismatched,
+         "fused_launches_a_step": [x / n_steps for x in launches],
+         "profiled": shares, "spark_properties": {
+             "batch_sequences": int(pb["tokens"].shape[0]) if props else 0, "spct": spct,
+             "fused_launches": props_launches}}
+    print(f"train wds: spark {TASK_C} x {L} from {len(shards)} tars with --codec-dir, {WDS_B} rows "
+          f"a step padded to {WDS_T}: losses {[round(x, 4) for x in losses]}; {r['step_ms']:.2f} "
+          f"ms a step over {TASK_TIMED} steps, of it the inline tokenization {tok_ms:.2f} ms and "
+          f"the collate {col_ms:.2f} ms, so the train step {r['train_step_ms']:.2f} ms; "
+          f"{r['positions_per_s']:.1f} positions/s ({positions} a step), peak memory "
+          f"{r['peak_gib']:.2f} GiB on {card}")
+    for name, s in shares.items():
+        per_step = lambda x: 1e3 * x / WDS_PROFILED
+        print(f"train wds: {WDS_PROFILED} steps {name}, profiled: {per_step(s['wall_s']):.2f} ms "
+              f"a step, the device busy {per_step(s['device_busy_s']):.2f} ms a step = "
+              f"{s['device_busy_share']:.3f}, {s['device_ops']} device ops, syncs {s['syncs']}; "
+              f"kernels 4-5 device ms a launch {s['device_ms_a_launch']}")
+    print(f"train wds: {n_seen} rows tokenized inline, each = phase 36's extracted row of "
+          f"its key: {not mismatched}; kernels 4 / 5 {launches} over {n_steps} steps; "
+          f"spark_properties over the tars: {r['spark_properties']}")
+    check(not mismatched, f"train wds: inline tokens differ from the extracted rows: {mismatched}")
+    check(n_seen == WDS_B * n_steps, f"train wds: {n_seen} rows tokenized")
+    check(n_steps == WDS_STEPS and all(math.isfinite(x) for x in losses)
+          and sum(int(x["skipped"]) for x in recs) == 0, f"train wds: steps {recs}")
+    check(launches == want, f"train wds: kernels 4 / 5 {launches}, want {want}")
+    check(spct and pb["tokens"].shape[0] == WDS_B and props_launches == (2 * L, L),
+          f"train wds: spark_properties {r['spark_properties']}")
+    return {**r, "params": params, "cfg": cfg}
+
+
+def phase_export(dev, card: str, work: str, trained: dict, extracted: dict) -> dict:
+    """The trained Spark parameters through spark_to_flat, then
+    blinkdl_to_rwkv7 as a flat-vocabulary model on the card: its logits on
+    flat_ids_from_parts' ids of a training row = the Spark model's semantic
+    logits within EXPORT_TOL of their largest (bf16 both), zeros beyond;
+    the launches of the two forwards; cast_fp32_to_bf16 of the export."""
+    import dataclasses
+
+    from rwkvtts_torch import bridge
+    from rwkvtts_torch.convert import rwkv7_ckpt, speech_init
+    from rwkvtts_torch.data import spark_collator
+    from rwkvtts_torch.models import rwkv7, spark
+    from rwkvtts_torch.utils.profiling import PhaseTimer
+    from rwkvtts_torch.utils.tokenizer import get_world_tokenizer
+
+    timer = PhaseTimer()
+    params, cfg = trained["params"], trained["cfg"]
+    with timer.phase("spark_to_flat"):
+        flat = speech_init.spark_to_flat(params, cfg)
+    fcfg = dataclasses.replace(cfg.backbone, vocab_size=flat["emb.weight"].shape[0])
+    with timer.phase("load flat"):
+        fparams = bridge.params_from_numpy(rwkv7_ckpt.blinkdl_to_rwkv7(flat, fcfg), dev)
+    key = sorted(extracted["spark_tokens"])[0]
+    glob, sem = extracted["spark_tokens"][key]
+    text = CORPUS_TEXTS[int(key[3:]) % len(CORPUS_TEXTS)]
+    tok = get_world_tokenizer()
+    batch = spark_collator.collate_plain([{"text": text, "global_tokens": glob,
+                                           "semantic_tokens": sem}], tok, 8192)
+    t_ids, g_ids, s_ids = speech_init.flat_ids_from_parts(tok.encode(text), glob, sem)
+    tag = speech_init.FLAT_TAG_BASE
+    ids = ([tag + spark.TAG_START_TTS] + t_ids + [tag + spark.TAG_GLOBAL] + g_ids
+           + [tag + spark.TAG_SEMANTIC] + s_ids)
+    tokens = torch.from_numpy(batch["tokens"][:, :len(ids)]).to(dev)
+    modality = torch.from_numpy(batch["modality"][:, :len(ids)]).to(dev)
+    reset_all_launches()
+    with torch.no_grad(), timer.phase("forwards"):
+        want = spark.forward(params, cfg, tokens, modality).float() @ params["head"].float()
+        got = (rwkv7.forward(fparams, fcfg, input_ids=torch.tensor([ids], device=dev)).float()
+               @ fparams["head"].float())
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in all_launches().items() if v}
+    V = cfg.semantic_vocab_size
+    err = float((got[..., :V] - want).abs().max()) / float(want.abs().max())
+    tail = float(got[..., V:].abs().max())
+    src, dst = os.path.join(work, "flat.pth"), os.path.join(work, "flat_bf16.pth")
+    with timer.phase("cast_fp32_to_bf16"):
+        torch.save({k: torch.from_numpy(v) for k, v in flat.items()}, src)
+        n_cast = rwkv7_ckpt.cast_fp32_to_bf16(src, dst)
+    gb = (os.path.getsize(src) / 1e9, os.path.getsize(dst) / 1e9)
+    r = {"positions": len(ids), "vocab": fcfg.vocab_size, "rel_err": err, "tail_max": tail,
+         "launches": launches, "tensors": len(flat), "cast": n_cast, "gb_fp32_bf16": gb,
+         "timer": timer.summary()}
+    print(f"export: spark_to_flat of the trained {TASK_C} x {TASK_L} model: {len(flat)} tensors, "
+          f"vocabulary {fcfg.vocab_size}; the flat model's logits on {len(ids)} positions of "
+          f"{key} vs the Spark model's semantic logits: {err:.3e} of the largest (limit "
+          f"{EXPORT_TOL}), beyond the semantic ids {tail}; launches {launches}; "
+          f"cast_fp32_to_bf16: {n_cast} tensors cast, {gb[0]:.2f} -> {gb[1]:.2f} GB; "
+          f"{r['timer']} on {card}")
+    check(got.shape[1] == want.shape[1] == len(ids), "export: positions differ")
+    check(err <= EXPORT_TOL and tail == 0.0, f"export: logits {err:.3e}, tail {tail}")
+    check(n_cast == len(flat), f"export: {n_cast} of {len(flat)} tensors cast")
+    del fparams, flat
+    torch.cuda.empty_cache()
+    return r
+
+
+def corpus_phases(dev, card: str, run) -> dict:
+    """Phases 35-38 in one temporary directory (the shards, the model
+    directory, the rows, the run), removed at the end; `run(phase, *args)`
+    keeps each phase's seconds."""
+    with tempfile.TemporaryDirectory() as work:
+        corpus = run(phase_corpus, dev, card, work)
+        extracted = run(phase_extract, dev, card, work, corpus["shard_paths"])
+        trained = run(phase_train_wds, dev, card, work, corpus["shard_paths"], extracted)
+        exported = run(phase_export, dev, card, work, trained, extracted)
+    corpus.pop("shard_paths")
+    for key in ("codec_dir", "spark_tokens"):
+        extracted.pop(key)
+    for key in ("params", "cfg"):
+        trained.pop(key)
+    torch.cuda.empty_cache()
+    return {"corpus": corpus, "extract": extracted, "train": trained, "export": exported}
+
+
+def corpus_of_tree(what: str = "raw audio") -> dict:
+    """Phases 35-38 alone with whichever rwkvtts_torch is imported, TF32
+    off; prints their numbers and each phase's seconds as one JSON line."""
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(card)
+    seconds = {}
+
+    def run(phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        seconds[phase.__name__] = round(time.perf_counter() - t, 1)
+        return out
+
+    out = corpus_phases(dev, card, run)
+    print(f"{what}: " + json.dumps({**out, "seconds": seconds}))
+    return out
+
+
 def build_log(log: str) -> None:
     """Print ptxas's registers, shared memory and spills of every kernel,
     and fail if a chunked WKV7 kernel (forward, backward, fused pair)
@@ -5289,7 +5915,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs an NVIDIA GPU")
+    import concurrent.futures
+
     from rwkvtts_torch import _build
+    from rwkvtts_torch.utils import native
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5311,10 +5940,16 @@ def main() -> None:
         seconds[phase.__name__] = round(time.perf_counter() - t, 1)
         return out
 
-    _build.library()
+    # the host C++ libraries (tar streamer, tokenizer trie) build with g++
+    # while nvcc builds the kernels
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(lambda: [native.load(n) for n in HOST_LIBRARIES])
+        _build.library()
+        host.result()
     lib_path = _build.library_path()
     print(f"build: {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.last_build_seconds:.1f} s) -> {lib_path.name}")
+          f"(nvcc {_build.last_build_seconds:.1f} s) -> {lib_path.name}; g++ of the host "
+          f"libraries {native.build_seconds} s")
     build_log(lib_path.with_suffix(".log").read_text())
     seconds["build"] = round(time.perf_counter() - t0, 1)
 
@@ -5350,6 +5985,7 @@ def main() -> None:
     seed_run = run(phase_seed_tts, dev, card)
     rank_run = run(phase_ranking_demo, dev, card)
     greedy_run = run(phase_spark_generate, dev, card)
+    raw_run = corpus_phases(dev, card, run)
 
     rows["wkv7_fwd"]["launches"] = main_run["launches"]["wkv7_fwd"]
     rows["wkv7_fwd"]["train_forward"] = train_fwd  # its training-shape numbers, unfused path
@@ -5414,6 +6050,12 @@ def main() -> None:
         rows[key]["launches_greedy_spark_generate"] = greedy_run["launches"][key]
     for key in ("wkv7_fwd", "wkv7_fused_fwd", "wkv7_fused_bwd", "wkv7_step"):
         rows[key]["launches_ranking_demo"] = rank_run["launches"][key]
+    for i, key in enumerate(("wkv7_fused_fwd", "wkv7_fused_bwd")):
+        rows[key]["launches_train_wds_a_step"] = raw_run["train"]["fused_launches_a_step"][i]
+        rows[key]["launches_train_wds_spark_properties"] = raw_run["train"][
+            "spark_properties"]["fused_launches"][i]
+    for key, n in raw_run["export"]["launches"].items():
+        rows[key]["launches_export_forwards"] = n
     print("train: " + json.dumps({k: v for k, v in train_run.items()
                                   if k not in ("launches", "unfused")}))
     print("cosy: " + json.dumps({k: v for k, v in cosy_run.items() if k != "launches"}))
@@ -5428,6 +6070,7 @@ def main() -> None:
     print("long: " + json.dumps({"cosy_long": long_run, "mark_phonemes": mark_run,
                                  "seed_tts": seed_run, "ranking_demo": rank_run,
                                  "greedy_spark_generate": greedy_run}))
+    print("raw audio: " + json.dumps(raw_run))
     seconds["total"] = round(time.perf_counter() - t_start, 1)
     print("phase seconds: " + json.dumps(seconds))
     print(json.dumps({"kernels": [rows[k] for k in ("wkv7_fwd", "decode_b64_step", "wkv7_bwd",

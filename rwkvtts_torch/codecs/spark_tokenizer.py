@@ -81,6 +81,40 @@ def bicodec_config_from_yaml(path: Union[str, Path]) -> bicodec.BiCodecConfig:
     )
 
 
+def bicodec_config_to_yaml(cfg: bicodec.BiCodecConfig, path: Union[str, Path]) -> None:
+    """A BiCodecConfig -> the config.yaml ``bicodec_config_from_yaml`` reads."""
+    import dataclasses
+
+    import yaml
+
+    def stack(s):
+        return {"input_channels": s.input_channels, "vocos_dim": s.vocos_dim,
+                "vocos_intermediate_dim": s.vocos_intermediate_dim,
+                "vocos_num_layers": s.vocos_num_layers, "out_channels": s.out_channels,
+                "sample_ratios": list(s.sample_ratios), "condition_dim": s.condition_dim,
+                "use_tanh_at_final": s.use_tanh_at_final}
+
+    w, spk = cfg.wave, cfg.speaker
+    doc = {"audio_tokenizer": {
+        "mel_params": dataclasses.asdict(cfg.mel),
+        "encoder": stack(cfg.encoder), "prenet": stack(cfg.prenet),
+        "postnet": stack(cfg.postnet),
+        "quantizer": {"codebook_size": cfg.quantizer_codebook_size,
+                      "codebook_dim": cfg.quantizer_codebook_dim,
+                      "input_dim": cfg.quantizer_input_dim,
+                      "commitment": cfg.quantizer_commitment},
+        "decoder": {"input_channel": w.input_channel, "channels": w.channels,
+                    "rates": list(w.rates), "kernel_sizes": list(w.kernel_sizes)},
+        "speaker_encoder": {"input_dim": spk.input_dim, "out_dim": spk.out_dim,
+                            "latent_dim": spk.latent_dim, "token_num": spk.token_num,
+                            "fsq_levels": list(spk.fsq_levels),
+                            "fsq_num_quantizers": spk.fsq_num_quantizers}},
+        "ref_segment_duration": cfg.ref_segment_duration,
+        "latent_hop_length": cfg.latent_hop_length}
+    with open(path, "w") as f:
+        yaml.safe_dump(doc, f)
+
+
 class Wav2Vec2Frontend:
     """wav2vec2 features: the waveform normalised to zero mean and unit
     variance (the feature extractor's do_normalize, eps 1e-7), then the
@@ -152,6 +186,22 @@ class SparkAudioTokenizer:
         w2v_dir = model_dir / "wav2vec2-large-xlsr-53"
         wav2vec2 = Wav2Vec2Frontend.from_pretrained(w2v_dir, dev) if w2v_dir.exists() else None
         return cls(cfg, params, wav2vec2, **kw)
+
+    def save_pretrained(self, model_dir: Union[str, Path]) -> Path:
+        """Write a Spark-TTS model directory that ``from_pretrained`` reads
+        back: BiCodec/model.safetensors (plain weights), BiCodec/config.yaml
+        and, with a frontend, wav2vec2-large-xlsr-53/ (transformers'
+        save_pretrained)."""
+        from rwkvtts_torch.convert.export_hf import save_safetensors
+
+        model_dir = Path(model_dir)
+        (model_dir / "BiCodec").mkdir(parents=True, exist_ok=True)
+        save_safetensors(torch_import.bicodec_to_state_dict(self.params),
+                         str(model_dir / "BiCodec" / "model.safetensors"))
+        bicodec_config_to_yaml(self.cfg, model_dir / "BiCodec" / "config.yaml")
+        if self.wav2vec2 is not None:
+            self.wav2vec2.model.save_pretrained(str(model_dir / "wav2vec2-large-xlsr-53"))
+        return model_dir
 
     def extract_features(self, wavs: np.ndarray) -> torch.Tensor:
         """wavs (B, T) float32 -> (B, T // 320, 1024)."""

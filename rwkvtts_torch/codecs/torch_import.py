@@ -227,3 +227,147 @@ def bicodec_from_state_dict(sd: SD, cfg, device=None) -> Params:
         "decoder": _wave_generator_p(sd, cfg.wave),
     }
     return tensors(tree, device)
+
+
+# ---------------------------------------------------------------------------
+# The way back: a BiCodec parameter tree -> the reference's state dict (plain
+# weights, no weight norm), to write a model directory that
+# ``bicodec_from_state_dict`` (and the reference) read back
+# ---------------------------------------------------------------------------
+
+
+def _np_of(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _put(sd: Dict[str, np.ndarray], prefix: str, p: Params, w: np.ndarray) -> None:
+    sd[f"{prefix}.weight"] = np.ascontiguousarray(w)
+    if "b" in p:
+        sd[f"{prefix}.bias"] = _np_of(p["b"])
+
+
+def _conv_sd(sd, prefix: str, p: Params) -> None:
+    _put(sd, prefix, p, _np_of(p["w"]))
+
+
+def _linear_sd(sd, prefix: str, p: Params) -> None:
+    _put(sd, prefix, p, _np_of(p["w"]).T)
+
+
+def _ln_sd(sd, prefix: str, p: Params) -> None:
+    sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = _np_of(p["g"]), _np_of(p["b"])
+
+
+def _bn_sd(sd, prefix: str, p: Params) -> None:
+    _ln_sd(sd, prefix, p)
+    sd[f"{prefix}.running_mean"], sd[f"{prefix}.running_var"] = _np_of(p["mean"]), _np_of(p["var"])
+
+
+def _snake_sd(sd, prefix: str, p: Params) -> None:
+    sd[f"{prefix}.alpha"] = _np_of(p["alpha"]).reshape(1, -1, 1)
+
+
+def _norm_sd(sd, prefix: str, p: Params) -> None:
+    if "scale" in p:  # AdaLayerNorm
+        _linear_sd(sd, f"{prefix}.scale", p["scale"])
+        _linear_sd(sd, f"{prefix}.shift", p["shift"])
+    else:
+        _ln_sd(sd, prefix, p)
+
+
+def _vocos_backbone_sd(sd, prefix: str, p: Params) -> None:
+    _conv_sd(sd, f"{prefix}.embed", p["embed"])
+    _norm_sd(sd, f"{prefix}.norm", p["norm"])
+    for i, b in enumerate(p["blocks"]):
+        q = f"{prefix}.convnext.{i}"
+        _conv_sd(sd, f"{q}.dwconv", b["dwconv"])
+        _norm_sd(sd, f"{q}.norm", b["norm"])
+        _linear_sd(sd, f"{q}.pwconv1", b["pw1"])
+        _linear_sd(sd, f"{q}.pwconv2", b["pw2"])
+        if "gamma" in b:
+            sd[f"{q}.gamma"] = _np_of(b["gamma"])
+    _ln_sd(sd, f"{prefix}.final_layer_norm", p["final_ln"])
+
+
+def _vocos_stack_sd(sd, prefix: str, p: Params, is_encoder: bool) -> None:
+    for i, s in enumerate(p["samplers"]):
+        for key, name in (("conv", "conv_downsampler"), ("deconv", "de_conv_upsampler")):
+            if key in s["block"]:
+                _conv_sd(sd, f"{prefix}.downsample.{i}.0.{name}.1", s["block"][key])
+        _vocos_backbone_sd(sd, f"{prefix}.downsample.{i}.1", s["vocos"])
+    if is_encoder:
+        _vocos_backbone_sd(sd, f"{prefix}.encoder", p["backbone"])
+        _linear_sd(sd, f"{prefix}.project", p["project"])
+    else:
+        _linear_sd(sd, f"{prefix}.linear_pre", p["linear_pre"])
+        _vocos_backbone_sd(sd, f"{prefix}.vocos_backbone", p["backbone"])
+        _linear_sd(sd, f"{prefix}.linear", p["linear"])
+
+
+def _conv_bn_sd(sd, prefix: str, p: Params) -> None:
+    _conv_sd(sd, f"{prefix}.conv", p["conv"])
+    _bn_sd(sd, f"{prefix}.bn", p["bn"])
+
+
+def _speaker_encoder_sd(sd, p: Params) -> None:
+    e, pre = p["ecapa"], "speaker_encoder.speaker_encoder"
+    _conv_bn_sd(sd, f"{pre}.layer1", e["layer1"])
+    for n in ("layer2", "layer3", "layer4"):
+        b, q = e[n], f"{pre}.{n}.se_res2block"
+        _conv_bn_sd(sd, f"{q}.0", b["in"])
+        for i, r in enumerate(b["res2"]):
+            _conv_sd(sd, f"{q}.1.convs.{i}", r["conv"])
+            _bn_sd(sd, f"{q}.1.bns.{i}", r["bn"])
+        _conv_bn_sd(sd, f"{q}.2", b["out"])
+        _linear_sd(sd, f"{q}.3.linear1", b["se1"])
+        _linear_sd(sd, f"{q}.3.linear2", b["se2"])
+    _conv_sd(sd, f"{pre}.conv", e["conv"])
+    _conv_sd(sd, f"{pre}.pool.linear1", e["astp1"])
+    _conv_sd(sd, f"{pre}.pool.linear2", e["astp2"])
+    _bn_sd(sd, f"{pre}.bn", e["bn"])
+    _linear_sd(sd, f"{pre}.linear", e["linear"])
+    per, pre = p["perceiver"], "speaker_encoder.perceiver_sampler"
+    sd[f"{pre}.latents"] = _np_of(per["latents"])
+    sd[f"{pre}.norm.gamma"] = _np_of(per["norm"]["g"])
+    for i, layer in enumerate(per["layers"]):
+        for n in ("to_q", "to_kv", "to_out"):
+            _linear_sd(sd, f"{pre}.layers.{i}.0.{n}", layer["attn"][n])
+        _linear_sd(sd, f"{pre}.layers.{i}.1.0", layer["ff"]["in"])
+        _linear_sd(sd, f"{pre}.layers.{i}.1.2", layer["ff"]["out"])
+    if "proj_context" in per:
+        _linear_sd(sd, f"{pre}.proj_context", per["proj_context"])
+    for n in ("project_in", "project_out"):
+        if n in p["fsq"]:
+            _linear_sd(sd, f"speaker_encoder.quantizer.{n}", p["fsq"][n])
+    _linear_sd(sd, "speaker_encoder.project", p["project"])
+
+
+def bicodec_to_state_dict(params: Params) -> Dict[str, np.ndarray]:
+    """The port's BiCodec tree (tensors or numpy) -> the reference's state
+    dict, plain weights: ``bicodec_from_state_dict`` of it gives the tree
+    back."""
+    sd: Dict[str, np.ndarray] = {}
+    q = params["quantizer"]
+    sd["quantizer.codebook.weight"] = _np_of(q["codebook"])
+    for name in ("in_project", "out_project"):
+        if name in q:  # linears (in, out) -> 1x1 convolutions (out, in, 1)
+            _put(sd, f"quantizer.{name}", q[name], _np_of(q[name]["w"]).T[..., None])
+    _vocos_stack_sd(sd, "encoder", params["encoder"], is_encoder=True)
+    _speaker_encoder_sd(sd, params["speaker_encoder"])
+    _vocos_stack_sd(sd, "prenet", params["prenet"], is_encoder=False)
+    _vocos_stack_sd(sd, "postnet", params["postnet"], is_encoder=False)
+    d = params["decoder"]
+    n = len(d["blocks"])
+    _conv_sd(sd, "decoder.model.0", d["conv_in"])
+    for i, b in enumerate(d["blocks"]):
+        base = f"decoder.model.{i + 1}.block"
+        _snake_sd(sd, f"{base}.0", b["snake"])
+        _conv_sd(sd, f"{base}.1", b["up"])
+        for j, r in enumerate(b["res"]):
+            _snake_sd(sd, f"{base}.{2 + j}.block.0", r["snake1"])
+            _conv_sd(sd, f"{base}.{2 + j}.block.1", r["conv1"])
+            _snake_sd(sd, f"{base}.{2 + j}.block.2", r["snake2"])
+            _conv_sd(sd, f"{base}.{2 + j}.block.3", r["conv2"])
+    _snake_sd(sd, f"decoder.model.{n + 1}", d["snake_out"])
+    _conv_sd(sd, f"decoder.model.{n + 2}", d["conv_out"])
+    return sd

@@ -1,6 +1,7 @@
-"""RWKV-7 checkpoint interchange: fla-HF / BlinkDL torch formats -> the
+"""RWKV-7 checkpoint interchange: fla-HF / BlinkDL torch formats <-> the
 port's parameter trees, as numpy (counterpart of
-rwkvtts_tpu/convert/rwkv7_ckpt.py; the loaders only).
+rwkvtts_tpu/convert/rwkv7_ckpt.py): the loaders, the BlinkDL exporter and
+the fp32 -> bf16 cast of a deployment checkpoint.
 
 Formats read:
   * fla HF naming (model.layers.{i}.attn.{x_r..x_g, r/k/v/o_proj,
@@ -11,6 +12,8 @@ Formats read:
   * the v1 stacked token-shift deltas (attn.x_x -> x_r..x_g).
 
 Trees are numpy; ``bridge.params_from_numpy`` makes tensors of them.
+
+    python -m rwkvtts_torch.convert.rwkv7_ckpt cast-bf16 model.pth model_bf16.pth
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from rwkvtts_torch import bridge
 
 Params = Dict[str, Any]
 SD = Mapping[str, np.ndarray]
@@ -255,3 +260,83 @@ def load_safetensors(path: str) -> Dict[str, np.ndarray]:
             arr = np.frombuffer(raw, dtype_map[meta["dtype"]])
         out[name] = arr.reshape(meta["shape"]).copy()
     return out
+
+
+def rwkv7_to_blinkdl(params: Params, cfg) -> Dict[str, np.ndarray]:
+    """The port's RWKV-7 parameters (tensors or numpy) -> a BlinkDL-named
+    state dict of numpy arrays, the deployment / eval interchange format
+    of ChatRWKV and WebRWKV (the reference's eval/eval_tts_base.py:146).
+    Layer 0's placeholder v-lora is left out, as checkpoints have none."""
+    params = bridge.params_to_numpy(params)
+    blocks = params["blocks"]
+    out: Dict[str, np.ndarray] = {}
+    r2 = lambda x: np.asarray(x, np.float32).reshape(1, 1, -1)
+    T = lambda x: np.ascontiguousarray(x.T)
+    for i in range(cfg.num_layers):
+        a, f = f"blocks.{i}.att", f"blocks.{i}.ffn"
+        att = {k: v[i] for k, v in blocks["att"].items()}
+        ffn = {k: v[i] for k, v in blocks["ffn"].items()}
+        for s in _XS:
+            out[f"{a}.x_{s}"] = r2(att[f"x_{s}"])
+        for n in ("w", "a") + (("v",) if i > 0 else ()):
+            out[f"{a}.{n}0"] = r2(att[f"{n}0"])
+            out[f"{a}.{n}1"] = att[f"{n}1"]
+            out[f"{a}.{n}2"] = att[f"{n}2"]
+        out[f"{a}.g1"] = att["g1"]
+        out[f"{a}.g2"] = att["g2"]
+        out[f"{a}.k_k"] = r2(att["k_k"])
+        out[f"{a}.k_a"] = r2(att["k_a"])
+        out[f"{a}.r_k"] = att["r_k"]
+        for n in ("receptance", "key", "value", "output"):
+            out[f"{a}.{n}.weight"] = T(att[n])
+        out[f"{a}.ln_x.weight"] = att["ln_x_scale"]
+        out[f"{a}.ln_x.bias"] = att["ln_x_bias"]
+        for n in ("ln1", "ln2"):
+            out[f"blocks.{i}.{n}.weight"] = blocks[f"{n}_scale"][i]
+            out[f"blocks.{i}.{n}.bias"] = blocks[f"{n}_bias"][i]
+        out[f"{f}.x_k"] = r2(ffn["x_k"])
+        out[f"{f}.key.weight"] = T(ffn["key"])
+        out[f"{f}.value.weight"] = T(ffn["value"])
+    out["blocks.0.ln0.weight"] = params["ln0_scale"]
+    out["blocks.0.ln0.bias"] = params["ln0_bias"]
+    out["ln_out.weight"] = params["ln_out_scale"]
+    out["ln_out.bias"] = params["ln_out_bias"]
+    if "embedding" in params:
+        out["emb.weight"] = params["embedding"]
+    if "head" in params:
+        out["head.weight"] = T(params["head"])
+    return out
+
+
+def cast_fp32_to_bf16(in_path: str, out_path: str) -> int:
+    """Rewrite a torch checkpoint with every fp32 tensor cast to bf16 (the
+    reference's utils/convert_from_fp32_to_bf16.py, the deployment format
+    of the ChatRWKV / WebRWKV runtimes); other entries pass through.
+    Returns the number of tensors cast."""
+    sd = torch.load(in_path, map_location="cpu", weights_only=True)
+    out, n = {}, 0
+    for k, v in sd.items():
+        if getattr(v, "dtype", None) == torch.float32:
+            v = v.bfloat16()
+            n += 1
+        out[k] = v
+    torch.save(out, out_path)
+    return n
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    p = argparse.ArgumentParser(prog="python -m rwkvtts_torch.convert.rwkv7_ckpt",
+                                description="checkpoint interchange utilities")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    sc = sub.add_parser("cast-bf16", help="fp32 -> bf16 torch checkpoint")
+    sc.add_argument("input")
+    sc.add_argument("output")
+    args = p.parse_args(argv)
+    n = cast_fp32_to_bf16(args.input, args.output)
+    print(f"cast {n} fp32 tensors -> {args.output}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,9 @@
-"""Pretrained speech checkpoints -> the port's parameter trees (counterpart
-of rwkvtts_tpu/convert/speech_init.py; the Spark, Cosy, XY and ASR
-loaders, Spark's and XY's init from a text RWKV-7, and the S2S vocabulary
-enlargement)."""
+"""Pretrained speech checkpoints -> the port's parameter trees, and the
+flattened-vocabulary deployment export (counterpart of
+rwkvtts_tpu/convert/speech_init.py): the Spark, Cosy, XY and ASR loaders,
+Spark's and XY's init from a text RWKV-7, the S2S vocabulary enlargement,
+and ``spark_to_flat``, one BlinkDL model of a Spark model for ChatRWKV /
+WebRWKV and the eval engines."""
 from __future__ import annotations
 
 from typing import Any, Dict, Mapping, Optional
@@ -124,3 +126,38 @@ def xy_from_text(text_sd: Mapping[str, np.ndarray], xy_params: Params, cfg,
     out["embs"] = dict(out["embs"], **{"0": emb0})
     out["heads"] = dict(out["heads"], **{"0": head0})
     return out
+
+
+# ---------------------------------------------------------------------------
+# Flattened-vocabulary deployment export: one embedding of
+# [semantic (8193) | tts tag (3) | global (4096) | text (65536)] rows and the
+# head zero-padded to it (the reference's data/spark/convert_2_rwkvaudio.py:
+# 46-74; the id contract of its eval/eval_tts_base.py:162-168)
+
+FLAT_SEMANTIC_BASE = 0        # semantic 0..8191, EOS 8192
+FLAT_TAG_BASE = 8193          # TAG0/1/2 = 8193/8194/8195
+FLAT_GLOBAL_BASE = 8196       # global += 8196
+FLAT_TEXT_BASE = 8196 + 4096  # text += 12292
+
+
+def spark_to_flat(params: Params, cfg) -> Dict[str, np.ndarray]:
+    """Spark parameters (tensors or numpy) -> a flattened single-vocabulary
+    BlinkDL state dict (numpy): the embedding rows [semantic | tts tag |
+    global | text], the head zero-padded to the whole vocabulary (only
+    semantic ids can be produced)."""
+    p = bridge.params_to_numpy(params)
+    sd = rwkv7_ckpt.rwkv7_to_blinkdl(p, cfg.backbone)
+    emb = np.concatenate([p["embedding"], p["tts_tag_embedder"], p["global_embedder"],
+                          p["text_embedder"]], axis=0).astype(np.float32)
+    head = np.asarray(p["head"]).T.astype(np.float32)  # (V_sem, C)
+    pad = np.zeros((emb.shape[0] - head.shape[0], head.shape[1]), np.float32)
+    sd["emb.weight"] = emb
+    sd["head.weight"] = np.concatenate([head, pad], axis=0)
+    return sd
+
+
+def flat_ids_from_parts(text_ids, global_ids, semantic_ids):
+    """Per-table ids -> the flattened vocabulary's (text, global, semantic)."""
+    return ([i + FLAT_TEXT_BASE for i in text_ids],
+            [i + FLAT_GLOBAL_BASE for i in global_ids],
+            [i + FLAT_SEMANTIC_BASE for i in semantic_ids])

@@ -22,15 +22,32 @@ their pronunciation (``text_frontend.mark_phonemes``), the draws from one
 ``random.Random(--seed)`` kept across batches; another task refuses it
 (the JAX CLI ignores it there).
 
-Not here: the webdataset format and inline tokenization (``--data-format``,
-``--codec-dir``), ``--remat-policy``, wandb, the device mesh and
-multi-host flags; ``--no-layer-unroll`` and ``--wkv-mm`` are TPU layout and
-precision devices without a counterpart.
+``--data-format webdataset`` reads the rows from tars (``--data`` globs of
+plain ``.tar`` shards; ``data/webdataset.MultipleWebDataset`` through the
+C++ tar streamer, shuffled with --seed, ``--max-rows`` of them). ``--codec-dir`` (a Spark-TTS model
+directory: BiCodec/ and wav2vec2-large-xlsr-53/) tokenizes the tars' audio
+with BiCodec on the device as each batch is collated, in front of the
+task's own collator and tokenizer (``data/inline_spark.py``): spark,
+spark_properties (with its phoneme marking) or spark_global. Another task
+refuses --codec-dir, and so does the jsonl format; the JAX CLI ignores the
+flag there, and on tars puts the plain collator and a tokenizer without
+the SPCT tokens in front of every Spark task.
+
+    python -m rwkvtts_torch.train.cli --task spark --data-format webdataset \\
+        --data 'shards/*.tar' --codec-dir Spark-TTS-0.5B --hidden 1024 --layers 24
+
+``--wandb-project`` / ``--run-name`` also log the metrics to wandb; asking
+for it without the package installed raises.
+
+Not here: ``--remat-policy``, the device mesh and multi-host flags;
+``--no-layer-unroll`` and ``--wkv-mm`` are TPU layout and precision devices
+without a counterpart.
 """
 from __future__ import annotations
 
 import argparse
 import functools
+import glob
 import importlib
 import logging
 import math
@@ -141,6 +158,25 @@ def build_collate(task: str, args, model_cfg) -> Callable:
     raise ValueError(f"no jsonl collator for task {task}")
 
 
+def load_rows(args) -> list:
+    """--data's rows: jsonl lines, or the samples of the tars its globs
+    name (sorted within each glob), shuffled with --seed."""
+    if args.data_format == "jsonl":
+        return jsonl_dataset.load_jsonl_rows(args.data, max_rows=args.max_rows)
+    from rwkvtts_torch.data import webdataset
+
+    tars = [p for pat in args.data for p in sorted(glob.glob(pat))]
+    rows = webdataset.MultipleWebDataset(tars, seed=args.seed).samples
+    return rows[: args.max_rows] if args.max_rows else rows
+
+
+def inline_codec(codec_dir: str, device: torch.device):
+    """--codec-dir's BiCodec and wav2vec2 frontend on `device`."""
+    from rwkvtts_torch.codecs.spark_tokenizer import SparkAudioTokenizer
+
+    return SparkAudioTokenizer.from_pretrained(codec_dir, device=device)
+
+
 def warm_start(task: str, path: str, params, cfg, device: torch.device):
     """--warm-start: a Spark task's model seeded from a text RWKV-7
     checkpoint (``convert/speech_init.spark_from_text``); other tasks keep
@@ -159,7 +195,12 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--task", required=True, choices=sorted(trainer_lib.LOSS_FNS))
-    p.add_argument("--data", nargs="+", required=True, help="jsonl glob(s)")
+    p.add_argument("--data", nargs="+", required=True,
+                   help="jsonl glob(s), or tar glob(s) with --data-format webdataset")
+    p.add_argument("--data-format", choices=["jsonl", "webdataset"], default="jsonl")
+    p.add_argument("--codec-dir", default=None,
+                   help="Spark-TTS model dir: tokenize the tars' audio inline "
+                        "(spark tasks, --data-format webdataset)")
     p.add_argument("--run-dir", default="runs/default")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--hidden", type=int, default=768)
@@ -194,6 +235,9 @@ def main(argv=None):
     p.add_argument("--mark-phonemes-prob", type=float, default=0.0,
                    help="spark_properties: the probability that a row's text is marked "
                         "with its pronunciation")
+    p.add_argument("--wandb-project", default=None,
+                   help="also log the metrics to this wandb project")
+    p.add_argument("--run-name", default=None)
     p.add_argument("--max-rows", type=int, default=None)
     p.add_argument("--dry-run", action="store_true",
                    help="load model and data, run one collated batch through the "
@@ -201,16 +245,26 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.mark_phonemes_prob > 0 and args.task != "spark_properties":
         p.error("--mark-phonemes-prob marks the texts of --task spark_properties only")
+    if args.codec_dir and not args.task.startswith("spark"):
+        p.error(f"--codec-dir tokenizes audio with BiCodec for the spark tasks; "
+                f"--task {args.task} has no inline codec")
+    if args.codec_dir and args.data_format != "webdataset":
+        p.error("--codec-dir tokenizes the audio of tars: it needs --data-format webdataset")
 
     metrics_lib.setup_logging()
     device = pick_device(args.device)
     cfg, params = build_model(args.task, args, device)
     if args.warm_start:
         params = warm_start(args.task, args.warm_start, params, cfg, device)
-    rows = jsonl_dataset.load_jsonl_rows(args.data, max_rows=args.max_rows)
+    rows = load_rows(args)
     log.info("loaded %d rows", len(rows))
+    collate = build_collate(args.task, args, cfg)
+    if args.codec_dir:
+        from rwkvtts_torch.data import inline_spark
+
+        collate = inline_spark.inline_collate(collate, inline_codec(args.codec_dir, device))
     ds = jsonl_dataset.JsonlDataset(
-        rows, build_collate(args.task, args, cfg), args.batch_size, seed=args.seed,
+        rows, collate, args.batch_size, seed=args.seed,
         max_tokens=args.max_tokens_k * 1000 if args.max_tokens_k else None,
     )
     tcfg = trainer_lib.TrainerConfig(
@@ -219,6 +273,7 @@ def main(argv=None):
         warmup_steps=args.warmup_steps, total_steps=args.total_steps,
         weight_decay=args.weight_decay, grad_clip=args.grad_clip,
         low_memory_opt=args.low_memory_opt, seed=args.seed,
+        wandb_project=args.wandb_project, run_name=args.run_name,
     )
     tr = trainer_lib.Trainer(cfg, params, trainer_lib.LOSS_FNS[args.task], tcfg, device)
     if args.dry_run:

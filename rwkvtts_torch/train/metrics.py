@@ -1,7 +1,9 @@
 """Training metrics and logging (counterpart of rwkvtts_tpu/train/metrics.py,
-without JAX): KT/s, Gtokens and loss to <run_dir>/metrics.jsonl. One
-process, one device: every record is written (the JAX package's rank-0
-gating and wandb sink come with the multi-device slice).
+without JAX): KT/s, Gtokens and loss to <run_dir>/metrics.jsonl, and to
+wandb when a project is named. One process, one device: every record is
+written (the JAX package's rank-0 gating comes with the multi-device
+slice). Asking for wandb without the package installed raises; the JAX
+package logs and carries on.
 """
 from __future__ import annotations
 
@@ -22,11 +24,25 @@ def setup_logging(level: Optional[str] = None) -> None:
     )
 
 
-class MetricLogger:
-    """Appends one JSON record a logged step to <run_dir>/metrics.jsonl."""
+def wandb_run(project: str, run_name: Optional[str], run_dir: str):
+    """A wandb run (the import is gated: wandb is optional, and a project
+    named without it installed is an error)."""
+    try:
+        import wandb
+    except ImportError as e:
+        raise RuntimeError(f"--wandb-project {project}: the wandb package is not "
+                           "installed") from e
+    return wandb.init(project=project, name=run_name, dir=run_dir)
 
-    def __init__(self, run_dir: str):
+
+class MetricLogger:
+    """Appends one JSON record a logged step to <run_dir>/metrics.jsonl, and
+    logs it to a wandb run of `project` when one is named."""
+
+    def __init__(self, run_dir: str, project: Optional[str] = None,
+                 run_name: Optional[str] = None):
         os.makedirs(run_dir, exist_ok=True)
+        self._wandb = wandb_run(project, run_name, run_dir) if project else None
         self._file = open(os.path.join(run_dir, "metrics.jsonl"), "a")
         self._tokens_total = 0
 
@@ -40,9 +56,13 @@ class MetricLogger:
         }
         self._file.write(json.dumps(rec) + "\n")
         self._file.flush()
+        if self._wandb is not None:
+            self._wandb.log(rec, step=step)
 
     def close(self):
         self._file.close()
+        if self._wandb is not None:
+            self._wandb.finish()
 
 
 class Throughput:

@@ -56,6 +56,9 @@ class TrainerConfig:
     # (train/optimizer.py)
     low_memory_opt: Optional[str] = None
     seed: int = 0
+    # a wandb project (and run name) to log the metrics to as well
+    wandb_project: Optional[str] = None
+    run_name: Optional[str] = None
 
 
 class Trainer:
@@ -73,7 +76,7 @@ class Trainer:
         self.state = ts.init_train_state(params, self.optimizer)
         self.loss_fn = loss_fn
         self.step_fn = ts.make_train_step(model_cfg, self.optimizer, loss_fn)
-        self.logger = metrics_lib.MetricLogger(tcfg.run_dir)
+        self.logger = metrics_lib.MetricLogger(tcfg.run_dir, tcfg.wandb_project, tcfg.run_name)
         self.throughput = metrics_lib.Throughput()
         self.generator = torch.Generator(device=self.device).manual_seed(tcfg.seed)
         self.start_epoch = 0

@@ -1,20 +1,24 @@
 """RWKV "world" tokenizer: byte-level greedy longest match, 65536 ids (a
-copy of rwkvtts_tpu/utils/tokenizer.py with its pure-Python matcher only;
-the native trie comes later).
+copy of rwkvtts_tpu/utils/tokenizer.py).
 
 The vocabulary is the published RWKV v20230424 world vocabulary, kept
-byte for byte in rwkvtts_torch/assets/; id 0 is <|endoftext|>. At each
-position the matcher probes the token lengths that occur for the current
-first byte, longest first. Added tokens (SPCT_*) get the ids after the
-base vocabulary and are matched on the string level first, as HF
-``tokenizer.add_tokens`` splits special tokens.
+byte for byte in rwkvtts_torch/assets/; id 0 is <|endoftext|>. The bytes
+are matched by the C++ byte trie of csrc/world_tokenizer.cpp
+(``utils/native.NativeTrieEncoder``, built with g++ at first use); a trie
+that cannot be built raises. ``encode_plain`` is the plain version the
+trie is held against: a pure-Python matcher that probes the token lengths
+occurring for the current first byte, longest first. Added tokens
+(SPCT_*) get the ids after the base vocabulary and are matched on the
+string level first, as HF ``tokenizer.add_tokens`` splits special tokens.
 """
 from __future__ import annotations
 
 import ast
 import functools
 import os
-from typing import Dict, Iterable, List, Sequence
+from typing import Callable, Dict, Iterable, List, Sequence
+
+from rwkvtts_torch.utils.native import NativeTrieEncoder
 
 _ASSET_DIR = os.path.join(os.path.dirname(__file__), "..", "assets")
 VOCAB_FILE = os.path.abspath(os.path.join(_ASSET_DIR, "rwkv_vocab_v20230424.txt"))
@@ -47,6 +51,7 @@ class WorldTokenizer:
         for bs in self.bytes_to_id:
             by_first.setdefault(bs[0], set()).add(len(bs))
         self._lengths_by_first = {b: sorted(ls, reverse=True) for b, ls in by_first.items()}
+        self._trie = self._build_trie()
 
         self.added_token_to_id: Dict[str, int] = {}
         self.id_to_added: Dict[int, str] = {}
@@ -57,7 +62,21 @@ class WorldTokenizer:
             self.id_to_added[tid] = t
         self._added_sorted = sorted(self.added_token_to_id, key=len, reverse=True)
 
+    def _build_trie(self) -> NativeTrieEncoder:
+        return NativeTrieEncoder((tid, bs) for bs, tid in self.bytes_to_id.items())
+
+    def __getstate__(self):
+        # the trie is a handle into this process's library: rebuilt on unpickling
+        return {k: v for k, v in self.__dict__.items() if k != "_trie"}
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._trie = self._build_trie()
+
     def _encode_bytes(self, src: bytes) -> List[int]:
+        return self._trie.encode_bytes(src)
+
+    def _encode_bytes_plain(self, src: bytes) -> List[int]:
         out: List[int] = []
         i, n = 0, len(src)
         b2id = self.bytes_to_id
@@ -78,8 +97,15 @@ class WorldTokenizer:
         return out
 
     def encode(self, text: str) -> List[int]:
+        return self._encode(text, self._encode_bytes)
+
+    def encode_plain(self, text: str) -> List[int]:
+        """`encode` through the pure-Python matcher (the trie's plain version)."""
+        return self._encode(text, self._encode_bytes_plain)
+
+    def _encode(self, text: str, match: Callable[[bytes], List[int]]) -> List[int]:
         if not self.added_token_to_id:
-            return self._encode_bytes(text.encode("utf-8"))
+            return match(text.encode("utf-8"))
         # split on added tokens (greedy, longest first)
         out: List[int] = []
         rest = text
@@ -92,10 +118,10 @@ class WorldTokenizer:
                 )):
                     best_pos, best_tok = p, t
             if best_pos is None:
-                out.extend(self._encode_bytes(rest.encode("utf-8")))
+                out.extend(match(rest.encode("utf-8")))
                 break
             if best_pos:
-                out.extend(self._encode_bytes(rest[:best_pos].encode("utf-8")))
+                out.extend(match(rest[:best_pos].encode("utf-8")))
             out.append(self.added_token_to_id[best_tok])
             rest = rest[best_pos + len(best_tok):]
         return out
