@@ -47,7 +47,13 @@ streamer, the offline token extractors on BiCodec, XY_Tokenizer, Higgs, S3
 and CAM++ at their published widths, Spark 1024 x 24 trained from the tars
 through the train CLI with BiCodec tokenizing inline (``--data-format
 webdataset --codec-dir``), and the trained model exported as one
-flat-vocabulary BlinkDL model.
+flat-vocabulary BlinkDL model; then quantized decode: int8 / int4 decode
+weights and the sampler's bf16 ranking against the CPU, the CosyVoice
+server at the 1.5B pairing with int8 and with int4 decode weights, the
+quality probe of the quantized modes (rwkvtts_torch.eval.quant_quality)
+and the non-causal flow estimator; phase 10 also trains under the remat
+policies, phase 16 serves one request through ``launch --int4``, and phase
+18 drives the interactive console.
 
 Phases, each printing its own lines; any failure raises, so the run exits
 non-zero and prints no result:
@@ -85,7 +91,10 @@ non-zero and prints no result:
              vs the same step on the CPU's plain path: loss and grad norm
  10. train main  Spark 1024 x 24 training through rwkvtts_torch.train.cli:
              finite losses near ln 8193, launch counts, ms a step, tokens/s,
-             peak memory, the WKV kernels' share of device time
+             peak memory; its first rows, 1 + 3 steps, under the default
+             full replay, --remat-policy wkv (kernels 4 / 5 24 / 24 a step)
+             and dots (48 / 24), each first loss = the default's, ms a
+             step, peak memory; the WKV kernels' share of device time
              (torch.profiler); then the unfused path at fewer layers
  11. decode b1  the B=1 step's launch plan (shared memory a CTA, the
              workspace) against the library; the step (the Cosy LM step) vs
@@ -118,7 +127,9 @@ non-zero and prints no result:
              from seed 0 written as model.safetensors and loaded by
              launch.build_pipeline), 96 slots, chunk 32: 4 requests over HTTP,
              then 192 at once; tokens, sustained tok/s, occupancy, ms a step,
-             latency, launches, peak memory, a profile of two chunks
+             latency, launches, peak memory, a profile of two chunks; and
+             launch --int4 on the same checkpoint: one request, kernel 7 24 a
+             step
  17. spark wav small  BiCodec at the golden's reduced config with its state
              dict (tests/goldens/bicodec.npz): mel, semantic and global
              tokens and the wav on the card vs the CPU, and vs the
@@ -132,7 +143,9 @@ non-zero and prints no result:
              properties (design_voice) and with a prompt wav + text, then 4
              requests through ContinuousTTSService with the codec; ms a
              detokenize batch and per audio second, tokenize ms, synthesize
-             wall and tok/s, design ms, launches, peak memory
+             wall and tok/s, design ms, launches, peak memory; then a
+             scripted interactive_cli session (/voice design, a line, /quit)
+             on that pipeline: one finite wav
  19. cosy zs small  the four Cosy goldens (tests/goldens/{s3_onnx,
              campplus_onnx,flow,hift}.npz) through the port's importers on the
              card, at the JAX golden tests' gates; a zero-shot synthesize from
@@ -300,6 +313,27 @@ non-zero and prints no result:
              card: its logits on flat_ids_from_parts' ids = the Spark model's
              semantic logits within 2e-2 of the largest (bf16), zeros beyond;
              cast_fp32_to_bf16 of the export
+ 39. quant small  the int4 pack on the card = the CPU's; rwkv7.decode_step
+             at 256 x 2 f32 on the int8-unfused, int8-fused and int4 trees,
+             card vs CPU (1e-4, 4 chained in-place steps, kernel 7 L a step);
+             sample / ras_sample with rank_bf16, card = CPU on one set of
+             noise; the new refusals raise
+ 40. cosy quant serve  phase 23's 1.5B pairing through launch.cosy_pipeline
+             with --int8 and with --int4: CosyTTSService, 3 streams (2 prompt
+             wavs, 1 stored voice), <= 100 tokens: TTFA, pool ms a step (LM
+             ms a token), 24 kernel-7 launches a pool step, 24 kernel-2 an
+             admission, finite wavs of 960 samples a token, beside phase 23's
+             bf16 numbers; the model decode step at B = 8 on the bf16, int8
+             and int4 trees and its dequantization's ms
+ 41. quant quality  rwkvtts_torch.eval.quant_quality at Spark 1024 x 24
+             (int8, int4-g64, state-bf16, int8+state-bf16 at B = 8, the B=64
+             kernel 1 with 194 launches a token) and 2048 x 24 (int8,
+             int4-g64), and the bf16-unfused control at both, 32 greedy
+             steps (the JAX script's 256 cut for time): every JSON line,
+             agreements in [0, 1]
+ 42. flow non-causal  the estimator at FlowConfig()'s widths with
+             causal=False, card vs CPU (f32, TF32 off, 1e-4), and a 10-step
+             CFM solve on both (1e-4)
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -1419,6 +1453,8 @@ def phase_train_main(dev, card: str) -> dict:
               f"tokens/s, peak memory {peak / 2**30:.2f} GiB on {card}; launches a step "
               f"{ {k: v / n_steps for k, v in launches.items()} }")
 
+        remat = remat_runs(dev, card, data, tmp, L)
+
         # the WKV kernels' share of the device time of two more steps
         batches = list(tr_batches(tr, data, 2))
         share = profile_share(tr, batches)
@@ -1441,7 +1477,55 @@ def phase_train_main(dev, card: str) -> dict:
               and unfused["wkv7_fused_fwd"] == 0,
               f"unfused launches {unfused}, want {2 * L_u} and {L_u} a step")
     return {"launches": launches, "unfused": unfused, "step_ms": 1e3 * step_s,
-            "tokens_per_s": tps, "peak_gib": peak / 2**30, "unfused_step_ms": u_step_ms, **share}
+            "tokens_per_s": tps, "peak_gib": peak / 2**30, "unfused_step_ms": u_step_ms,
+            "remat": remat, **share}
+
+
+def remat_runs(dev, card: str, data: str, tmp: str, L: int) -> dict:
+    """Phase 10's run at 1 + REMAT_TIMED steps (its first rows) under the
+    default full replay and under each of REMAT_RUNS (--remat-policy):
+    kernels 4 / 5 launch L / L times a step under "wkv" (the replay keeps
+    the WKV call), 2 L / L under "dots"; each first loss equals the
+    default's (the same forward on the same batch and seed); ms a step over
+    the timed steps as phase 10 reads it, peak memory."""
+    from rwkvtts_torch.ops import wkv7_cuda
+    from rwkvtts_torch.train import cli
+
+    n_steps = 1 + REMAT_TIMED
+    out = {}
+    for policy in (None,) + REMAT_RUNS:
+        run_dir = os.path.join(tmp, f"run_remat_{policy}")
+        extra = ("--max-rows", str(TRAIN_B * n_steps))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wkv7_cuda.reset_launches()
+        cli.main(_cli_args(dev, data, run_dir, L,
+                           extra + (("--remat-policy", policy) if policy else ())))
+        torch.cuda.synchronize()
+        launches = {k: wkv7_cuda.launches[k] / n_steps for k in ("wkv7_fused_fwd",
+                                                                 "wkv7_fused_bwd")}
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        t = [r["time"] for r in recs]
+        # log k's time stamp marks the end of step k + 1 (phase 10)
+        step_ms = 1e3 * (t[n_steps - 2] - t[0]) / (n_steps - 2)
+        name = policy or "default"
+        out[name] = {"launches_a_step": launches, "step_ms": step_ms,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "losses": [r["loss"] for r in recs]}
+        first, default = recs[0]["loss"], out["default"]["losses"][0]
+        want = (L if policy == "wkv" else 2 * L, L)
+        print(f"train main: remat {name}, 1 + {REMAT_TIMED} steps: {step_ms:.2f} ms a step, "
+              f"peak memory {out[name]['peak_gib']:.2f} GiB, fused launches a step {launches} "
+              f"(want {want}), first loss {first!r} (the default's {default!r}) on {card}")
+        check((launches["wkv7_fused_fwd"], launches["wkv7_fused_bwd"]) == want,
+              f"train main: remat {name} launches {launches}")
+        check(abs(first - default) <= 1e-6 * abs(default),
+              f"train main: remat {name}: first loss {first} != {default}")
+        check(len(recs) == n_steps and all(math.isfinite(r["loss"]) and not r["skipped"]
+                                           for r in recs),
+              f"train main: remat {name}: {len(recs)} steps, a non-finite or skipped one")
+    return out
 
 
 def tr_batches(tr, data: str, n: int):
@@ -2264,7 +2348,10 @@ def phase_serve_main(dev, card: str) -> dict:
         del params
         t1 = time.perf_counter()
         pipe = launch.build_pipeline(os.path.join(d, "model.safetensors"))
-    t2 = time.perf_counter()
+        t2 = time.perf_counter()
+        int4_run = spark_int4_request(os.path.join(d, "model.safetensors"), card)
+        torch.cuda.empty_cache()
+    t2b = time.perf_counter()
     tts = launch.build_service(pipe, n_slots=SERVE_SLOTS, chunk=SERVE_CHUNK,
                                max_new_tokens=SERVE_MAX_NEW, top_k=50, top_p=0.95)
     torch.cuda.synchronize()
@@ -2272,7 +2359,7 @@ def phase_serve_main(dev, card: str) -> dict:
     print(f"serve main: Spark {SERVE_HIDDEN} x {L} random weights (seed 0) written as "
           f"model.safetensors in {t1 - t0:.1f} s, loaded by build_pipeline in {t2 - t1:.1f} s, "
           f"service with {SERVE_SLOTS} slots, chunk {SERVE_CHUNK}, warmed up in "
-          f"{t3 - t2:.1f} s")
+          f"{t3 - t2b:.1f} s")
     cb = tts.batcher
     check(cb.params_l is not None and not cb.megakernel
           and pipe.cfg.backbone.decode_wkv_packed and "fused_a" in pipe.params["blocks"]["att"],
@@ -2365,7 +2452,7 @@ def phase_serve_main(dev, card: str) -> dict:
         "chunks": st["chunks"], "decode_steps": steps,
         "latency_p50_ms": float(np.percentile(lat_ms, 50)),
         "latency_p95_ms": float(np.percentile(lat_ms, 95)),
-        "peak_gib": peak / 2**30, "launches": launches,
+        "peak_gib": peak / 2**30, "launches": launches, "int4_request": int4_run,
     }
     print(f"serve main: {SERVE_REQUESTS} concurrent requests: {wall:.3f} s, "
           f"{summary['tok_per_s']:.1f} tok/s sustained on {card}; occupancy "
@@ -2649,7 +2736,8 @@ def phase_spark_wav_main(dev, card: str, gen_run: dict) -> dict:
           "spark wav main: served answers without tokens x 320 finite samples")
     check(served["wkv7_fwd"] > 0 and served["wkv7_step"] > 0,
           f"spark wav main: the served route launched {served}")
-    return {"detokenize_ms": 1e3 * detok_s, "detokenize_batches": batches,
+    console = interactive_session(pipe, card)
+    return {"interactive_cli": console, "detokenize_ms": 1e3 * detok_s, "detokenize_batches": batches,
             "detokenize_ms_per_batch": 1e3 * detok_s / batches,
             "detokenize_ms_per_audio_s": 1e3 * detok_s / audio_s, "audio_s": audio_s,
             "detokenize_peak_gib": detok_peak / 2**30, "row_max_abs": max_abs(w_g, w_c),
@@ -5896,6 +5984,521 @@ def corpus_of_tree(what: str = "raw audio") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 39-42. Quantized decode (int8 / int4 trees, bf16 ranking, the quality
+# probe), the non-causal flow estimator
+# ---------------------------------------------------------------------------
+
+# quant small: a Spark-like RWKV-7 at hidden 256 x 2, f32, B rows, 4 chained
+# decode steps; the samplers at (8, 8193) logits
+QUANT_C, QUANT_L, QUANT_B, QUANT_STEPS = 256, 2, 4, 4
+# the quality probe: its widths (Spark 0.4B, Cosy 1.5B), depth and greedy
+# steps a mode (the JAX script runs 256)
+QQ_HIDDEN, QQ_WIDE, QQ_LAYERS, QQ_STEPS = 1024, 2048, 24, 32
+# the non-causal estimator's frames and the CFM solve's Euler steps
+FLOW_NC_T, FLOW_NC_STEPS = 64, 10
+# the interactive console's synthesize cap (random weights draw no EOS)
+CLI_NEW = 64
+# the remat policies phase 10 runs beside its default full replay, and the
+# timed steps of each run (after one warm-up)
+REMAT_RUNS, REMAT_TIMED = ("wkv", "dots"), 3
+
+
+def phase_quant_small(dev) -> dict:
+    """_quantize_int4's bytes and scales on the card = the CPU's; the model
+    decode step on int8-unfused, int8-fused and int4 trees, card vs CPU (f32,
+    TF32 off, 1e-4, 4 chained in-place steps, kernel 7 L a step);
+    sample / ras_sample with rank_bf16 card vs CPU on one set of noise; the
+    new refusals raise."""
+    import numpy as np
+
+    from rwkvtts_torch.infer.cosy_pipeline import CosyPipeline
+    from rwkvtts_torch.models import cosy, rwkv7
+    from rwkvtts_torch.ops import sampling
+    from rwkvtts_torch.ops import wkv7_step_packed as sp
+    from rwkvtts_torch.serving import launch
+
+    C, L, Bn = QUANT_C, QUANT_L, QUANT_B
+    g = torch.Generator().manual_seed(41)
+    w = torch.randn(L, C, 3 * C + 160, generator=g).to(torch.bfloat16)
+    q_c, q_g = rwkv7._quantize_int4(w), rwkv7._quantize_int4(w.to(dev))
+    same_pack = all(torch.equal(q_c[k], q_g[k].cpu()) for k in ("q4", "s"))
+    deq = max_abs(rwkv7._deq_int4(q_g, torch.float32).cpu(), rwkv7._deq_int4(q_c, torch.float32))
+    n_bytes = int((q_c["q4"] != q_g["q4"].cpu()).sum())
+    n_scales = int((q_c["s"] != q_g["s"].cpu()).sum())
+    print(f"quant small: int4 pack of a {tuple(w.shape)} bf16 matrix on the card = the CPU's "
+          f"(nibbles and bf16 scales): {same_pack} ({n_bytes} bytes, {n_scales} scales "
+          f"differ); dequantized max|d| {deq:.1e}")
+    check(same_pack and deq == 0.0, "quant small: the int4 pack differs on the card")
+
+    cfg = rwkv7.RWKV7Config(vocab_size=0, hidden_size=C, num_layers=L, dtype=torch.float32,
+                            decode_wkv_packed=True)
+    params = rwkv7.init_params(torch.Generator().manual_seed(42), cfg)
+    randomize(params, torch.Generator().manual_seed(43))
+    state0 = {"att_x": torch.randn(L, Bn, C, generator=g),
+              "wkv": 0.3 * torch.randn(L, Bn, C // 64, 64, 64, generator=g),
+              "ffn_x": torch.randn(L, Bn, C, generator=g)}
+    xs = [torch.randn(Bn, C, generator=g) for _ in range(QUANT_STEPS)]
+    errs = {}
+    for name, pack in (("int8 unfused", dict(quantize_int8=True, fuse_projections=False)),
+                       ("int8 fused", dict(quantize_int8=True)), ("int4", dict(quantize_int4=True))):
+        hs = {}
+        for where in ("cpu", dev):
+            p = rwkv7.tree_map(lambda t: t.to(where), params)
+            views = rwkv7.layer_decode_views(rwkv7.pack_decode_params(p, cfg, **pack), cfg)
+            st = rwkv7.pack_decode_state({k: v.to(where) for k, v in state0.items()}, cfg)
+            sp.reset_launches()
+            out = []
+            for x in xs:
+                h, st = rwkv7.decode_step(views, cfg, x.to(where), st)
+                out.append(h.cpu())
+            hs[str(where)] = (torch.stack(out), torch.stack([s["wkv"].cpu() for s in st]))
+            n_step = sp.launches
+        (h_c, s_c), (h_g, s_g) = hs["cpu"], hs[str(dev)]
+        errs[name] = {"hidden_rel": rel(h_g, h_c), "state_rel": rel(s_g, s_c)}
+        print(f"quant small: decode_step on the {name} tree, {C} x {L}, B={Bn}, f32, "
+              f"{QUANT_STEPS} chained in-place steps, card vs CPU: hidden rel "
+              f"{errs[name]['hidden_rel']:.2e}, WKV state rel {errs[name]['state_rel']:.2e} "
+              f"(limit 1e-4); kernel 7 launches {n_step} ({L} a step)")
+        check(errs[name]["hidden_rel"] <= 1e-4 and errs[name]["state_rel"] <= 1e-4,
+              f"quant small: the {name} decode step disagrees with the CPU")
+        check(n_step == L * QUANT_STEPS, f"quant small: kernel 7 launched {n_step} times")
+
+    # rank_bf16: the same logits and noise on both sides (the candidates'
+    # order is the stable bf16 sort's on either)
+    V, k, K = 8193, 50, 25
+    logits = 3.0 * torch.randn(8, V, generator=g)
+    noise = sampling.gumbel((8, k), g)
+    recent = torch.randint(0, V, (8, 10), generator=g)
+    recent[:4] = torch.topk(logits[:4], 10).indices
+    ras_noise = (sampling.gumbel((8, K), g), sampling.gumbel((8, V), g))
+    toks = {}
+    for where in ("cpu", dev):
+        lg = logits.to(where)
+        toks[str(where)] = (
+            sampling.sample(lg, temperature=0.8, top_k=k, top_p=0.95, rank_bf16=True,
+                            noise=noise.to(where)).cpu(),
+            sampling.ras_sample(lg, recent.to(where), top_p=0.8, top_k=K, rank_bf16=True,
+                                noise=tuple(n.to(where) for n in ras_noise)).cpu())
+    same = [torch.equal(a, b) for a, b in zip(toks["cpu"], toks[str(dev)])]
+    print(f"quant small: sample / ras_sample with rank_bf16 on (8, {V}) logits, card = CPU "
+          f"given the same noise: {same}")
+    check(all(same), "quant small: bf16-ranked draws differ on the card")
+
+    refused = []
+    for what, fn in (
+            ("rank_bf16 at top-k 0", lambda: sampling.sample(logits, top_k=0, rank_bf16=True,
+                                                             noise=torch.zeros(8, V))),
+            ("int8 with int4", lambda: rwkv7.pack_decode_params(params, cfg, quantize_int8=True,
+                                                                quantize_int4=True)),
+            ("int4 unfused", lambda: rwkv7.pack_decode_params(params, cfg, quantize_int4=True,
+                                                              fuse_projections=False)),
+            ("a quantize flag on the B=1 kernel route",
+             lambda: CosyPipeline(cosy.default_config(hidden_size=128, num_layers=1),
+                                  cosy.init_params(torch.Generator().manual_seed(0),
+                                                   cosy.default_config(128, 1)),
+                                  None, quantize_int8=True, decode_megakernel=True,
+                                  device=dev)),
+            ("--mega with --int4", lambda: launch.main(["--ckpt", "unused", "--mega",
+                                                        "--int4"]))):
+        try:
+            fn()
+        except (ValueError, SystemExit):
+            refused.append(what)
+    print(f"quant small: refused: {refused}")
+    check(len(refused) == 5, f"quant small: only {refused} were refused")
+    return {"int4_pack_equal": same_pack, "decode_step": errs, "rank_bf16_equal": same}
+
+
+def decode_step_times(params, cfg, dev, reps: int = 20) -> dict:
+    """ms a model decode step (B = 8, the in-place f32 carry) on the bf16
+    fused, int8 and int4 trees of `params` (bf16 matrices), by CUDA events
+    over `reps` steps, and of the dequantization alone (every q8 / q4
+    matrix of the tree turned into its bf16 weight once, as a step does)."""
+    import dataclasses
+
+    from rwkvtts_torch.models import rwkv7
+
+    bb = dataclasses.replace(cfg.backbone, decode_wkv_packed=True)
+    out = {}
+    for name, pack in (("bf16", {}), ("int8", dict(quantize_int8=True)),
+                       ("int4", dict(quantize_int4=True))):
+        views = rwkv7.layer_decode_views(rwkv7.pack_decode_params(params, bb, **pack), bb)
+        with torch.inference_mode():
+            st = rwkv7.pack_decode_state(rwkv7.init_model_state(bb, 8, device=dev), bb)
+            x = torch.randn(8, bb.hidden_size, device=dev, dtype=bb.dtype)
+            step_ms = cuda_ms(lambda: rwkv7.decode_step(views, bb, x, st), reps)
+            mats = [(bp[part], n) for bp in views["blocks"] for part in ("att", "ffn")
+                    for n in ("fused_a", "fused_b", "output", "key", "value")
+                    if f"{n}_q8" in bp[part] or f"{n}_q4" in bp[part]]
+            deq_ms = (cuda_ms(lambda: [rwkv7._qmat(t, n, bb.dtype) for t, n in mats], 5)
+                      if mats else 0.0)
+        out[name] = {"step_ms": step_ms, "dequant_ms": deq_ms, "matrices": len(mats)}
+        del views, st
+    return out
+
+
+def phase_cosy_quant_serve(dev, card: str, bf16_run: dict) -> dict:
+    """The slice's path: the 1.5B pairing (phase 23's random Cosy LM 2048 x
+    24 and codecs, the same seeds) through launch.cosy_pipeline with --int8
+    and with --int4 (the fused pair, output and FFN as int8 / int4 on the
+    rwkv7.decode_step route), CosyTTSService (8 slots, chunk 16, RAS 25 /
+    0.8, hop 50, at most SERVE_COSY_SHORT tokens): 3 streams at once, two
+    with 6 s prompt wavs and one through a stored voice; TTFA, pool ms a
+    step, LM ms a token, 24 kernel-7 launches a pool step and 24 kernel-2
+    an admission, every wav finite with 960 samples a token; beside phase
+    23's bf16 numbers; then the model decode step's ms on the bf16, int8
+    and int4 trees at B = 8 and the dequantization's share."""
+    import collections
+    import threading
+
+    import numpy as np
+
+    from rwkvtts_torch.codecs import campplus as cp
+    from rwkvtts_torch.codecs import flow, hift
+    from rwkvtts_torch.codecs import s3_tokenizer as s3
+    from rwkvtts_torch.infer.voices import CosyVoiceLibrary
+    from rwkvtts_torch.models import cosy, rwkv7
+    from rwkvtts_torch.ops import wkv7_cuda
+    from rwkvtts_torch.ops import wkv7_step_packed as sp
+    from rwkvtts_torch.serving import launch
+    from rwkvtts_torch.serving import service as svc
+
+    L = COSY_L
+    t0 = time.perf_counter()
+    cfg = cosy.default_config(hidden_size=COSY_C, num_layers=L)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = cosy.init_params(g, cfg)
+    randomize(params, g)
+    gen_dev = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    fcfg, hcfg = flow.FlowConfig(sfm=True), hift.HiFTConfig()
+    s3cfg, ccfg = s3.S3TokenizerConfig(), cp.CampplusConfig()
+    codecs = dict(flow_cfg=fcfg, flow_params=flow.init_params(gen_dev(1), fcfg), hift_cfg=hcfg,
+                  hift_params=hift.init_params(gen_dev(2), hcfg), s3_cfg=s3cfg,
+                  s3_params=s3.init_params(gen_dev(3), s3cfg), campplus_cfg=ccfg,
+                  campplus_params=cp.init_params(gen_dev(4), ccfg))
+    clips = [prompt_clip(ZS_PROMPT_S, seed=10 + i) for i in range(2)]
+    text = "The quick brown fox jumped over the lazy dog near the river."
+    print(f"cosy quant serve: Cosy {COSY_C} x {L} and codecs (phase 23's seeds) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    for mode in ("int8", "int4"):
+        t0 = time.perf_counter()
+        pipe = launch.cosy_pipeline(cfg, params, dev, int8=mode == "int8", int4=mode == "int4",
+                                    **codecs)
+        torch.cuda.synchronize()
+        att = pipe.lm_params["blocks"]["att"]
+        key = "fused_a_q8" if mode == "int8" else "fused_a_q4"
+        check(pipe.lm_mega is None and key in att and "fused_a" not in att,
+              f"cosy quant serve: --{mode} did not pack the {key} tree")
+        up = pipe.flow_cfg.token_mel_ratio * pipe.hift_cfg.total_upsample
+        with tempfile.TemporaryDirectory() as vdir:
+            voices = CosyVoiceLibrary(vdir)
+            voices.register_from_wav(pipe, "v0", clips[0])
+            tts = svc.CosyTTSService(pipe, voices=voices, n_slots=SERVE_COSY_STREAMS,
+                                     chunk=SERVE_COSY_CHUNK, max_new_tokens=SERVE_COSY_SHORT,
+                                     top_k=25, top_p=0.8, warmup=True, warmup_widths=[128, 256])
+            b = tts.hub.batcher
+            rec = {"steps": [], "tokens": collections.Counter(), "admit": 0}
+            step, process, prefill = b.step, b._process, b._prefill
+
+            def timed_step():
+                t = time.perf_counter()
+                events = step()
+                if b._pending is not None or events:
+                    rec["steps"].append(time.perf_counter() - t)
+                return events
+
+            def counted_process(toks, owners):
+                events = process(toks, owners)
+                for rid, new, _ in events:
+                    rec["tokens"][rid] += len(new)
+                return events
+
+            def counted_prefill(batch):
+                rec["admit"] += 1
+                return prefill(batch)
+
+            b.step, b._process, b._prefill = timed_step, counted_process, counted_prefill
+            reqs = [svc.TTSRequest(text=text, prompt_wav=clips[0], seed=0),
+                    svc.TTSRequest(text=text, prompt_wav=clips[1], seed=1),
+                    svc.TTSRequest(text=text, speaker="v0", seed=2)]
+            got = [None] * len(reqs)
+
+            def run(i):
+                t, chunks, first = time.perf_counter(), [], None
+                for c in tts.stream(reqs[i], hop_tokens=SERVE_COSY_HOP, timeout=600):
+                    first = first or time.perf_counter() - t
+                    chunks.append(c)
+                got[i] = (first, np.concatenate(chunks), time.perf_counter() - t)
+
+            torch.cuda.synchronize()
+            sp.reset_launches()
+            wkv7_cuda.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                t1 = time.perf_counter()
+                threads = [threading.Thread(target=run, args=(i,)) for i in range(len(reqs))]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                wall = time.perf_counter() - t1
+            finally:
+                tts.close()
+        check(all(x is not None for x in got), "cosy quant serve: a stream did not finish")
+        samples = sorted(len(w) for _, w, _ in got)
+        tokens = sorted(rec["tokens"].values())
+        n_steps = SERVE_COSY_CHUNK * len(rec["steps"])
+        launches = {"wkv7_step": sp.launches, "wkv7_fwd": wkv7_cuda.launches["wkv7_fwd"]}
+        finite = all(bool(np.isfinite(w).all()) for _, w, _ in got)
+        ttfa = sorted(1e3 * f for f, _, _ in got)
+        step_ms = 1e3 * sum(rec["steps"]) / max(n_steps, 1)
+        out[mode] = {"ttfa_ms": ttfa, "wall_s": wall, "tokens": tokens, "samples": samples,
+                     "pool_steps": n_steps, "admissions": rec["admit"],
+                     "pool_ms_per_step": step_ms, "lm_ms_a_token": step_ms,
+                     "launches": launches, "finite": finite,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "setup_s": t1 - t0}
+        print(f"cosy quant serve: --{mode}: 3 streams (2 prompt wavs, 1 stored voice) in "
+              f"{wall:.2f} s: TTFA {[round(x, 1) for x in ttfa]} ms, tokens {tokens}, "
+              f"samples {samples}; pool {step_ms:.3f} ms a step = LM ms a token of a stream "
+              f"(over {n_steps} steps, {rec['admit']} admissions); launches {launches}; "
+              f"peak memory {out[mode]['peak_gib']:.2f} GiB on {card}")
+        check(finite and samples == sorted(n * up for n in tokens),
+              f"cosy quant serve: --{mode} wavs {samples} for tokens {tokens} ({up} a token)")
+        check(n_steps > 0 and launches["wkv7_step"] == L * n_steps,
+              f"cosy quant serve: --{mode}: kernel 7 {launches['wkv7_step']} over {n_steps} "
+              f"pool steps, want {L} a step")
+        check(rec["admit"] > 0 and launches["wkv7_fwd"] == L * rec["admit"],
+              f"cosy quant serve: --{mode}: kernel 2 {launches['wkv7_fwd']} over "
+              f"{rec['admit']} admissions, want {L} an admission")
+        del pipe, tts, voices
+        torch.cuda.empty_cache()
+    if bf16_run:
+        print(f"cosy quant serve: phase 23's bf16 pool on its own traffic: solo "
+              f"{bf16_run['solo_pool_ms_per_step']:.3f} ms a step, 8 streams "
+              f"{bf16_run['pool_ms_per_step']:.3f} ms a step, stored-voice TTFA p50 "
+              f"{bf16_run['pooled_stored']['ttfa_ms_p50']:.1f} ms")
+        out["bf16_phase23"] = {k: bf16_run[k] for k in ("solo_pool_ms_per_step",
+                                                        "pool_ms_per_step")}
+    bf16 = rwkv7.tree_map(lambda t: t.to(torch.bfloat16) if t.dim() >= 2 else t, params)
+    del params
+    out["decode_step"] = decode_step_times(bf16, cfg, dev)
+    print(f"cosy quant serve: model decode step at {COSY_C} x {L}, B = 8, by tree: "
+          f"{ {k: round(v['step_ms'], 4) for k, v in out['decode_step'].items()} } ms, the "
+          f"dequantization alone "
+          f"{ {k: round(v['dequant_ms'], 4) for k, v in out['decode_step'].items()} } ms "
+          f"(CUDA events) on {card}")
+    del bf16
+    torch.cuda.empty_cache()
+    return out
+
+
+def spark_int4_request(ckpt: str, card: str) -> dict:
+    """The Spark launcher with --int4 on a checkpoint (its HTTP serve
+    stubbed): the service its main builds over the int4 tree answers one
+    request of 64 tokens; kernel 7 L a step."""
+    from rwkvtts_torch.ops import wkv7_step_packed as sp
+    from rwkvtts_torch.serving import http_server, launch
+    from rwkvtts_torch.serving import service as svc
+
+    box, serve = {}, http_server.serve
+    http_server.serve = lambda tts, *a, **k: box.update(tts=tts)
+    try:
+        t0 = time.perf_counter()
+        launch.main(["--ckpt", ckpt, "--int4", "--n-slots", "8", "--no-warmup"])
+    finally:
+        http_server.serve = serve
+    tts = box["tts"]
+    got = []
+    finish = tts._finish
+    tts._finish = lambda toks, g: (got.append(len(toks)), finish(toks, g))[1]
+    try:
+        check("fused_a_q4" in tts.pipeline.params["blocks"]["att"],
+              "serve main: --int4 did not pack the int4 tree")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sp.reset_launches()
+        ans = tts.synthesize(svc.TTSRequest(text="an int4 request", global_tokens=list(range(32)),
+                                            max_new_tokens=64), timeout=600)
+        wall = time.perf_counter() - t1
+    finally:
+        tts.close()
+    steps = sp.launches // SERVE_LAYERS
+    print(f"serve main: launch --int4: booted in {t1 - t0:.1f} s, one request {got} tokens "
+          f"in {wall:.3f} s ({1e3 * wall / max(steps, 1):.2f} ms a pool step), kernel 7 "
+          f"{sp.launches} launches, error {ans.error} on {card}")
+    check(ans.error is None and got and got[0] > 0 and sp.launches % SERVE_LAYERS == 0
+          and steps >= got[0], f"serve main: the --int4 request {got}, {sp.launches}")
+    return {"tokens": got[0], "wall_s": wall, "wkv7_step": sp.launches}
+
+
+def phase_quant_quality(dev, card: str) -> dict:
+    """rwkvtts_torch.eval.quant_quality at Spark 1024 x 24 for int8,
+    int4-g64, state-bf16 and int8+state-bf16 (B = 8) and the B=64 kernel
+    (kernel 1, 194 launches a token), and at 2048 x 24 for int8 and
+    int4-g64, QQ_STEPS greedy steps each, with the bf16-unfused control at
+    both widths (the floor rounding alone sets); every JSON line printed;
+    gated only on each agreement finite in [0, 1] and kernel 1's
+    launches."""
+    from rwkvtts_torch.eval import quant_quality as qq
+    from rwkvtts_torch.ops import decode_mega_b64 as dmb
+
+    L, recs = QQ_LAYERS, []
+    t0 = time.perf_counter()
+    recs += qq.measure(["bf16-unfused", "int8", "int4-g64", "state-bf16", "int8+state-bf16"],
+                       QQ_HIDDEN, L, QQ_STEPS, dev)
+    dmb.reset_launches()
+    recs += qq.measure(["mega-b64"], QQ_HIDDEN, L, QQ_STEPS, dev)
+    mega_launches = dmb.launches
+    recs += qq.measure(["bf16-unfused", "int8", "int4-g64"], QQ_WIDE, L, QQ_STEPS, dev)
+    wall = time.perf_counter() - t0
+    for r in recs:
+        print("quant quality: " + json.dumps(r))
+    per_token = mega_launches / (2 * QQ_STEPS)  # the rollout's and the teacher forcing's steps
+    print(f"quant quality: kernel 1 launched {mega_launches} times in the B=64 mode, "
+          f"{per_token:.0f} a token (8 L + 2 = {8 * L + 2}); {wall:.1f} s on {card}")
+    ok = all(0.0 <= r[k] <= 1.0 for r in recs
+             for k in ("teacher_forced_top1_agreement", "free_running_token_agreement"))
+    check(ok, "quant quality: an agreement outside [0, 1]")
+    check(per_token == 8 * L + 2, f"quant quality: kernel 1 {per_token} a token")
+    return {"records": recs, "mega_launches": mega_launches, "wall_s": wall}
+
+
+def phase_flow_noncausal(dev, card: str) -> dict:
+    """The non-causal estimator (EstimatorConfig(causal=False) at
+    FlowConfig()'s widths, random weights) on the card vs the CPU in f32
+    with TF32 off (1e-4), B = 2, FLOW_NC_T frames, a masked tail; then one
+    CFM solve of FLOW_NC_STEPS Euler steps with CFG on both (1e-4)."""
+    import dataclasses
+
+    from rwkvtts_torch.codecs import flow
+    from rwkvtts_torch.models import rwkv7
+
+    fcfg = flow.FlowConfig()
+    ecfg = dataclasses.replace(fcfg.estimator, causal=False)
+    p_c = flow.estimator_init(torch.Generator().manual_seed(44), ecfg)
+    p_g = rwkv7.tree_map(lambda t: t.to(dev), p_c)
+    g = torch.Generator().manual_seed(45)
+    Bn, T, M = 2, FLOW_NC_T, fcfg.output_size
+    x, mu, cond = (torch.randn(Bn, T, M, generator=g) for _ in range(3))
+    spks = torch.randn(Bn, M, generator=g)
+    mask = torch.ones(Bn, T)
+    mask[1, T - 9:] = 0
+    t = torch.tensor([0.3, 0.8])
+    args = (x, mask, mu, t, spks, cond)
+    with torch.inference_mode():
+        v_c = flow.estimator_apply(p_c, ecfg, *args)
+        t0 = time.perf_counter()
+        v_g = flow.estimator_apply(p_g, ecfg, *(a.to(dev) for a in args)).cpu()
+        est_ms = 1e3 * (time.perf_counter() - t0)
+        z = torch.randn(Bn, T, M, generator=g)
+        solve = (z, mu, mask, spks, cond)
+        s_c = flow.cfm_solve(p_c, ecfg, fcfg.cfm, *solve, n_timesteps=FLOW_NC_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s_g = flow.cfm_solve(p_g, ecfg, fcfg.cfm, *(a.to(dev) for a in solve),
+                             n_timesteps=FLOW_NC_STEPS).cpu()
+        solve_ms = 1e3 * (time.perf_counter() - t0)
+    out = {"estimator_rel": rel(v_g, v_c), "solve_rel": rel(s_g, s_c), "estimator_ms": est_ms,
+           "solve_ms": solve_ms, "finite": bool(torch.isfinite(s_g).all())}
+    print(f"flow non-causal: the estimator at FlowConfig()'s widths, causal=False (GroupNorm(8) "
+          f"blocks, padding-1 convolutions), B={Bn} x {T} frames, f32, TF32 off: card vs CPU rel "
+          f"{out['estimator_rel']:.2e} (limit 1e-4), {est_ms:.1f} ms; a {FLOW_NC_STEPS}-step CFM "
+          f"solve: rel {out['solve_rel']:.2e} (limit 1e-4), {solve_ms:.1f} ms on {card}")
+    check(out["finite"] and out["estimator_rel"] <= 1e-4 and out["solve_rel"] <= 1e-4,
+          "flow non-causal: the estimator or the solve disagrees with the CPU")
+    return out
+
+
+def interactive_session(pipe, card: str) -> dict:
+    """rwkvtts_torch.serving.interactive_cli.repl on `pipe` with a scripted
+    stdin (/voice design with the properties' defaults, one line of text,
+    /quit), synthesize capped at CLI_NEW tokens: one finite wav written."""
+    import functools
+    import io
+    import sys
+    import types
+    import wave
+
+    import numpy as np
+
+    from rwkvtts_torch.serving import interactive_cli
+
+    capped = types.SimpleNamespace(design_voice=pipe.design_voice, codec=pipe.codec,
+                                   synthesize=functools.partial(pipe.synthesize,
+                                                                max_new_tokens=CLI_NEW))
+    stdin = sys.stdin
+    sys.stdin = io.StringIO("/voice design\n" + "\n" * 5 + "Hello from the console.\n/quit\n")
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            interactive_cli.repl(capped, d)
+            wall = time.perf_counter() - t0
+            names = sorted(os.listdir(d))
+            samples = np.zeros(0, np.int16)
+            if names:
+                with wave.open(os.path.join(d, names[0])) as f:
+                    samples = np.frombuffer(f.readframes(f.getnframes()), np.int16)
+    finally:
+        sys.stdin = stdin
+    hop = pipe.codec.cfg.latent_hop_length
+    print(f"interactive cli: a scripted session (/voice design, one line, /quit) wrote {names}, "
+          f"{samples.size} samples, in {wall:.2f} s on {card}")
+    check(names == ["tts_0000.wav"] and samples.size > 0 and samples.size % hop == 0
+          and np.abs(samples).max() > 0, "interactive cli: not one nonempty wav")
+    return {"files": names, "samples": int(samples.size), "wall_s": wall}
+
+
+def quant_of_tree(what: str = "quant") -> dict:
+    """The parts this port's quantized-decode slice added, alone: phases
+    39-42, the remat runs of phase 10 (through phase 10 itself), the --int4
+    launcher request on its own checkpoint and the interactive session on a
+    Spark 1024 x 24 pipeline with a random BiCodecConfig() codec; prints
+    their numbers as one JSON line."""
+    from rwkvtts_torch.codecs import bicodec
+    from rwkvtts_torch.codecs.spark_tokenizer import SparkAudioTokenizer
+    from rwkvtts_torch.convert import export_hf
+    from rwkvtts_torch.infer.spark_pipeline import SparkPipeline
+    from rwkvtts_torch.models import rwkv7, spark
+    from rwkvtts_torch.utils import tokenizer
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(card)
+    seconds, out = {}, {}
+
+    def run(phase, *args):
+        t = time.perf_counter()
+        res = phase(*args)
+        seconds[phase.__name__] = round(time.perf_counter() - t, 1)
+        return res
+
+    out["quant_small"] = run(phase_quant_small, dev)
+    out["cosy_quant_serve"] = run(phase_cosy_quant_serve, dev, card, None)
+    out["quant_quality"] = run(phase_quant_quality, dev, card)
+    out["flow_noncausal"] = run(phase_flow_noncausal, dev, card)
+    out["train_main"] = run(phase_train_main, dev, card)["remat"]
+    cfg = spark.default_config(hidden_size=SERVE_HIDDEN, num_layers=SERVE_LAYERS)
+    params = spark.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    with tempfile.TemporaryDirectory() as d:
+        export_hf.save_pretrained(params, cfg, d)
+        out["spark_int4"] = run(spark_int4_request, os.path.join(d, "model.safetensors"), card)
+    ccfg = wav_codec_config()
+    codec = SparkAudioTokenizer(ccfg, bicodec.init_params(
+        torch.Generator(device=dev).manual_seed(0), ccfg))
+    lm = rwkv7.tree_map(lambda t: t.to(torch.bfloat16) if t.dim() >= 2 else t, params)
+    pipe = SparkPipeline(cfg, lm, tokenizer.get_world_tokenizer(n_spct=48), audio_tokenizer=codec)
+    out["interactive_cli"] = run(interactive_session, pipe, card)
+    print(f"{what}: " + json.dumps({**out, "seconds": seconds}))
+    return out
+
+
+
 def build_log(log: str) -> None:
     """Print ptxas's registers, shared memory and spills of every kernel,
     and fail if a chunked WKV7 kernel (forward, backward, fused pair)
@@ -5986,6 +6589,10 @@ def main() -> None:
     rank_run = run(phase_ranking_demo, dev, card)
     greedy_run = run(phase_spark_generate, dev, card)
     raw_run = corpus_phases(dev, card, run)
+    quant_small = run(phase_quant_small, dev)
+    cq_run = run(phase_cosy_quant_serve, dev, card, cs_run)
+    qq_run = run(phase_quant_quality, dev, card)
+    flow_nc = run(phase_flow_noncausal, dev, card)
 
     rows["wkv7_fwd"]["launches"] = main_run["launches"]["wkv7_fwd"]
     rows["wkv7_fwd"]["train_forward"] = train_fwd  # its training-shape numbers, unfused path
@@ -6056,6 +6663,20 @@ def main() -> None:
             "spark_properties"]["fused_launches"][i]
     for key, n in raw_run["export"]["launches"].items():
         rows[key]["launches_export_forwards"] = n
+    for policy, r in train_run["remat"].items():
+        if policy == "default":
+            continue
+        rows["wkv7_fused_fwd"][f"launches_a_step_remat_{policy}"] = r["launches_a_step"][
+            "wkv7_fused_fwd"]
+        rows["wkv7_fused_bwd"][f"launches_a_step_remat_{policy}"] = r["launches_a_step"][
+            "wkv7_fused_bwd"]
+    for mode in ("int8", "int4"):
+        rows["wkv7_step"][f"launches_cosy_quant_serve_{mode}"] = cq_run[mode]["launches"][
+            "wkv7_step"]
+        rows["wkv7_fwd"][f"launches_cosy_quant_serve_{mode}"] = cq_run[mode]["launches"][
+            "wkv7_fwd"]
+    rows["wkv7_step"]["launches_serve_int4_request"] = serve_run["int4_request"]["wkv7_step"]
+    rows["decode_b64_step"]["launches_quant_quality_mega"] = qq_run["mega_launches"]
     print("train: " + json.dumps({k: v for k, v in train_run.items()
                                   if k not in ("launches", "unfused")}))
     print("cosy: " + json.dumps({k: v for k, v in cosy_run.items() if k != "launches"}))
@@ -6071,6 +6692,11 @@ def main() -> None:
                                  "seed_tts": seed_run, "ranking_demo": rank_run,
                                  "greedy_spark_generate": greedy_run}))
     print("raw audio: " + json.dumps(raw_run))
+    print("quant: " + json.dumps({"small": quant_small, "cosy_quant_serve": cq_run,
+                                  "quant_quality": qq_run, "flow_noncausal": flow_nc,
+                                  "remat": train_run["remat"],
+                                  "serve_int4": serve_run["int4_request"],
+                                  "interactive_cli": wav_run["interactive_cli"]}))
     seconds["total"] = round(time.perf_counter() - t_start, 1)
     print("phase seconds: " + json.dumps(seconds))
     print(json.dumps({"kernels": [rows[k] for k in ("wkv7_fwd", "decode_b64_step", "wkv7_bwd",

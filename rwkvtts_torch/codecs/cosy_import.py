@@ -13,18 +13,19 @@ Key layouts read (the reference's module names):
     encoders.{i}.self_attn.linear_{q,k,v,out,pos} + pos_bias_{u,v},
     feed_forward.w_{1,2}, norm_mha / norm_ff, up_layer.conv,
     up_embed.out.{0,1}, up_encoders.{i}, after_norm
-  * estimator (causal): time_mlp.linear_{1,2}, {down,mid,up}_blocks.{i}.
+  * estimator: time_mlp.linear_{1,2}, {down,mid,up}_blocks.{i}.
     {0 resnet, 1.{j} transformer, 2 resampler}, resnet block{1,2}.block.
-    {0 conv, 2 LayerNorm}, mlp.1, res_conv; transformer attn1.to_{q,k,v},
+    {0 conv, 2 LayerNorm} (causal) or {0 conv, 1 GroupNorm} (non-causal),
+    mlp.1, res_conv; transformer attn1.to_{q,k,v},
     attn1.to_out.0, norm1, norm3, ff.net.0.proj, ff.net.2; final_block,
     final_proj
   * HiFT: f0_predictor.condnet.{0,2,4,6,8}, classifier, m_source.l_linear,
     conv_pre, ups.{i}, source_downs.{i}, source_resblocks.{i},
     resblocks.{i}, conv_post; Snake alphas
 
-The port's estimator is the deployed single-level causal one: a
-checkpoint with real Downsample1D / Upsample1D resamplers (more levels) is
-refused.
+The port's estimator has the deployed single level (causal or not, as
+the config says): a checkpoint with real Downsample1D / Upsample1D
+resamplers (more levels) is refused.
 """
 from __future__ import annotations
 
@@ -81,17 +82,20 @@ def conformer_from_sd(sd: SD, cfg) -> Params:
 
 
 # ---------------------------------------------------------------------------
-# Estimator UNet (causal)
+# Estimator UNet
 # ---------------------------------------------------------------------------
 
 
-def _block1d_p(sd: SD, b: str) -> Params:
-    return {"conv": ti.conv1d_p(sd, f"{b}.block.0"), "ln": ti.layer_norm_p(sd, f"{b}.block.2")}
+def _block1d_p(sd: SD, b: str, causal: bool) -> Params:
+    if causal:
+        return {"conv": ti.conv1d_p(sd, f"{b}.block.0"), "ln": ti.layer_norm_p(sd, f"{b}.block.2")}
+    return {"conv": ti.conv1d_p(sd, f"{b}.block.0"), "gn": ti.layer_norm_p(sd, f"{b}.block.1")}
 
 
-def _resnet_p(sd: SD, b: str) -> Params:
-    return {"mlp": ti.linear_p(sd, f"{b}.mlp.1"), "block1": _block1d_p(sd, f"{b}.block1"),
-            "block2": _block1d_p(sd, f"{b}.block2"), "res_conv": ti.conv1d_p(sd, f"{b}.res_conv")}
+def _resnet_p(sd: SD, b: str, causal: bool) -> Params:
+    return {"mlp": ti.linear_p(sd, f"{b}.mlp.1"), "block1": _block1d_p(sd, f"{b}.block1", causal),
+            "block2": _block1d_p(sd, f"{b}.block2", causal),
+            "res_conv": ti.conv1d_p(sd, f"{b}.res_conv")}
 
 
 def _transformer_p(sd: SD, b: str) -> Params:
@@ -108,7 +112,7 @@ def _transformer_p(sd: SD, b: str) -> Params:
 
 
 def _stage_p(sd: SD, b: str, cfg, resampler: str = None) -> Params:
-    blk = {"resnet": _resnet_p(sd, f"{b}.0"),
+    blk = {"resnet": _resnet_p(sd, f"{b}.0", cfg.causal),
            "transformers": [_transformer_p(sd, f"{b}.1.{j}") for j in range(cfg.n_blocks)]}
     if resampler is not None:
         if f"{b}.2.conv.weight" in sd:
@@ -119,8 +123,8 @@ def _stage_p(sd: SD, b: str, cfg, resampler: str = None) -> Params:
 
 
 def estimator_from_sd(sd: SD, cfg) -> Params:
-    """CausalConditionalDecoder state dict (prefix stripped) -> numpy tree
-    for codecs/flow.estimator_apply."""
+    """CausalConditionalDecoder (or, with cfg.causal off, ConditionalDecoder)
+    state dict (prefix stripped) -> numpy tree for codecs/flow.estimator_apply."""
     n_levels = len(cfg.channels)
     return {
         "time_mlp": {"lin1": ti.linear_p(sd, "time_mlp.linear_1"),
@@ -128,7 +132,7 @@ def estimator_from_sd(sd: SD, cfg) -> Params:
         "down": [_stage_p(sd, f"down_blocks.{i}", cfg, "downsample") for i in range(n_levels)],
         "mid": [_stage_p(sd, f"mid_blocks.{i}", cfg) for i in range(cfg.num_mid_blocks)],
         "up": [_stage_p(sd, f"up_blocks.{i}", cfg, "upsample") for i in range(n_levels)],
-        "final_block": _block1d_p(sd, "final_block"),
+        "final_block": _block1d_p(sd, "final_block", cfg.causal),
         "final_proj": ti.conv1d_p(sd, "final_proj"),
     }
 

@@ -1,7 +1,9 @@
 """Flow-matching mel generator of the CosyVoice path (counterpart of
 rwkvtts_tpu/codecs/flow.py; reference third_party/cosyvoice/flow/flow.py,
 flow_matching.py, decoder.py): the x-vector affine, the token encoder
-(upsample conformer), the causal estimator UNet, the 10-step Euler CFM
+(upsample conformer), the estimator UNet (the deployed causal form, or
+with ``EstimatorConfig.causal=False`` the non-causal one: GroupNorm(8)
+blocks and padding-1 convolutions), the 10-step Euler CFM
 solve with classifier-free guidance, and the windowed streaming hop.
 
 The initial CFM noise is a function of (seed, absolute mel frame), so a
@@ -39,6 +41,9 @@ class EstimatorConfig:
     num_mid_blocks: int = 12
     num_heads: int = 8
     attention_head_dim: int = 64
+    # causal: LayerNorm blocks behind left-padded convolutions; otherwise
+    # GroupNorm(8) blocks and symmetric padding-1 convolutions
+    causal: bool = True
     static_chunk_size: int = 0  # 0 => full attention (offline)
 
 
@@ -78,26 +83,40 @@ def _sinusoidal_t_emb(t: torch.Tensor, dim: int, scale: float = 1000.0) -> torch
     return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
 
 
-def _block1d_init(g, dim, dim_out) -> Params:
-    return {"conv": nn.conv1d_init(g, dim, dim_out, 3), "ln": nn.layer_norm_init(dim_out, g.device)}
+def _block1d_init(g, dim, dim_out, causal: bool) -> Params:
+    norm = nn.layer_norm_init(dim_out, g.device)
+    return {"conv": nn.conv1d_init(g, dim, dim_out, 3), ("ln" if causal else "gn"): norm}
 
 
-def _block1d(p, x, mask):
-    x = nn.layer_norm(p["ln"], nn.conv1d(p["conv"], x * mask, padding=(2, 0)), eps=1e-5)
+def _group_norm8(p, x):
+    """GroupNorm(8) over channels-last (B, T, C), statistics over every
+    frame (the mask does not enter them, as in the JAX package)."""
+    B, T, C = x.shape
+    xg = x.reshape(B, T, 8, C // 8)
+    mu = xg.mean((1, 3), keepdim=True)
+    var = xg.var((1, 3), unbiased=False, keepdim=True)
+    return ((xg - mu) * torch.rsqrt(var + 1e-5)).reshape(B, T, C) * p["g"] + p["b"]
+
+
+def _block1d(p, x, mask, causal: bool):
+    if causal:
+        x = nn.layer_norm(p["ln"], nn.conv1d(p["conv"], x * mask, padding=(2, 0)), eps=1e-5)
+    else:
+        x = _group_norm8(p["gn"], nn.conv1d(p["conv"], x * mask, padding=1))
     return F.mish(x) * mask
 
 
-def _resnet_block_init(g, dim, dim_out, time_dim) -> Params:
+def _resnet_block_init(g, dim, dim_out, time_dim, causal: bool) -> Params:
     return {"mlp": nn.linear_init(g, time_dim, dim_out),
-            "block1": _block1d_init(g, dim, dim_out),
-            "block2": _block1d_init(g, dim_out, dim_out),
+            "block1": _block1d_init(g, dim, dim_out, causal),
+            "block2": _block1d_init(g, dim_out, dim_out, causal),
             "res_conv": nn.conv1d_init(g, dim, dim_out, 1)}
 
 
-def _resnet_block(p, x, mask, t_emb):
-    h = _block1d(p["block1"], x, mask)
+def _resnet_block(p, x, mask, t_emb, causal: bool):
+    h = _block1d(p["block1"], x, mask, causal)
     h = h + nn.linear(p["mlp"], F.mish(t_emb))[:, None, :]
-    h = _block1d(p["block2"], h, mask)
+    h = _block1d(p["block2"], h, mask, causal)
     return h + nn.conv1d(p["res_conv"], x * mask, padding=0)
 
 
@@ -139,12 +158,13 @@ def estimator_init(g: torch.Generator, cfg: EstimatorConfig) -> Params:
                  "down": [], "mid": [], "up": []}
     out_ch = cfg.in_channels
     for ch in chans:
-        p["down"].append({"resnet": _resnet_block_init(g, out_ch, ch, time_dim),
+        p["down"].append({"resnet": _resnet_block_init(g, out_ch, ch, time_dim, cfg.causal),
                           "transformers": tblocks(ch),
                           "downsample": nn.conv1d_init(g, ch, ch, 3)})
         out_ch = ch
     for _ in range(cfg.num_mid_blocks):
-        p["mid"].append({"resnet": _resnet_block_init(g, chans[-1], chans[-1], time_dim),
+        p["mid"].append({"resnet": _resnet_block_init(g, chans[-1], chans[-1], time_dim,
+                                                      cfg.causal),
                          "transformers": tblocks(chans[-1])})
     up_chans = chans[::-1] + (chans[0],)
     for i in range(len(up_chans) - 1):
@@ -152,10 +172,10 @@ def estimator_init(g: torch.Generator, cfg: EstimatorConfig) -> Params:
         # applied as a convolution on every level, as the JAX package does
         # (the deployed configs have a single level, whose kernel is 3)
         k = 3 if i == len(up_chans) - 2 else 4
-        p["up"].append({"resnet": _resnet_block_init(g, in_ch, ch, time_dim),
+        p["up"].append({"resnet": _resnet_block_init(g, in_ch, ch, time_dim, cfg.causal),
                         "transformers": tblocks(ch),
                         "upsample": nn.conv1d_init(g, ch, ch, k)})
-    p["final_block"] = _block1d_init(g, up_chans[-1], up_chans[-1])
+    p["final_block"] = _block1d_init(g, up_chans[-1], up_chans[-1], cfg.causal)
     p["final_proj"] = nn.conv1d_init(g, up_chans[-1], cfg.out_channels, 1)
     return p
 
@@ -182,13 +202,13 @@ def estimator_apply(p: Params, cfg: EstimatorConfig, x, mask, mu, t, spks, cond)
     attn_bias = _chunk_attn_bias(mask, cfg.static_chunk_size)
 
     def stage(blk, h):
-        h = _resnet_block(blk["resnet"], h, m, t_emb)
+        h = _resnet_block(blk["resnet"], h, m, t_emb, cfg.causal)
         for tb in blk["transformers"]:
             h = _transformer_block(tb, h, attn_bias, cfg.num_heads, cfg.attention_head_dim)
         return h
 
-    def resample(conv, h):  # the deployed single level: a stride-1 causal conv
-        return nn.conv1d(conv, h * m, padding=(2, 0))
+    def resample(conv, h):  # the deployed single level: a stride-1 conv
+        return nn.conv1d(conv, h * m, padding=(2, 0) if cfg.causal else 1)
 
     hiddens = []
     for blk in p["down"]:
@@ -201,7 +221,7 @@ def estimator_apply(p: Params, cfg: EstimatorConfig, x, mask, mu, t, spks, cond)
         skip = hiddens.pop()
         h = stage(blk, torch.cat([h[:, :skip.shape[1]], skip], -1))
         h = resample(blk["upsample"], h)
-    h = _block1d(p["final_block"], h, m)
+    h = _block1d(p["final_block"], h, m, cfg.causal)
     return nn.conv1d(p["final_proj"], h * m, padding=0) * m
 
 

@@ -12,8 +12,12 @@
     routes: the B=1 whole-step kernel on ``decode_mega.pack_mega``'s int8
     weights (the default for a bf16 LM on a card), or the model's
     ``rwkv7.decode_step`` on ``pack_decode_params``'s tree (the default
-    for an f32 LM or on the CPU, the JAX package's; the WKV step kernel on
-    a card); ``decode_megakernel`` True / False picks one;
+    for an f32 LM, on the CPU, or with int8 / int4 decode weights, the JAX
+    package's; the WKV step kernel on a card); ``decode_megakernel`` True /
+    False picks one. ``quantize_int8`` / ``quantize_int4`` /
+    ``fuse_projections`` shape that tree (``rwkv7.pack_decode_params``);
+    ``sample_rank_bf16`` ranks the sampler's candidates in bf16
+    (``sampling.ras_sample``), here and in the streaming path;
   * ``token2wav``: the flow (10 Euler CFM steps, or the SFM fast decode
     for an SFM flow) over prompt + tokens, an optional speed resize of the
     mel, HiFT;
@@ -25,9 +29,6 @@
     chunks of at most ``token_max_n`` text tokens, each chunk synthesized
     with its own prefill, so the state never grows across sentences, and
     the wavs and tokens concatenated).
-
-Not ported: int4 decode weights and the sampler's bf16 candidate ranking
-(the constructor refuses them).
 
 Everything runs on `device`, a CUDA device unless the caller asks for
 the CPU (where the kernels' plain versions run). Random draws come from the
@@ -91,27 +92,34 @@ class CosyPipeline:
         s3_params=None,
         campplus_cfg: Optional[cp.CampplusConfig] = None,
         campplus_params=None,
+        quantize_int8: bool = False,
         quantize_int4: bool = False,
+        fuse_projections: bool = True,
         decode_megakernel: Optional[bool] = None,
         sample_rank_bf16: bool = False,
         *,
         device="cuda",
     ):
-        if quantize_int4:
-            raise NotImplementedError("int4 decode weights are not ported yet")
-        if sample_rank_bf16:
-            raise NotImplementedError("the sampler's bf16 candidate ranking (sample_rank_bf16) "
-                                      "is not ported yet")
         self.device = dev = torch.device(device)
         bb = lm_cfg.backbone
         self.lm_cfg = lm_cfg
         lm_params = _tree_to(lm_params, dev)
         # decode route: the B=1 whole-step kernel on its int8 pack (the
         # prefill reads the originals), or the model's decode step on the
-        # fused decode weights
-        kernel = _kernel_route(decode_megakernel, dev, bb)
+        # decode weights pack_decode_params shapes (fused or not, bf16,
+        # int8 or int4); a quantize flag picks the latter
+        quantized = quantize_int8 or quantize_int4
+        if quantized and decode_megakernel:
+            raise ValueError("quantize_int8 / quantize_int4 shape the rwkv7.decode_step route's "
+                             "weights; the B=1 kernel streams its own int8 pack: drop "
+                             "decode_megakernel=True or the quantize flag")
+        kernel = _kernel_route(False if quantized else decode_megakernel, dev, bb)
         self.lm_mega = dm.pack_mega(lm_params, bb) if kernel else None
-        self.lm_params = lm_params if kernel else rwkv7.pack_decode_params(lm_params, bb)
+        self.lm_params = lm_params if kernel else rwkv7.pack_decode_params(
+            lm_params, bb, quantize_int8=quantize_int8, quantize_int4=quantize_int4,
+            fuse_projections=fuse_projections)
+        # bf16 candidate ranking in the LM's sampler (sampling.ras_sample)
+        self.lm_rank_bf16 = sample_rank_bf16
         # the whole-step kernel's WKV carry: bf16, the JAX package's default
         self.wkv_dtype = torch.bfloat16
         self.tok = text_tokenizer
@@ -157,7 +165,7 @@ class CosyPipeline:
             self.lm_params, self.lm_cfg, tokens, modality, mask,
             max_new_tokens=min(int(content_len * 20), max_new_tokens),
             min_new_tokens=int(content_len * 2), top_k=top_k, top_p=top_p, mega=self.lm_mega,
-            generator=torch.Generator().manual_seed(seed))
+            generator=torch.Generator().manual_seed(seed), rank_bf16=self.lm_rank_bf16)
         return toks[0, :int(lengths[0])].cpu().numpy()
 
     # -- token2wav ----------------------------------------------------------

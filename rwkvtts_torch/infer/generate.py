@@ -96,14 +96,17 @@ def spark_generate_mega_b64(
     eos_id: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
     noise: Optional[torch.Tensor] = None,
+    rank_bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched Spark semantic-token generation, 64 rows.
 
     tokens/modality/attention_mask: left-padded prompt (64, T). Random
     draws come from `generator`, or from `noise[step]` (per-step Gumbel
-    noise of the sampler's candidate shape, see ops/sampling.py).
-    Returns (generated (64, max_new_tokens) int64, lengths (64,)); after
-    EOS a row repeats eos_id."""
+    noise of the sampler's candidate shape, see ops/sampling.py). With
+    `rank_bf16` the logits stay in the head's bf16 and the sampler ranks
+    there (``sampling.sample``'s flag). Returns (generated (64,
+    max_new_tokens) int64, lengths (64,)); after EOS a row repeats
+    eos_id."""
     if eos_id is None:
         eos_id = cfg.eos_token_id
     bb = cfg.backbone
@@ -117,10 +120,11 @@ def spark_generate_mega_b64(
     done = torch.zeros(Bn, dtype=torch.bool, device=tokens.device)
     toks = []
     for i in range(max_new_tokens):
-        logits = (h @ head).float()
+        logits = h @ head
         tok = sampling.sample(
-            logits, temperature=temperature, top_k=top_k, top_p=top_p,
-            noise=None if noise is None else noise[i], generator=generator,
+            logits if rank_bf16 else logits.float(), temperature=temperature, top_k=top_k,
+            top_p=top_p, noise=None if noise is None else noise[i], generator=generator,
+            rank_bf16=rank_bf16,
         )
         tok = torch.where(done, eos_id, tok)
         done = done | (tok == eos_id)
@@ -289,9 +293,11 @@ def spark_global_generate(
 
 
 def _cosy_loop(params, cfg: cosy.CosyConfig, carry, decode, n_steps: int, noise, generator, *,
-               min_new_tokens: int, top_k: int, top_p: float):
+               min_new_tokens: int, top_k: int, top_p: float, rank_bf16: bool = False):
     """`n_steps` Cosy decode steps (the body of rwkvtts_tpu's
-    _make_cosy_step): logits = h @ head (model dtype) -> f32 + bias, EOS
+    _make_cosy_step): logits = h @ head (model dtype) -> f32 + bias (with
+    `rank_bf16` they stay in the model dtype, the bias cast to it, and
+    ``ras_sample`` ranks in bf16), EOS
     masked while fewer than `min_new_tokens` were drawn, RAS sampling (the
     Gumbel noise of step i from noise[0][i] / noise[1][i], or drawn from
     `generator`), the EOS latch (a finished row repeats EOS), the rolling
@@ -300,14 +306,15 @@ def _cosy_loop(params, cfg: cosy.CosyConfig, carry, decode, n_steps: int, noise,
     bb, eos = cfg.backbone, cfg.eos_token_id
     h, state, done, recent, n = carry
     head = params["head"].to(bb.dtype)
-    bias = params["head_bias"].float()
+    bias = params["head_bias"].to(bb.dtype if rank_bf16 else torch.float32)
     toks = []
     for i in range(n_steps):
-        logits = (h @ head).float() + bias
+        logits = h @ head
+        logits = (logits if rank_bf16 else logits.float()) + bias
         if min_new_tokens > 0:
             logits[:, eos] = torch.where(n < min_new_tokens, sampling.NEG_INF, logits[:, eos])
         tok = sampling.ras_sample(logits, recent, top_p=top_p, top_k=top_k, win_size=RAS_WINDOW,
-                                  tau_r=RAS_TAU, generator=generator,
+                                  tau_r=RAS_TAU, generator=generator, rank_bf16=rank_bf16,
                                   noise=None if noise is None else (noise[0][i], noise[1][i]))
         tok = torch.where(done, eos, tok)
         done = done | (tok == eos)
@@ -358,16 +365,19 @@ def cosy_decode_chunk(
     min_new_tokens: int = 0,
     top_k: int = 25,
     top_p: float = 0.8,
+    rank_bf16: bool = False,
 ):
     """Decode a chunk of Cosy speech tokens from a carried state
     (``cosy_prefill_carry``'s, with ``mega_state`` iff `mega` is given):
     through the B=1 whole-step kernel on `mega` (``decode_mega.pack_mega``),
     or through ``rwkv7.decode_step`` on `params`; a step a row of `noise` =
     (nucleus (n, B, k), fallback (n, B, V)), the Gumbel noise of the two
-    RAS draws. Returns (carry, toks (B, n) on the device, done (B,)); the
-    carry's state is updated in place where the step does so."""
+    RAS draws; `rank_bf16` as ``_cosy_loop``'s. Returns (carry, toks (B,
+    n) on the device, done (B,)); the carry's state is updated in place
+    where the step does so."""
     carry, toks = _cosy_loop(params, cfg, carry, _b1_decoder(params, cfg, mega), noise[0].shape[0],
-                             noise, None, min_new_tokens=min_new_tokens, top_k=top_k, top_p=top_p)
+                             noise, None, min_new_tokens=min_new_tokens, top_k=top_k, top_p=top_p,
+                             rank_bf16=rank_bf16)
     return carry, toks, carry[2]
 
 
@@ -383,6 +393,7 @@ def cosy_generate(
     chunk_len: int = 64,
     generator: Optional[torch.Generator] = None,
     noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    rank_bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """CosyVoice speech-token generation (rwkvtts_tpu's cosy_generate):
     RAS sampling, EOS suppressed below `min_new_tokens`. The decode runs
@@ -394,6 +405,7 @@ def cosy_generate(
     takes noise[0][i] / noise[1][i] (shapes (max_new_tokens, B, k) and
     (max_new_tokens, B, V)), or a chunk's noise is drawn from `generator`
     on its own device (``sampling.ras_noise``) and moved to the prompt's.
+    `rank_bf16`: the sampler ranks the bf16 logits (``_cosy_loop``).
     Returns (generated (B, max_new_tokens), EOS after a row's end, and
     lengths (B,)) on the device."""
     if noise is None and generator is None:
@@ -409,7 +421,7 @@ def cosy_generate(
                  else sampling.ras_noise(generator, cl, B, min(top_k, V), V, dev))
         carry, toks, done = cosy_decode_chunk(params, cfg, carry, draws, mega=mega,
                                               min_new_tokens=min_new_tokens, top_k=top_k,
-                                              top_p=top_p)
+                                              top_p=top_p, rank_bf16=rank_bf16)
         chunks.append(toks)
         n += cl
         if bool(done.all()):
@@ -429,6 +441,7 @@ def cosy_generate_mega_b64(
     top_p: float = 0.8,
     generator: Optional[torch.Generator] = None,
     noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    rank_bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``cosy_generate`` with the decode routed through the B=64 whole-step
     kernel (``decode_mega_b64.decode_step_mega_b64`` on `mega`, what
@@ -448,7 +461,7 @@ def cosy_generate_mega_b64(
     _, out = _cosy_loop(params, cfg, carry,
                         lambda x, st: dmb.decode_step_mega_b64(mega, bb, x, st),
                         max_new_tokens, noise, generator, min_new_tokens=min_new_tokens,
-                        top_k=top_k, top_p=top_p)
+                        top_k=top_k, top_p=top_p, rank_bf16=rank_bf16)
     return out, _eos_lengths(out, eos, max_new_tokens)
 
 

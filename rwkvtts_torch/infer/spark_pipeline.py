@@ -7,8 +7,10 @@ semantics] (codec ``tokenize`` of a prompt wav, or a designed voice),
 chunked early-exit generation through the model's decode step (the
 prefill's WKV7 kernel and the WKV step kernel on a card), then BiCodec
 ``detokenize`` per row. ``design_voice``: SPCT properties -> 32 global
-tokens through the global-token head. Not ported: speculative decoding
-(``spec_k``) and int4 decode weights.
+tokens through the global-token head. The decode weights are
+``rwkv7.pack_decode_params``'s: fused projections, in bf16 or as int8 /
+int4 (``quantize_int8`` / ``quantize_int4``). Not ported: speculative
+decoding (``spec_k``).
 
 Everything runs on the device of the LM parameters (a CUDA device unless
 the caller built them on the CPU) and of the codec.
@@ -61,17 +63,15 @@ class SparkPipeline:
         spec_k: int = 0,
         fuse_projections: bool = True,
     ):
-        if quantize_int4:
-            raise NotImplementedError("int4 decode weights are not ported yet")
         if spec_k:
             raise NotImplementedError("speculative decoding (spec_k) is not ported yet")
         self.cfg = lm_cfg
-        # fused decode projections; int8 decode weights on request. Without
-        # fused projections (another engine owns decode, e.g. the B=64 pool)
-        # the raw weights are all there is.
+        # fused decode projections; int8 / int4 decode weights on request.
+        # Without fused projections (another engine owns decode, e.g. the
+        # B=64 pool) the raw weights are all there is.
         self.params = rwkv7.pack_decode_params(
             lm_params, lm_cfg.backbone, quantize_int8=quantize_int8,
-            fuse_projections=fuse_projections,
+            quantize_int4=quantize_int4, fuse_projections=fuse_projections,
         )
         self.device = self.params["head"].device
         self.tok = text_tokenizer

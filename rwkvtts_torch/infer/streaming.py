@@ -296,7 +296,8 @@ def stream_synthesize(
                          lm_cfg.speech_head_size)
         n_dispatched += 1
         return gen.cosy_decode_chunk(pipeline.lm_params, lm_cfg, carry, draws, mega=mega,
-                                     min_new_tokens=min_len, top_k=top_k, top_p=top_p)
+                                     min_new_tokens=min_len, top_k=top_k, top_p=top_p,
+                                     rank_bf16=pipeline.lm_rank_bf16)
 
     tokens = np.zeros((0,), np.int64)
     n_decoded = 0

@@ -10,8 +10,9 @@ Ported here: the config, ``init_params`` (same tree, shapes and init
 distributions; values from a ``torch.Generator``, so they differ from
 JAX's), ``init_model_state``, the full-sequence ``block_forward`` and
 ``forward`` (the prefill, and the training forward, differentiable, with
-per-block rematerialisation), the int8 weight quantizer, and the decode
-half: ``pack_decode_params`` (fused projections, int8), the per-layer
+rematerialisation by block, ``remat`` / ``remat_policy``), the int8 and
+int4 weight quantizers, and the decode half: ``pack_decode_params`` (fused
+projections, int8, int4), the per-layer
 decode state (``pack_decode_state`` / ``unpack_decode_state``,
 ``layer_decode_views``) and ``decode_step``. The WKV recurrence goes
 through ``ops/wkv7.wkv7`` (the CUDA kernels on a card), or with
@@ -67,6 +68,14 @@ class RWKV7Config:
     # (S2S, the two-tower text tower) goes without
     with_head: bool = True
     with_embedding: bool = True
+    # training: rematerialise each block in the backward (off: keep every
+    # activation); remat_policy picks what the replay may keep: None
+    # replays the whole block, "wkv" keeps the WKV call (its outputs and
+    # what its backward saves, so the replay never runs the forward WKV
+    # kernel again), "dots" / "dots_no_batch" keep the matrix products'
+    # outputs (with / without the batched ones)
+    remat: bool = True
+    remat_policy: Optional[str] = None
 
     @property
     def num_heads(self) -> int:
@@ -245,24 +254,18 @@ def _time_shift(x: torch.Tensor, x_prev: Optional[torch.Tensor]) -> torch.Tensor
     return torch.cat([prev, x[:, :-1]], 1)
 
 
-def block_forward(
-    bp: Params, cfg: RWKV7Config, x: torch.Tensor,
-    mask: Optional[torch.Tensor], resets: Optional[torch.Tensor],
-    layer_idx: int, v_first: torch.Tensor, st: Optional[Params] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, Params]:
-    """One block over a (B, T, C) sequence; st is this layer's state slice
-    {'att_x': (B,C), 'wkv': (B,H,N,N), 'ffn_x': (B,C)} and the updated
-    slice is returned. `mask` (B, T) zeroes xn and v at pad positions."""
+def _pre_wkv(bp: Params, cfg: RWKV7Config, x: torch.Tensor, mask: Optional[torch.Tensor],
+             resets: Optional[torch.Tensor], layer_idx: int, v_first: torch.Tensor,
+             st: Optional[Params]):
+    """A block's time mix up to the WKV call: (xn, v_first, the gate g, the
+    WKV call's sequence inputs, each (B, T, H, N))."""
     B, T, C = x.shape
     H, N = cfg.num_heads, cfg.head_size
-    att, ffn = bp["att"], bp["ffn"]
+    att = bp["att"]
     cast = lambda p: p.to(cfg.dtype)
+    heads = lambda u: u.reshape(B, T, H, N)
 
-    def masked(h):
-        return h if mask is None else h * mask[..., None].to(h.dtype)
-
-    # --- time mix ---
-    xn = masked(layer_norm(x, bp["ln1_scale"], bp["ln1_bias"], cfg.norm_eps))
+    xn = _masked(layer_norm(x, bp["ln1_scale"], bp["ln1_bias"], cfg.norm_eps), mask)
     xx = _time_shift(xn, None if st is None else st["att_x"]) - xn
     if resets is not None:
         # a reset position starts a fresh segment: its token-shift prev is 0
@@ -283,45 +286,117 @@ def block_forward(
         )
     a = torch.sigmoid(cast(att["a0"]) + _lora(xa, cast(att["a1"]), cast(att["a2"])))
     g = _lora(xg, cast(att["g1"]), cast(att["g2"]), torch.sigmoid)
-    v = masked(v)
-
-    heads = lambda u: u.reshape(B, T, H, N)
-    wkv_in = None if st is None else st["wkv"]
+    v = _masked(v, mask)
     if cfg.wkv_fuse_prep:
+        return xn, v_first, g, (heads(r), heads(w_raw), heads(k), heads(v), heads(a))
+    kk = l2_normalize(heads(k * cast(att["k_k"]))).reshape(B, T, C)
+    k = k * (1 + (a - 1) * cast(att["k_a"]))
+    return xn, v_first, g, (heads(r), heads(w_raw), heads(k), heads(v), heads(-kk),
+                            heads(kk * a))
+
+
+def _wkv(att: Params, cfg: RWKV7Config, seq: tuple, wkv_in: Optional[torch.Tensor],
+         resets: Optional[torch.Tensor]):
+    """The block's WKV call: (y (B, T, H, N), the final state); with
+    ``wkv_fuse_prep`` y is already normalised and carries the bonus."""
+    if cfg.wkv_fuse_prep:
+        H, N = cfg.num_heads, cfg.head_size
         hn = lambda p: p.float().reshape(H, N)
-        y, wkv_state = wkv7_cuda.wkv7_fused(
-            heads(r), heads(w_raw), heads(k), heads(v), heads(a),
-            hn(att["k_k"]), hn(att["k_a"]), hn(att["r_k"]),
+        return wkv7_cuda.wkv7_fused(
+            *seq[:5], hn(att["k_k"]), hn(att["k_a"]), hn(att["r_k"]),
             hn(att["ln_x_scale"]), hn(att["ln_x_bias"]),
             state=wkv_in, resets=resets, ln_eps=cfg.ln_x_eps,
         )
+    return wkv7_ops.wkv7(*seq, state=wkv_in, resets=resets)
+
+
+def _post_wkv(bp: Params, cfg: RWKV7Config, x: torch.Tensor, mask: Optional[torch.Tensor],
+              resets: Optional[torch.Tensor], y: torch.Tensor, g: torch.Tensor, seq: tuple,
+              st: Optional[Params]):
+    """A block after the WKV call: the ln_x GroupNorm and bonus (unless the
+    fused kernel did them), the gated output, the channel mix. Returns
+    (x, the channel mix's normed input xn2)."""
+    B, T, C = x.shape
+    H = cfg.num_heads
+    att, ffn = bp["att"], bp["ffn"]
+    cast = lambda p: p.to(cfg.dtype)
+    if cfg.wkv_fuse_prep:
         y = y.reshape(B, T, C)
     else:
-        kk = l2_normalize(heads(k * cast(att["k_k"]))).reshape(B, T, C)
-        k = k * (1 + (a - 1) * cast(att["k_a"]))
-        y, wkv_state = wkv7_ops.wkv7(
-            heads(r), heads(w_raw), heads(k), heads(v), heads(-kk), heads(kk * a),
-            state=wkv_in, resets=resets,
-        )
+        r, k, v = seq[0], seq[2], seq[3]
         y = group_norm(y.reshape(B, T, C), att["ln_x_scale"], att["ln_x_bias"], H,
                        cfg.ln_x_eps)
-        bonus = (
-            (heads(r) * heads(k) * cast(att["r_k"])).sum(-1, keepdim=True) * heads(v)
-        ).reshape(B, T, C)
-        y = y + bonus
+        y = y + ((r * k * cast(att["r_k"])).sum(-1, keepdim=True) * v).reshape(B, T, C)
     x = x + (y * g) @ cast(att["output"])
 
-    # --- channel mix ---
-    xn2 = masked(layer_norm(x, bp["ln2_scale"], bp["ln2_bias"], cfg.norm_eps))
+    xn2 = _masked(layer_norm(x, bp["ln2_scale"], bp["ln2_bias"], cfg.norm_eps), mask)
     xx2 = _time_shift(xn2, None if st is None else st["ffn_x"]) - xn2
     if resets is not None:
         xx2 = torch.where(resets[..., None], -xn2, xx2)
     kf = xn2 + xx2 * cast(ffn["x_k"])
     kf = torch.square(torch.relu(kf @ cast(ffn["key"])))
-    x = x + kf @ cast(ffn["value"])
+    return x + kf @ cast(ffn["value"]), xn2
 
-    new_st = {"att_x": xn[:, -1], "wkv": wkv_state, "ffn_x": xn2[:, -1]}
-    return x, v_first, new_st
+
+def _masked(h: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    return h if mask is None else h * mask[..., None].to(h.dtype)
+
+
+def block_forward(
+    bp: Params, cfg: RWKV7Config, x: torch.Tensor,
+    mask: Optional[torch.Tensor], resets: Optional[torch.Tensor],
+    layer_idx: int, v_first: torch.Tensor, st: Optional[Params] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Params]:
+    """One block over a (B, T, C) sequence; st is this layer's state slice
+    {'att_x': (B,C), 'wkv': (B,H,N,N), 'ffn_x': (B,C)} and the updated
+    slice is returned. `mask` (B, T) zeroes xn and v at pad positions."""
+    return _block(lambda fn, *a: fn(*a), bp, cfg, x, mask, resets, layer_idx, v_first, st)
+
+
+def _block(segment: Callable, bp: Params, cfg: RWKV7Config, x: torch.Tensor, mask, resets,
+           layer_idx: int, v_first: torch.Tensor, st: Optional[Params]):
+    """block_forward with the parts before and after the WKV call each run
+    as segment(part, *args) (under ``torch.utils.checkpoint`` for the "wkv"
+    remat policy: the backward's replay then never runs the WKV call)."""
+    xn, v_first, g, seq = segment(_pre_wkv, bp, cfg, x, mask, resets, layer_idx, v_first, st)
+    y, wkv_state = _wkv(bp["att"], cfg, seq, None if st is None else st["wkv"], resets)
+    x, xn2 = segment(_post_wkv, bp, cfg, x, mask, resets, y, g, seq, st)
+    return x, v_first, {"att_x": xn[:, -1], "wkv": wkv_state, "ffn_x": xn2[:, -1]}
+
+
+REMAT_POLICIES = (None, "wkv", "dots", "dots_no_batch")
+
+
+def _dots_context(batched: bool):
+    """The selective-checkpoint contexts of the "dots" policies: the
+    replay keeps every matrix product's output (aten mm / addmm, and with
+    `batched` bmm / baddbmm) and recomputes the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    aten = torch.ops.aten
+    keep = {aten.mm.default, aten.addmm.default}
+    if batched:
+        keep |= {aten.bmm.default, aten.baddbmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in keep else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _remat_block(args: tuple, cfg: RWKV7Config):
+    """block_forward(*args) in grad mode under cfg.remat / remat_policy."""
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: one of {REMAT_POLICIES}")
+    if not cfg.remat:
+        return block_forward(*args)
+    if cfg.remat_policy == "wkv":
+        return _block(lambda fn, *a: checkpoint(fn, *a, use_reentrant=False), *args)
+    if cfg.remat_policy is None:
+        return checkpoint(block_forward, *args, use_reentrant=False)
+    batched = cfg.remat_policy == "dots"
+    return checkpoint(block_forward, *args, use_reentrant=False,
+                      context_fn=lambda: _dots_context(batched))
 
 
 def forward(
@@ -335,11 +410,11 @@ def forward(
 ):
     """Full-sequence forward. Returns hidden (B,T,C) [and the stacked
     state]; the layers run as a Python loop over the stacked parameters.
-    No state means a zero one. In grad mode each block runs under
-    ``torch.utils.checkpoint`` (the JAX package's default full per-block
-    remat): the backward replays it instead of keeping its activations.
-    A tower without an embedding (``with_embedding=False``) takes only
-    inputs_embeds."""
+    No state means a zero one. In grad mode each block is rematerialised
+    as ``cfg.remat`` / ``cfg.remat_policy`` ask (``_remat_block``; the
+    default replays the whole block under ``torch.utils.checkpoint``, the
+    JAX package's default full per-block remat). A tower without an
+    embedding (``with_embedding=False``) takes only inputs_embeds."""
     if inputs_embeds is None:
         if "embedding" not in params:
             raise ValueError("rwkv7.forward: this tower has no embedding; pass inputs_embeds")
@@ -354,7 +429,7 @@ def forward(
         st = None if state is None else {key: state[key][l] for key in new}
         args = (bp, cfg, x, attention_mask, resets, l, v_first, st)
         if torch.is_grad_enabled():
-            x, v_first, new_st = checkpoint(block_forward, *args, use_reentrant=False)
+            x, v_first, new_st = _remat_block(args, cfg)
         else:
             x, v_first, new_st = block_forward(*args)
         for key in new:
@@ -376,9 +451,16 @@ def q8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     bit for bit rwkvtts_tpu/ops/decode_mega.py::_q8_np."""
     wf = w.float()
     amax = wf.abs().amax(-2, keepdim=True)
-    scale = torch.clamp_min(amax, 1e-8) / 127.0
+    scale = _true_div(torch.clamp_min(amax, 1e-8), 127.0)
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return q, scale
+
+
+def _true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d correctly rounded on every device: CUDA divides a tensor by a
+    Python scalar as a multiplication by its reciprocal, which can land an
+    ulp away from the division the CPU and the JAX package make."""
+    return x / x.new_tensor(d)
 
 
 def _quantize_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -387,10 +469,50 @@ def _quantize_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {"q": q, "s": scale.to(torch.bfloat16)}
 
 
+def _quantize_int4(w: torch.Tensor, group: int = 64) -> Dict[str, torch.Tensor]:
+    """The JAX package's _quantize_int4, bit for bit: group-wise symmetric
+    int4 along the input dim of w (..., in, out), two nibbles a byte (the
+    first half of the input dim in the low nibble, the second half in the
+    high one), scale = max(amax, 1e-8) / 7 a group of `group` input rows,
+    stored bf16 as (..., in / group, out). The group halves until
+    in % (2 group) == 0."""
+    wf = w.float()
+    I = wf.shape[-2]
+    while group > 1 and I % (2 * group) != 0:
+        group //= 2
+    if I % (2 * group) != 0:
+        raise ValueError(f"_quantize_int4: input dim {I} is odd")
+    g = wf.reshape(*wf.shape[:-2], I // group, group, wf.shape[-1])
+    scale = _true_div(torch.clamp_min(g.abs().amax(-2, keepdim=True), 1e-8), 7.0)
+    q = torch.clamp(torch.round(g / scale), -7, 7).to(torch.int32).reshape(wf.shape)
+    lo, hi = q[..., :I // 2, :], q[..., I // 2:, :]
+    # the byte's bits in int32 (shifts of negative int8 values are not the
+    # same function on every device), then two's complement into int8
+    byte = (lo & 0x0F) | ((hi & 0x0F) << 4)
+    return {"q4": ((byte ^ 0x80) - 0x80).to(torch.int8),
+            "s": scale.squeeze(-2).to(torch.bfloat16)}
+
+
+def _deq_int4(p: Dict[str, torch.Tensor], dt) -> torch.Tensor:
+    """The weight of an int4 pack in `dt`: both nibbles sign-extended,
+    times their group's scale (in f32, as the JAX package's _deq_int4)."""
+    byte = p["q4"].to(torch.int32) & 0xFF
+    nibble = lambda n: (n ^ 8) - 8  # a 4-bit two's complement value, sign-extended
+    q = torch.cat([nibble(byte & 0x0F), nibble(byte >> 4)], -2)
+    scale = p["s"]
+    n_groups, I = scale.shape[-2], q.shape[-2]
+    g = q.reshape(*q.shape[:-2], n_groups, I // n_groups, q.shape[-1])
+    return (g.float() * scale[..., :, None, :].float()).reshape(q.shape).to(dt)
+
+
 def _qmat(att: Params, name: str, dt) -> torch.Tensor:
-    """Effective weight for `name`: int8 storage is dequantized on the fly
-    (q * s in the model dtype, as the JAX package's _qmat; int4 is not
-    ported)."""
+    """Effective weight for `name`: int8 / int4 storage is dequantized on
+    the fly (int8: q * s in the model dtype; int4: ``_deq_int4``), as the
+    JAX package's _qmat; the product is then ``torch.matmul`` on the
+    dequantized copy, as JAX leaves it to XLA outside any Pallas kernel."""
+    q4 = f"{name}_q4"
+    if q4 in att:
+        return _deq_int4(att[q4], dt)
     qk = f"{name}_q8"
     if qk in att:
         p = att[qk]
@@ -406,6 +528,7 @@ _STATE_KEYS = ("att_x", "wkv", "ffn_x")
 
 
 def pack_decode_params(params: Params, cfg: RWKV7Config, quantize_int8: bool = False,
+                       quantize_int4: bool = False, int4_group: int = 64,
                        fuse_projections: bool = True) -> Params:
     """Precompute the decode weights (once, amortized): with
     fuse_projections the seven input projections of a block collapse into
@@ -413,8 +536,14 @@ def pack_decode_params(params: Params, cfg: RWKV7Config, quantize_int8: bool = F
     against blocks.att.fused_a / fused_b of shape (L, C, 3C+Dw+Da+Dv+Dg)
     in cfg.dtype; with quantize_int8 those two (or, unfused, the r/k/v
     projections), the output and the FFN matrices are also stored as
-    per-output-channel int8 (``_quantize_int8``). The original weights
-    stay in the tree (the prefill reads them)."""
+    per-output-channel int8 (``_quantize_int8``); with quantize_int4 the
+    fused pair, the output and the FFN matrices as group-wise int4 of
+    `int4_group` input rows (``_quantize_int4``; fused projections only).
+    The original weights stay in the tree (the prefill reads them)."""
+    if quantize_int8 and quantize_int4:
+        raise ValueError("quantize_int8 and quantize_int4 are exclusive")
+    if quantize_int4 and not fuse_projections:
+        raise ValueError("quantize_int4 requires fused projections")
     att, ffn = params["blocks"]["att"], params["blocks"]["ffn"]
     out = dict(params)
     out["blocks"] = dict(params["blocks"])
@@ -429,7 +558,12 @@ def pack_decode_params(params: Params, cfg: RWKV7Config, quantize_int8: bool = F
               ("x_a", "a1"), ("x_v", "v1"), ("x_g", "g1")]
         fused_a = torch.cat([att[w] for _, w in ws], -1).to(cfg.dtype)
         fused_b = torch.cat([att[x][:, :, None] * att[w] for x, w in ws], -1).to(cfg.dtype)
-        if quantize_int8:
+        if quantize_int4:
+            q4 = lambda w: _quantize_int4(w, int4_group)
+            new_att["fused_a_q4"], new_att["fused_b_q4"] = q4(fused_a), q4(fused_b)
+            new_att["output_q4"] = q4(att["output"])
+            new_ffn["key_q4"], new_ffn["value_q4"] = q4(ffn["key"]), q4(ffn["value"])
+        elif quantize_int8:
             new_att["fused_a_q8"] = _quantize_int8(fused_a)
             new_att["fused_b_q8"] = _quantize_int8(fused_b)
             new_att["output_q8"] = _quantize_int8(att["output"])
@@ -524,7 +658,7 @@ def decode_step(params: Params, cfg: RWKV7Config, x: torch.Tensor, state
         att = bp["att"]
         xn = _ln(x, bp["ln1_scale"], bp["ln1_bias"], cfg.norm_eps)
         xx = st["att_x"].to(dt) - xn
-        if "fused_a" in att or "fused_a_q8" in att:
+        if "fused_a" in att or "fused_a_q8" in att or "fused_a_q4" in att:
             fused = xn @ _qmat(att, "fused_a", dt) + xx @ _qmat(att, "fused_b", dt)
             sizes = [C, C, C, cfg.decay_lora, cfg.a_lora, cfg.v_lora]
             r, k, v, w_h, a_h, v_h, g_h = torch.split(

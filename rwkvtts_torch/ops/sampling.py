@@ -70,6 +70,8 @@ def ras_noise(generator: torch.Generator, n_steps: int, batch: int, k: int, voca
 
 
 def _categorical(logits, noise, generator):
+    """argmax(logits + noise), the noise in the logits' dtype (as
+    ``jax.random.categorical`` draws it)."""
     if noise is None:
         if generator is None:
             raise ValueError("sample: pass `noise` or a `generator`")
@@ -77,27 +79,38 @@ def _categorical(logits, noise, generator):
     elif noise.shape != logits.shape:
         raise ValueError(f"sample: noise {tuple(noise.shape)} for candidates "
                          f"{tuple(logits.shape)}")
-    return torch.argmax(logits + noise, -1)
+    return torch.argmax(logits + noise.to(logits.dtype), -1)
 
 
 def sample(
     logits: torch.Tensor, *, temperature=1.0, top_k: int = 0, top_p: float = 1.0,
     noise: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    rank_bf16: bool = False,
 ) -> torch.Tensor:
-    """Token ids (...,) from logits (..., V)."""
+    """Token ids (...,) from logits (..., V).
+
+    `rank_bf16` ranks the full vocabulary in bf16 on the raw logits (the
+    top-k is order-preserving under the temperature), then applies the
+    temperature and the nucleus in f32 on the k survivors only: candidate
+    selection at bf16 resolution, exact f32 probabilities on the kept set.
+    It needs the fused top-k + nucleus branch (0 < top_k < V, top_p < 1)
+    and raises elsewhere, where the JAX package falls back to f32
+    ranking without a word."""
+    V = logits.shape[-1]
+    fused = bool(top_k) and 0 < top_k < V and top_p < 1.0
+    if rank_bf16:
+        if not fused:
+            raise ValueError(f"sample: rank_bf16 needs 0 < top_k < {V} and top_p < 1 "
+                             f"(got top_k={top_k}, top_p={top_p})")
+        vals, idx = _top_bf16(logits, top_k)
+        return _nucleus_draw(apply_temperature(vals, temperature), idx, top_p, noise,
+                             generator)
     x = apply_temperature(logits, temperature)
-    if top_k and 0 < top_k < x.shape[-1] and top_p < 1.0:
+    if fused:
         # fused top-k + nucleus: topk returns values sorted descending, so
         # the nucleus mask is a cumsum over k values (no full-vocab sort)
-        vals, idx = torch.topk(x, top_k, dim=-1)
-        probs = torch.softmax(vals, -1)
-        cum = torch.cumsum(probs, -1)
-        keep = cum - probs < top_p
-        keep[..., 0] = True  # the argmax always survives
-        vals = torch.where(keep, vals, NEG_INF)
-        choice = _categorical(vals, noise, generator)
-        return torch.gather(idx, -1, choice[..., None])[..., 0]
+        return _nucleus_draw(*torch.topk(x, top_k, dim=-1), top_p, noise, generator)
     if top_k:
         x = top_k_mask(x, top_k)
     if top_p < 1.0:
@@ -105,11 +118,31 @@ def sample(
     return _categorical(x, noise, generator)
 
 
+def _top_bf16(logits: torch.Tensor, k: int):
+    """The k largest of the logits rounded to bf16, descending, ties in
+    index order (lax.top_k's documented order: bf16 makes ties common,
+    and the order decides which candidate takes which noise)."""
+    vals, idx = torch.sort(logits.to(torch.bfloat16), dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _nucleus_draw(vals, idx, top_p: float, noise, generator) -> torch.Tensor:
+    """A draw among the top-k candidates (vals sorted descending, f32, and
+    their ids) after the nucleus mask: the argmax always survives."""
+    probs = torch.softmax(vals, -1)
+    keep = torch.cumsum(probs, -1) - probs < top_p
+    keep[..., 0] = True
+    vals = torch.where(keep, vals, NEG_INF)
+    choice = _categorical(vals, noise, generator)
+    return torch.gather(idx, -1, choice[..., None])[..., 0]
+
+
 def ras_sample(
     logits: torch.Tensor, recent: torch.Tensor, *, top_p: float = 0.8, top_k: int = 25,
     win_size: int = 10, tau_r: float = 0.1,
     noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     generator: Optional[torch.Generator] = None,
+    rank_bf16: bool = False,
 ) -> torch.Tensor:
     """Repetition-aware sampling (VALL-E 2; reference
     third_party/cosyvoice/utils/common.py:108-113): a top-k + nucleus draw,
@@ -118,20 +151,19 @@ def ras_sample(
 
     logits (B, V); recent (B, win_size) past draws (-1 pads). The two
     draws take Gumbel noise: `noise` = (nucleus (B, k), fallback (B, V)),
-    or drawn from `generator` (nucleus first)."""
-    x = logits.float()
+    or drawn from `generator` (nucleus first). `rank_bf16` ranks the
+    vocabulary and draws the fallback in bf16 (its noise rounded to bf16,
+    as JAX draws it); the nucleus on the k survivors stays f32."""
+    x = logits.to(torch.bfloat16 if rank_bf16 else torch.float32)
     k = min(top_k, x.shape[-1])
     if noise is None:
         if generator is None:
             raise ValueError("ras_sample: pass `noise` or a `generator`")
         noise = (gumbel((x.shape[0], k), generator, x.device),
                  gumbel(x.shape, generator, x.device))
-    vals, idx = torch.topk(x, k, dim=-1)
-    probs = torch.softmax(vals, -1)
-    keep = torch.cumsum(probs, -1) - probs < top_p
-    keep[..., 0] = True  # >= 1 token survives: top_p <= 0 means greedy
-    vals = torch.where(keep, vals, NEG_INF)
-    tok = torch.gather(idx, -1, _categorical(vals, noise[0], None)[..., None])[..., 0]
+    vals, idx = _top_bf16(x, k) if rank_bf16 else torch.topk(x, k, dim=-1)
+    # >= 1 token survives: top_p <= 0 means greedy
+    tok = _nucleus_draw(vals.float(), idx, top_p, noise[0], None)
     rep = (recent == tok[:, None]).sum(-1)
     fallback = _categorical(x, noise[1], None)
     return torch.where(rep >= win_size * tau_r, fallback, tok)

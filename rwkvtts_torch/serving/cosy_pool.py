@@ -45,8 +45,8 @@ class CosyPoolBatcher(pool_common.SlotPool):
     of every chunk, which is what streaming consumers need.
 
     `params` is the LM tree: the stacked originals (the prefill reads them)
-    and, for the decode step, ``rwkv7.pack_decode_params``'s fused decode
-    weights where present. The two RAS draws of each row come from
+    and, for the decode step, ``rwkv7.pack_decode_params``'s decode weights
+    where present: the fused pair in bf16, int8 or int4, or int8 unfused. The two RAS draws of each row come from
     ``self.noise(seed (B,), n (B,), k, V)``, ``sampling.ras_row_noise``
     (a test may feed other draws through it)."""
 
@@ -196,9 +196,10 @@ class CosyStreamHub:
     their next hop (for at most 0.6 of a hop's audio, 1.5 s at most) while
     an admitted stream still waits for its first chunk. `stream_cfg` is the
     hub-wide StreamConfig (the SFM levers, ctx, vocode_every). The pool
-    decodes the pipeline's `lm_params` as they are: the fused decode weights
-    on the ``rwkv7.decode_step`` route (the launcher's), the unfused
-    originals (the seven-product step) on the B=1 kernel route."""
+    decodes the pipeline's `lm_params` as they are through
+    ``rwkv7.decode_step``: on the launcher's route the fused decode weights
+    in bf16, int8 or int4 (or int8 unfused), on the B=1 kernel route the
+    unfused originals (the seven-product step)."""
 
     def __init__(self, pipeline, n_slots: int = 8, chunk: int = 16, prompt_cap: int = 128,
                  top_k: int = 25, top_p: float = 0.8, warmup: bool = False,

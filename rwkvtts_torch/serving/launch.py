@@ -29,8 +29,11 @@ every stream:
     python -m rwkvtts_torch.serving.launch --family cosy --ckpt cosy_lm.safetensors \
         --cosy-dir CosyVoice2-0.5B --voices-dir voices --n-slots 8 --chunk 16
 
-Not ported yet: int4 and --dp; for cosy also --int8 (the pool decodes the
-bf16 fused projections).
+``--int8`` / ``--int4`` store the decode weights (the fused projections,
+the output and the FFN matrices) as per-channel int8 / group-wise int4
+(``rwkv7.pack_decode_params``) for either family; the pools decode them
+through ``rwkv7.decode_step``. ``--mega`` streams its own int8 pack and
+refuses both. Not ported yet: --dp.
 """
 from __future__ import annotations
 
@@ -103,12 +106,14 @@ def build_service(pipeline, demo_dir: Optional[str] = None, continuous: bool = T
 _COSY_FILES = ("flow.pt", "hift.pt", "speech_tokenizer_v2.onnx", "campplus.onnx")
 
 
-def cosy_pipeline(cfg, params, device="cuda", **codecs):
+def cosy_pipeline(cfg, params, device="cuda", int8: bool = False, int4: bool = False,
+                  **codecs):
     """The server's CosyPipeline of a Cosy LM's parameter tree on `device`:
     every parameter with two or more dimensions in bf16, the rest as
     given; the LM decodes through ``rwkv7.decode_step`` on the fused decode
-    weights, the slot pool's route (no B=1 kernel pack). `codecs` are
-    CosyPipeline's flow / HiFT / S3 / CAM++ keywords."""
+    weights, in bf16 or as int8 / int4, the slot pool's route (no B=1
+    kernel pack). `codecs` are CosyPipeline's flow / HiFT / S3 / CAM++
+    keywords."""
     from rwkvtts_torch.infer.cosy_pipeline import CosyPipeline
     from rwkvtts_torch.models import rwkv7
     from rwkvtts_torch.utils import tokenizer
@@ -116,13 +121,15 @@ def cosy_pipeline(cfg, params, device="cuda", **codecs):
     dev = _device(device)
     params = rwkv7.tree_map(lambda t: t.to(dev, torch.bfloat16 if t.dim() >= 2 else t.dtype),
                             params)
-    return CosyPipeline(cfg, params, tokenizer.get_world_tokenizer(), decode_megakernel=False,
-                        device=dev, **codecs)
+    return CosyPipeline(cfg, params, tokenizer.get_world_tokenizer(), quantize_int8=int8,
+                        quantize_int4=int4, decode_megakernel=False, device=dev, **codecs)
 
 
-def build_cosy_pipeline(ckpt: str, cosy_dir: Optional[str] = None, device="cuda"):
+def build_cosy_pipeline(ckpt: str, cosy_dir: Optional[str] = None, int8: bool = False,
+                        int4: bool = False, device="cuda"):
     """RWKV7CosyLM weights + a CosyVoice2 model directory (the reference's
-    pretrained_models layout) -> ``cosy_pipeline`` on `device`. A missing
+    pretrained_models layout) -> ``cosy_pipeline`` on `device`, its decode
+    weights in int8 / int4 where asked. A missing
     codec file is logged and its part left out: the LM still serves,
     zero-shot from a wav needs the two ONNX files, wav output the flow and
     HiFT."""
@@ -166,7 +173,7 @@ def build_cosy_pipeline(ckpt: str, cosy_dir: Optional[str] = None, device="cuda"
         if missing:
             log.warning("cosy dir %s misses %s: serving without what they give", cosy_dir,
                         missing)
-    return cosy_pipeline(cfg, params, dev, **pk)
+    return cosy_pipeline(cfg, params, dev, int8=int8, int4=int4, **pk)
 
 
 def stream_config(sfm: bool = False, flow_timesteps: Optional[int] = None,
@@ -210,7 +217,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="B=64 whole-step decode pool (int8 weight stream of its own, "
                          "bf16 state; forces 64 slots)")
     ap.add_argument("--int8", action="store_true", help="int8 decode weights")
-    ap.add_argument("--int4", action="store_true", help="int4 decode weights (not ported)")
+    ap.add_argument("--int4", action="store_true",
+                    help="int4 decode weights (group-wise, 64 input rows a scale)")
     ap.add_argument("--state-bf16", action="store_true", help="bf16 WKV state carry")
     ap.add_argument("--max-new-tokens", type=int, default=1024)
     # resolved per family by sampling_defaults when not given
@@ -260,14 +268,12 @@ def main_cosy(args, top_k: int, top_p: float):
     if args.mega:
         raise SystemExit("--mega is a spark-family pool (64 slots); the cosy hub runs its "
                          "own slot pool: drop --mega")
-    if args.int8:
-        raise SystemExit("--int8: the cosy pool decodes the bf16 fused projections; int8 "
-                         "decode weights for it are not ported yet")
     logging.basicConfig(level=logging.INFO)
     from rwkvtts_torch.serving import http_server
     from rwkvtts_torch.serving import service as svc
 
-    pipeline = build_cosy_pipeline(args.ckpt, args.cosy_dir, device=args.device)
+    pipeline = build_cosy_pipeline(args.ckpt, args.cosy_dir, int8=args.int8, int4=args.int4,
+                                   device=args.device)
     if args.sfm and (pipeline.flow_params is None or "sfm_head" not in pipeline.flow_params):
         raise SystemExit("--sfm needs an SFM flow: flow.pt in --cosy-dir has no sfm_head")
     voices = None
@@ -290,16 +296,16 @@ def main(argv=None):
     top_k, top_p = sampling_defaults(args.family, args.top_k, args.top_p)
     if args.dp > 1:
         raise SystemExit("--dp: a slot pool over several devices is not ported yet")
-    if args.int4:
-        raise SystemExit("--int4: int4 decode weights are not ported yet")
+    if args.int8 and args.int4:
+        raise SystemExit("--int8 and --int4 are exclusive: drop one of them")
     if args.family == "cosy":
         return main_cosy(args, top_k, top_p)
     if args.grouped and args.mega:
         raise SystemExit("--grouped decodes through the pipeline, not the B=64 pool: "
                          "drop --mega")
-    if args.mega and args.int8:
-        raise SystemExit("--mega streams its own int8 weights; --int8 (the fused "
-                         "projections' int8 form) does not apply: drop one of them")
+    if args.mega and (args.int8 or args.int4):
+        raise SystemExit("--mega streams its own int8 weights; --int8 / --int4 (the fused "
+                         "projections' int8 / int4 forms) do not apply: drop one of them")
     logging.basicConfig(level=logging.INFO)
     n_slots, packed = args.n_slots, not args.no_packed_wkv
     if args.mega:
@@ -308,7 +314,7 @@ def main(argv=None):
             log.info("--mega: n_slots %d -> 64 (the B=64 decode step)", n_slots)
             n_slots = 64
     pipeline = build_pipeline(
-        args.ckpt, args.codec_dir, packed_wkv=packed, int8=args.int8,
+        args.ckpt, args.codec_dir, packed_wkv=packed, int8=args.int8, int4=args.int4,
         state_bf16=args.state_bf16, fuse_projections=not args.mega, device=args.device,
     )
     tts = build_service(

@@ -39,9 +39,14 @@ the SPCT tokens in front of every Spark task.
 ``--wandb-project`` / ``--run-name`` also log the metrics to wandb; asking
 for it without the package installed raises.
 
-Not here: ``--remat-policy``, the device mesh and multi-host flags;
-``--no-layer-unroll`` and ``--wkv-mm`` are TPU layout and precision devices
-without a counterpart.
+``--remat-policy`` picks what each block's backward replay may keep
+(``rwkv7.RWKV7Config.remat_policy``): by default nothing (the whole block
+is replayed), ``wkv`` the WKV call (the replay never runs the forward WKV
+kernel: at Spark 1024 x 24 a step launches kernels 4 / 5 24 / 24 times,
+not 48 / 24), ``dots`` / ``dots_no_batch`` the matrix products' outputs.
+
+Not here: the device mesh and multi-host flags; ``--no-layer-unroll`` and
+``--wkv-mm`` are TPU layout and precision devices without a counterpart.
 """
 from __future__ import annotations
 
@@ -77,10 +82,11 @@ def pick_device(name: str) -> torch.device:
 def build_model(task: str, args, device: torch.device):
     """The task's config and f32 parameters on `device`, from a
     torch.Generator seeded with --seed. The RWKV options (head size, the
-    fused prep) reach every RWKV stack of the model, both towers of asr
-    and tts_two_tower included."""
+    fused prep, the remat policy) reach every RWKV stack of the model,
+    both towers of asr and tts_two_tower included."""
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    rwkv = dict(head_size=args.head_size, wkv_fuse_prep=not args.no_wkv_fuse_prep)
+    rwkv = dict(head_size=args.head_size, wkv_fuse_prep=not args.no_wkv_fuse_prep,
+                remat_policy=getattr(args, "remat_policy", None))
     kw = dict(hidden_size=args.hidden, num_layers=args.layers, dtype=dtype, **rwkv)
     g = torch.Generator(device=device).manual_seed(args.seed)
     if task == "sfm_flow":
@@ -227,6 +233,9 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no-wkv-fuse-prep", action="store_true",
                    help="keep the elementwise prep outside the WKV kernels")
+    p.add_argument("--remat-policy", default=None, choices=["wkv", "dots", "dots_no_batch"],
+                   help="what a block's backward replay keeps (default: nothing, the whole "
+                        "block is replayed); wkv: the WKV call, dots: matrix products")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--warm-start", default=None,
                    help="text RWKV-7 checkpoint to seed a spark task's model from")

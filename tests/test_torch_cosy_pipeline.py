@@ -5,7 +5,7 @@ against JAX's B=1 kernel in interpret mode), cosy_generate_mega_b64's
 plain route against JAX's B=64 kernel in interpret mode, the prompts of
 the cross-lingual and instruct modes, the choice of decode route, voice
 conversion without the LM, the speed resize against jax.image.resize, and
-the refusals of what is not ported. Same weights through the bridge; the
+the refusals. Same weights through the bridge; the
 pipelines of `pipes` also serve tests/test_torch_cosy_zero_shot.py."""
 import dataclasses
 
@@ -313,10 +313,12 @@ def test_speed_resize_matches_jax_image_resize(pipes, speed):
 def test_refusals(pipes):
     pipe = pipes["decode_step"]
     args = (pipe.lm_cfg, bridge.params_from_numpy(_lm()[2]), FakeTok())
-    with pytest.raises(NotImplementedError, match="int4"):
-        CosyPipeline(*args, quantize_int4=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="sample_rank_bf16"):
-        CosyPipeline(*args, sample_rank_bf16=True, device="cpu")
+    # int4 and bf16 ranking are ported (tests/test_torch_quant.py); a quantize
+    # flag on the B=1 kernel's route, or int8 with int4, is refused
+    with pytest.raises(ValueError, match="decode_megakernel"):
+        CosyPipeline(*args, quantize_int4=True, decode_megakernel=True, device="cpu")
+    with pytest.raises(ValueError, match="exclusive"):
+        CosyPipeline(*args, quantize_int8=True, quantize_int4=True, device="cpu")
     # the SFM flow runs (tests/test_torch_cosy_sfm.py); a stream that asks
     # for it on a flow without an SFM head is refused
     sfm = CosyPipeline.__new__(CosyPipeline)

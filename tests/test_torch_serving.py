@@ -478,7 +478,7 @@ def test_checkpoint_readers_match_jax(naming, stacked_x):
 
 
 @pytest.mark.parametrize("flags", [["--mega", "--int8"], ["--family", "cosy", "--mega"],
-                                   ["--grouped", "--mega"], ["--int4"], ["--dp", "2"]])
+                                   ["--grouped", "--mega"], ["--mega", "--int4"], ["--dp", "2"]])
 def test_launcher_refuses_what_it_cannot_serve(flags):
     with pytest.raises(SystemExit):
         launch.main(["--ckpt", "unused.safetensors", *flags])
