@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from rwkvtts_torch.codecs import conformer, nn
+from rwkvtts_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Any]
 
@@ -491,15 +492,15 @@ def sfm_loss(p: Params, cfg: FlowConfig, tokens, token_mask, x1, feat_mask, spk_
     x_h, t_h, log_sig = sfm_head_apply(p["sfm_head"], h, cfg.output_size)
 
     m = feat_mask[:, :, None]
-    loss_coarse = (x_g * m - x1 * m).abs().mean()
+    loss_coarse = mesh_lib.global_mean((x_g * m - x1 * m).abs())
 
     # orthogonal projection targets (flow.py:87-98)
     x_h_sg = x_h.detach()
     dot = (x_h_sg * x1).sum((1, 2))
     t_true = (dot / ((x1 * x1).sum((1, 2)) + 1e-8)).clamp(0.0, 1.0)[:, None]
     sig_sq_true = ((x_h_sg - t_true[:, :, None] * x1) ** 2).mean((1, 2)).clamp_min(1e-7)[:, None]
-    loss_t = ((t_h - t_true) ** 2).mean()
-    loss_sigma = ((log_sig - torch.log(sig_sq_true)) ** 2).mean()
+    loss_t = mesh_lib.global_mean((t_h - t_true) ** 2)
+    loss_sigma = mesh_lib.global_mean((log_sig - torch.log(sig_sq_true)) ** 2)
 
     # the piecewise CFM (flow_matching.py:176-227)
     delta = ((1 - sigma_min) * t_true + torch.sqrt(sig_sq_true)).clamp_min(1.0)
@@ -523,8 +524,8 @@ def sfm_loss(p: Params, cfg: FlowConfig, tokens, token_mask, x1, feat_mask, spk_
     mu, spks = mu * k[:, None, None], spks * k[:, None]
     pred = estimator_apply(p["estimator"], cfg.estimator, x_t, feat_mask, mu, t_s[:, 0, 0],
                            spks, cond)
-    loss_cfm = (((pred - u_t) * m) ** 2).sum() / (m.sum() * u_t.shape[-1])
-    loss_mu = ((x_h - t_true[:, :, None] * x1) ** 2).mean()
+    loss_cfm = (((pred - u_t) * m) ** 2).sum() / (mesh_lib.global_sum(m.sum()) * u_t.shape[-1])
+    loss_mu = mesh_lib.global_mean((x_h - t_true[:, :, None] * x1) ** 2)
     total = loss_coarse + loss_t + loss_sigma + loss_cfm + loss_mu
     return total, {"loss_coarse": loss_coarse, "loss_t": loss_t, "loss_sigma": loss_sigma,
                    "loss_cfm": loss_cfm, "loss_mu": loss_mu}

@@ -15,8 +15,10 @@ int4 weight quantizers, and the decode half: ``pack_decode_params`` (fused
 projections, int8, int4), the per-layer
 decode state (``pack_decode_state`` / ``unpack_decode_state``,
 ``layer_decode_views``) and ``decode_step``. The WKV recurrence goes
-through ``ops/wkv7.wkv7`` (the CUDA kernels on a card), or with
-``wkv_fuse_prep`` through ``ops/wkv7_cuda.wkv7_fused``; the decode step's
+through ``ops/wkv7.wkv7`` (the CUDA kernels on a card; with ``wkv_spans``
+its span route, also the sequence-parallel one, whose token shift then
+reads the previous rank's last row), or with ``wkv_fuse_prep`` through
+``ops/wkv7_cuda.wkv7_fused``; the decode step's
 through ``ops/wkv7.wkv7_step`` (the step kernel on a card). The products
 are ``torch.matmul``, as the JAX package leaves them to XLA.
 """
@@ -33,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from rwkvtts_torch.ops import wkv7 as wkv7_ops
 from rwkvtts_torch.ops import wkv7_cuda
 from rwkvtts_torch.ops.norm import group_norm, l2_normalize, layer_norm
+from rwkvtts_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Any]
 
@@ -76,6 +79,11 @@ class RWKV7Config:
     # outputs (with / without the batched ones)
     remat: bool = True
     remat_policy: Optional[str] = None
+    # the WKV recurrence in this many spans composed through their affine
+    # transfer operators (ops/wkv7.wkv7_spans): > 1 takes the unfused path;
+    # it is also the sequence-parallel unit, a multiple of the mesh's sp
+    # (each sp rank holds wkv_spans / sp spans of T)
+    wkv_spans: int = 1
 
     @property
     def num_heads(self) -> int:
@@ -249,9 +257,19 @@ def _lora(x, w1, w2, act=None):
 
 
 def _time_shift(x: torch.Tensor, x_prev: Optional[torch.Tensor]) -> torch.Tensor:
-    """(B,T,C): prepend x_prev (or zeros) and drop the last position."""
+    """(B,T,C): prepend x_prev (or zeros) and drop the last position. In a
+    train step with sequence parallelism, x is this rank's part of T and
+    the row prepended is the previous rank's last one (the first rank's is
+    x_prev), exchanged differentiably."""
+    x_prev = mesh_lib.sp_prev_row(x[:, -1], x_prev)
     prev = torch.zeros_like(x[:, :1]) if x_prev is None else x_prev[:, None].to(x.dtype)
     return torch.cat([prev, x[:, :-1]], 1)
+
+
+def _fused(cfg: RWKV7Config) -> bool:
+    """The fused-prep kernel pair runs the GroupNorm epilogue, which cannot
+    come before the span correction: spans take the unfused path."""
+    return cfg.wkv_fuse_prep and cfg.wkv_spans == 1
 
 
 def _pre_wkv(bp: Params, cfg: RWKV7Config, x: torch.Tensor, mask: Optional[torch.Tensor],
@@ -287,7 +305,7 @@ def _pre_wkv(bp: Params, cfg: RWKV7Config, x: torch.Tensor, mask: Optional[torch
     a = torch.sigmoid(cast(att["a0"]) + _lora(xa, cast(att["a1"]), cast(att["a2"])))
     g = _lora(xg, cast(att["g1"]), cast(att["g2"]), torch.sigmoid)
     v = _masked(v, mask)
-    if cfg.wkv_fuse_prep:
+    if _fused(cfg):
         return xn, v_first, g, (heads(r), heads(w_raw), heads(k), heads(v), heads(a))
     kk = l2_normalize(heads(k * cast(att["k_k"]))).reshape(B, T, C)
     k = k * (1 + (a - 1) * cast(att["k_a"]))
@@ -299,7 +317,7 @@ def _wkv(att: Params, cfg: RWKV7Config, seq: tuple, wkv_in: Optional[torch.Tenso
          resets: Optional[torch.Tensor]):
     """The block's WKV call: (y (B, T, H, N), the final state); with
     ``wkv_fuse_prep`` y is already normalised and carries the bonus."""
-    if cfg.wkv_fuse_prep:
+    if _fused(cfg):
         H, N = cfg.num_heads, cfg.head_size
         hn = lambda p: p.float().reshape(H, N)
         return wkv7_cuda.wkv7_fused(
@@ -307,7 +325,7 @@ def _wkv(att: Params, cfg: RWKV7Config, seq: tuple, wkv_in: Optional[torch.Tenso
             hn(att["ln_x_scale"]), hn(att["ln_x_bias"]),
             state=wkv_in, resets=resets, ln_eps=cfg.ln_x_eps,
         )
-    return wkv7_ops.wkv7(*seq, state=wkv_in, resets=resets)
+    return wkv7_ops.wkv7(*seq, state=wkv_in, resets=resets, spans=cfg.wkv_spans)
 
 
 def _post_wkv(bp: Params, cfg: RWKV7Config, x: torch.Tensor, mask: Optional[torch.Tensor],
@@ -320,7 +338,7 @@ def _post_wkv(bp: Params, cfg: RWKV7Config, x: torch.Tensor, mask: Optional[torc
     H = cfg.num_heads
     att, ffn = bp["att"], bp["ffn"]
     cast = lambda p: p.to(cfg.dtype)
-    if cfg.wkv_fuse_prep:
+    if _fused(cfg):
         y = y.reshape(B, T, C)
     else:
         r, k, v = seq[0], seq[2], seq[3]

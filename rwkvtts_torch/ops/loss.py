@@ -20,6 +20,8 @@ from typing import Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from rwkvtts_torch.parallel import mesh as mesh_lib
+
 IGNORE_INDEX = -100
 
 
@@ -69,12 +71,26 @@ def fused_linear_cross_entropy(
     hidden[t] predicts labels[t + 1]. ``smoothing`` > 0 gives the
     label-smoothing KL; ``normalize_length=False`` divides by the batch
     size instead of the token count. ``l2_wrap`` > 0 adds
-    l2_wrap / (2 B T) * sum(max_logit^2). Returns (loss, n_valid)."""
+    l2_wrap / (2 B T) * sum(max_logit^2). Returns (loss, n_valid).
+
+    Inside a train step on a mesh (parallel/mesh.current()) the rows and
+    positions are this rank's part of the global batch, and every
+    denominator is the global one (n_valid summed over the ranks, the
+    global B, the global B T): the rank's loss is its part of the global
+    mean, the ranks' losses and gradients sum to the single-device ones, and
+    the n_valid returned is the global count. Under sp, with ``shift``, the
+    last position predicts the next rank's first label."""
+    mesh = mesh_lib.current()
     B, T, C = hidden.shape
-    if shift:
+    T_all = T * (1 if mesh is None else mesh.shape["sp"])
+    if shift and T_all > T:
+        labels = torch.cat([labels[:, 1:], mesh_lib.sp_next_first(labels, ignore_index)], 1)
+    elif shift:
         hidden = hidden[:, :-1]
         labels = labels[:, 1:]
         T -= 1
+    if shift:
+        T_all -= 1
     M = B * T
     h = hidden.reshape(M, C).float()
     lab = labels.reshape(M)
@@ -91,11 +107,12 @@ def fused_linear_cross_entropy(
             nll, m2 = _chunk_ce(*args)
         total = total + nll
         max_sq = max_sq + m2
-    n_valid = valid.sum()
-    denom = n_valid.clamp_min(1) if normalize_length else B
+    n_valid = mesh_lib.global_sum(valid.sum())
+    B_all = mesh_lib.global_rows(B)
+    denom = n_valid.clamp_min(1) if normalize_length else B_all
     loss = total / denom
     if l2_wrap > 0.0:
-        loss = loss + (l2_wrap / (2.0 * M)) * max_sq
+        loss = loss + (l2_wrap / (2.0 * B_all * T_all)) * max_sq
     return loss, n_valid
 
 

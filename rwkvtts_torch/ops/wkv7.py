@@ -167,6 +167,159 @@ def wkv7_chunked(
     return y.to(out_dtype), s
 
 
+# ---------------------------------------------------------------------------
+# Two-level / sequence-parallel WKV7 (spans)
+# ---------------------------------------------------------------------------
+#
+# The state update S' = S (diag(w) + z b^T) + v k^T is linear in S, so a
+# stretch of steps maps its entry state affinely: S_out = S_in @ P + Q and
+# y_t = y0_t + S_in @ c_t, with (y0, Q) the stretch run from a zero state
+# and (c, P) its linear part. A sequence cut into spans then takes one
+# local pass a span (the spans in parallel, or on different ranks) and a
+# compose over the spans' (Q, P), which alone crosses spans. Resets compose
+# exactly: a reset zeroes both parts downstream of it.
+
+
+def _chunk_affine(r, logw, k, z, b, resets):
+    """A chunk's affine operators in its entry state (JAX's
+    ``_chunk_prep_affine``): the transfer mx (S_out = S0 @ mx + const)
+    and the correction rows cy (y_l = const + S0 @ cy_l), which are
+    ``_chunk_body`` at entry state I and v = 0."""
+    B, L, H, N = r.shape
+    eye = torch.eye(N, dtype=torch.float32, device=r.device).expand(B, H, N, N)
+    return _chunk_body(eye, r, logw, k, torch.zeros_like(r), z, b, resets)
+
+
+def _span_affine(r, logw, k, v, z, b, resets, *, chunk: int):
+    """One span's local pass, entry state unknown, inputs (B, Ts, H, N) f32
+    with Ts a multiple of `chunk`. Returns (y0, cyp, q, pmat): the outputs
+    from a zero entry state, the correction rows (y = y0 + S_in @ cyp), the
+    exit state from zero and the transfer (S_out = S_in @ pmat + q)."""
+    B, Ts, H, N = r.shape
+    s = init_state(B, H, N, r.device)
+    pmat = torch.eye(N, dtype=torch.float32, device=r.device).expand(B, H, N, N)
+    ys, cyps = [], []
+    for c0 in range(0, Ts, chunk):
+        sl = slice(c0, c0 + chunk)
+        part = (r[:, sl], logw[:, sl], k[:, sl])
+        s_next, y = _chunk_body(s, *part, v[:, sl], z[:, sl], b[:, sl], resets[:, sl])
+        mx, cy = _chunk_affine(*part, z[:, sl], b[:, sl], resets[:, sl])
+        # the chunk's correction lifted to the span's entry:
+        # S_chunk_in @ cy = S_span_in @ (pmat @ cy)
+        cyps.append(torch.einsum("bhmn,blhn->blhm", pmat, cy))
+        ys.append(y)
+        s, pmat = s_next, pmat @ mx
+    return torch.cat(ys, 1), torch.cat(cyps, 1), s, pmat
+
+
+def _compose(state, q, pmat):
+    """Fold the spans' affine maps from the entry state: q, pmat (S, B, H,
+    N, N) in span order. Returns (each span's entry state (S, B, H, N, N),
+    the exit state)."""
+    s_in = []
+    s = state
+    for q_j, p_j in zip(q.unbind(0), pmat.unbind(0)):
+        s_in.append(s)
+        s = s @ p_j + q_j
+    return torch.stack(s_in), s
+
+
+def wkv7_chunked_sp(
+    r: torch.Tensor, w_raw: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    z: torch.Tensor, b: torch.Tensor,
+    state: Optional[torch.Tensor] = None,
+    resets: Optional[torch.Tensor] = None,
+    *, chunk: int = 32, spans: int = 4,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-level chunked WKV7, the plain version (the counterpart of
+    rwkvtts_tpu/ops/wkv7.py::wkv7_chunked_sp): `spans` spans in parallel,
+    chunks of `chunk` steps within each, then the compose. Same contract
+    as ``wkv7_scan``, computed in f32; T is padded to a multiple of
+    chunk * spans with steps of decay 1 and no update."""
+    B, T, H, N = r.shape
+    out_dtype = v.dtype
+    s0 = init_state(B, H, N, r.device) if state is None else state.float()
+    logw = -torch.exp(w_raw.float())
+    r, k, v, z, b = (x.float() for x in (r, k, v, z, b))
+    rs = (torch.zeros(B, T, dtype=torch.int64, device=r.device) if resets is None
+          else resets.long())
+    pad = (-T) % (chunk * spans)
+    if pad:
+        zpad = lambda x: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        r, logw, k, v, z, b = map(zpad, (r, logw, k, v, z, b))  # logw = 0: w = 1
+        rs = torch.nn.functional.pad(rs, (0, pad))
+    Ts = (T + pad) // spans
+    fold = lambda x: x.reshape((B * spans, Ts) + x.shape[2:])  # spans into the batch
+    y0, cyp, q, pmat = _span_affine(*map(fold, (r, logw, k, v, z, b, rs)), chunk=chunk)
+    by_span = lambda x: x.reshape((B, spans) + x.shape[1:]).transpose(0, 1)
+    s_in, s_fin = _compose(s0, by_span(q), by_span(pmat))
+    y = by_span(y0) + torch.einsum("sbhim,sblhm->sblhi", s_in, by_span(cyp))
+    y = y.transpose(0, 1).reshape(B, T + pad, H, N)[:, :T]
+    return y.to(out_dtype), s_fin
+
+
+# w_raw of a padding step: w = exp(-exp(-30)) is 1 in f32
+_PAD_W_RAW = -30.0
+
+
+def wkv7_spans(
+    r: torch.Tensor, w_raw: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    z: torch.Tensor, b: torch.Tensor,
+    state: Optional[torch.Tensor] = None,
+    resets: Optional[torch.Tensor] = None,
+    *, spans: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """WKV7 over `spans` spans through the whole-sequence kernels (the
+    route the model takes for ``wkv_spans`` > 1): each span's (y0, q) is one
+    run of ``wkv7`` from a zero state and its (cyp, pmat) a second run with
+    the identity as entry state and v = 0, the spans folded into the batch,
+    in f32; then the compose (small batched products).
+
+    Inside a train step on a mesh with sp > 1 the inputs are this rank's
+    part of T, it holds spans / sp of the spans, and the spans' (q, pmat)
+    are all-gathered over sp (differentiably) before the compose; `state`
+    is the entry state of the whole sequence and the returned state its
+    exit state. A local T that the local spans do not divide is padded
+    with steps of decay 1 and no update. Same contract as ``wkv7``."""
+    from rwkvtts_torch.parallel import mesh as mesh_lib
+
+    B, T, H, N = r.shape
+    out_dtype = v.dtype
+    sp = mesh_lib.sp_size()
+    if spans % sp:
+        raise ValueError(f"wkv_spans = {spans} is not a multiple of sp = {sp}")
+    local = spans // sp
+    s0 = init_state(B, H, N, r.device) if state is None else state.float()
+    r, w_raw, k, v, z, b = (x.float() for x in (r, w_raw, k, v, z, b))
+    pad = (-T) % local
+    if pad:
+        zpad = lambda x, val=0.0: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad), value=val)
+        r, k, v, z, b = map(zpad, (r, k, v, z, b))
+        w_raw = zpad(w_raw, _PAD_W_RAW)
+        if resets is not None:
+            resets = torch.nn.functional.pad(resets, (0, pad))
+    Ts = (T + pad) // local
+    fold = lambda x: x.reshape((B * local, Ts) + x.shape[2:]).contiguous()
+    r, w_raw, k, v, z, b = map(fold, (r, w_raw, k, v, z, b))
+    rs = None if resets is None else fold(resets.bool())
+    eye = torch.eye(N, dtype=torch.float32, device=r.device).expand(B * local, H, N, N)
+    y0, q = wkv7(r, w_raw, k, v, z, b, None, rs)
+    cyp, pmat = wkv7(r, w_raw, k, torch.zeros_like(v), z, b, eye.contiguous(), rs)
+    by_span = lambda x: x.reshape((B, local) + x.shape[1:]).transpose(0, 1)
+    q, pmat = by_span(q), by_span(pmat)
+    if sp > 1:
+        m = mesh_lib.current()
+        qp = mesh_lib.AllGather.apply(torch.stack([q, pmat], 1), m, "sp")
+        qp = qp.reshape((spans, 2) + q.shape[1:])
+        s_in, s_fin = _compose(s0, qp[:, 0], qp[:, 1])
+        s_in = s_in[m.coords["sp"] * local:(m.coords["sp"] + 1) * local]
+    else:
+        s_in, s_fin = _compose(s0, q, pmat)
+    y = by_span(y0) + torch.einsum("sbhim,sblhm->sblhi", s_in, by_span(cyp))
+    y = y.transpose(0, 1).reshape(B, T + pad, H, N)[:, :T]
+    return y.to(out_dtype), s_fin
+
+
 def wkv7_step(
     state: torch.Tensor, r: torch.Tensor, w_raw: torch.Tensor, k: torch.Tensor,
     v: torch.Tensor, z: torch.Tensor, b: torch.Tensor, *, inplace: bool = False,
@@ -220,10 +373,15 @@ def wkv7(
     z: torch.Tensor, b: torch.Tensor,
     state: Optional[torch.Tensor] = None,
     resets: Optional[torch.Tensor] = None,
+    *, spans: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Whole-sequence WKV7 as the model calls it, differentiable: the CUDA
     kernels on a CUDA device, ``wkv7_scan`` on the CPU (see
-    ops/wkv7_cuda.py)."""
+    ops/wkv7_cuda.py). ``spans`` > 1 takes the two-level route
+    ``wkv7_spans`` over the same kernels, which is also the
+    sequence-parallel one."""
+    if spans > 1:
+        return wkv7_spans(r, w_raw, k, v, z, b, state, resets, spans=spans)
     from rwkvtts_torch.ops import wkv7_cuda
 
     return wkv7_cuda.wkv7(r, w_raw, k, v, z, b, state, resets)

@@ -13,9 +13,20 @@ the chunks break. The host reads each chunk's tokens once.
 
 The queue, the slots, admission, overlap (chunk N+1 dispatched before
 chunk N's tokens are read, with the sequential pool's tokens) and warmup
-are ``pool_common.SlotPool``'s, which the Cosy pool shares. The
-dp-sharded pool (a device mesh) is not ported; the pool raises if given
-one.
+are ``pool_common.SlotPool``'s, which the Cosy pool shares.
+
+``devices=[...]`` (the JAX pool's dp mesh) splits the slots into
+len(devices) groups of consecutive slots, each a single-device pool on its
+device with its own copy of the parameters (a device may repeat). A chunk
+launches every group's steps before the one host read of the tokens; an
+admission prefills on the group of each freed slot. One host thread issues
+the groups' steps in turn: the eager step is bound by the host, so N groups
+on N cards take about N times one group's host time a step (a thread a
+group was slower still: scripts/probe_dp_threads.py). The slot indices stay
+global and a row's draws are hashed from its request alone, so the tokens
+are the one-group pool's. Unlike JAX, whose GSPMD-sharded carry would
+gather a per-device kernel's state, each group keeps the in-place step
+kernel (the same math). The B=64 megakernel pool is single-device.
 """
 from __future__ import annotations
 
@@ -53,15 +64,32 @@ class ContinuousBatcher(pool_common.SlotPool):
         top_k: int = 1,  # greedy default: deterministic serving
         top_p: float = 1.0,
         seed: int = 0,
-        mesh=None,
+        devices=None,
         overlap: bool = False,
         megakernel: bool = False,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a dp-sharded slot pool (device mesh) is not ported yet: serve on one card")
         self.cfg = cfg
         bb = cfg.backbone
+        self._groups = None
+        if devices is not None and len(devices) > 1:
+            if megakernel:
+                raise ValueError("the megakernel pool is single-device (the B=64 step takes "
+                                 "64 rows on one card): drop the dp groups or --mega")
+            if n_slots % len(devices):
+                raise ValueError(f"n_slots={n_slots} not divisible by dp={len(devices)}")
+            per = n_slots // len(devices)
+            self._groups = [
+                ContinuousBatcher(rwkv7.tree_map(lambda t, d=torch.device(d): t.to(d), params),
+                                  cfg, n_slots=per, chunk=chunk, prompt_cap=prompt_cap,
+                                  temperature=temperature, top_k=top_k, top_p=top_p, seed=seed)
+                for d in devices]
+            self.device = self._groups[0].device
+            self.megakernel = False
+            self.params = self._groups[0].params
+            self.temperature, self.top_k, self.top_p = temperature, top_k, top_p
+            self.seed = seed
+            super().__init__(self.device, n_slots, chunk, prompt_cap, overlap)
+            return
         self.device = params["head"].device
         self.megakernel = megakernel
         if megakernel:
@@ -81,7 +109,35 @@ class ContinuousBatcher(pool_common.SlotPool):
         self.seed = seed  # default per-request seed
         super().__init__(self.device, n_slots, chunk, prompt_cap, overlap)
 
+    # -- the dp groups: each a single-device pool over its slots ----------
+
+    def _admit_rows(self, pbs, slots, rows) -> None:
+        if self._groups is None:
+            return super()._admit_rows(pbs, slots, rows)
+        per = self.n_slots // len(self._groups)
+        for g, group in enumerate(self._groups):
+            idx = [j for j, slot in enumerate(slots) if slot // per == g]
+            if idx:
+                group._admit_rows([pbs[j] for j in idx], [slots[j] % per for j in idx],
+                                  [r[idx] for r in rows])
+
+    def _mark_done(self, slot_mask: np.ndarray) -> None:
+        if self._groups is None:
+            return super()._mark_done(slot_mask)
+        for g, part in zip(self._groups, np.split(np.asarray(slot_mask), len(self._groups))):
+            g._mark_done(part)
+
+    def warmup(self, prompt_widths: Optional[List[int]] = None) -> None:
+        if self._groups is None:
+            return super().warmup(prompt_widths)
+        for g in self._groups:
+            g.warmup(prompt_widths)
+
     def _fresh_carry(self):
+        if self._groups is not None:
+            for g in self._groups:
+                g._carry = g._fresh_carry()
+            return None
         bb, n, dev = self.cfg.backbone, self.n_slots, self.device
         st = rwkv7.init_model_state(bb, n, device=dev)
         if self.megakernel:
@@ -126,9 +182,12 @@ class ContinuousBatcher(pool_common.SlotPool):
         temp[idx], topp[idx] = params[0], params[1]
         seed[idx] = torch.as_tensor(np.asarray(svec[:take], np.int64), device=self.device)
 
-    def _chunk(self) -> torch.Tensor:
+    def _chunk(self):
         """Decode `chunk` steps of the whole pool; returns the tokens
-        (n_slots, chunk) on the device."""
+        (n_slots, chunk) on the device (with dp groups, one such tensor a
+        group on its device, every group's chunk launched)."""
+        if self._groups is not None:
+            return [g._chunk() for g in self._groups]
         bb = self.cfg.backbone
         eos = self.cfg.eos_token_id
         h, st, done, n, temp, topp, seed = self._carry

@@ -33,7 +33,14 @@ every stream:
 the output and the FFN matrices) as per-channel int8 / group-wise int4
 (``rwkv7.pack_decode_params``) for either family; the pools decode them
 through ``rwkv7.decode_step``. ``--mega`` streams its own int8 pack and
-refuses both. Not ported yet: --dp.
+refuses both.
+
+``--dp N`` splits the Spark slot pool into N groups, one a card
+(cuda:0 .. cuda:N-1, each with its own copy of the weights;
+serving/continuous.py); more than the cards present, ``--mega``, the
+grouped dispatcher and the Cosy family refuse it. One host thread issues
+every group's steps and the eager pool step is bound by the host, so N
+groups do not raise tok/s until the step is captured (PERF.md).
 """
 from __future__ import annotations
 
@@ -227,7 +234,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--grouped", action="store_true",
                     help="same-voice grouping dispatcher instead of the slot pool")
-    ap.add_argument("--dp", type=int, default=1, help="slot pool over dp devices (not ported)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="slot pool in dp groups, one a card (n-slots must divide); the "
+                         "eager step is host-bound, so more groups do not raise tok/s yet")
     ap.add_argument("--overlap", action="store_true",
                     help="dispatch chunk N+1 before reading chunk N's tokens")
     ap.add_argument("--no-warmup", action="store_true")
@@ -295,7 +304,14 @@ def main(argv=None):
     args = _parser().parse_args(argv)
     top_k, top_p = sampling_defaults(args.family, args.top_k, args.top_p)
     if args.dp > 1:
-        raise SystemExit("--dp: a slot pool over several devices is not ported yet")
+        if args.family == "cosy" or args.grouped or args.mega:
+            raise SystemExit("--dp splits the Spark slot pool: not with --family cosy, "
+                             "--grouped or --mega (single-device)")
+        have = torch.cuda.device_count() if torch.device(args.device).type == "cuda" else 0
+        if args.device != "cpu" and args.dp > have:
+            raise SystemExit(f"--dp {args.dp}: {have} CUDA devices present")
+        if args.n_slots % args.dp:
+            raise SystemExit(f"--dp {args.dp}: --n-slots {args.n_slots} must divide by it")
     if args.int8 and args.int4:
         raise SystemExit("--int8 and --int4 are exclusive: drop one of them")
     if args.family == "cosy":
@@ -321,7 +337,8 @@ def main(argv=None):
         pipeline, args.demo_dir, continuous=not args.grouped, n_slots=n_slots, chunk=args.chunk,
         max_new_tokens=args.max_new_tokens, top_k=top_k, top_p=top_p,
         temperature=args.temperature, warmup=not args.no_warmup,
-        warmup_widths=_widths(args.warmup_widths), overlap=args.overlap, megakernel=args.mega,
+        warmup_widths=_widths(args.warmup_widths), dp=args.dp, overlap=args.overlap,
+        megakernel=args.mega,
     )
     from rwkvtts_torch.serving import http_server
 

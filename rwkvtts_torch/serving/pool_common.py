@@ -179,40 +179,53 @@ class SlotPool:
             return
         take = min(len(free), len(self._queue))
         reqs = [self._queue.pop(0) for _ in range(take)]
-        bucket = 1
-        while bucket < take:
-            bucket *= 2
-        pbs = [pad_prompt(r[1], self.prompt_cap) for r in reqs]
-        pbs += [pbs[-1]] * (bucket - take)
-        hk, stk = self._prefill(stack_admission(pbs))
         # one vector a row parameter, in the dtype of warmup's dummy row
         rows = [np.asarray(v, w.dtype) for v, w in zip(zip(*(r[3:] for r in reqs)),
                                                         self._warm_row)]
-        self._insert(hk, stk, free[:take], take, *rows)
+        self._admit_rows([pad_prompt(r[1], self.prompt_cap) for r in reqs], free[:take], rows)
         for j, r in enumerate(reqs):
             rec = _Slot(req_id=r[0], tokens=[], max_new=r[2])
             self._slots[free[j]] = rec
             self._active[r[0]] = rec  # shared record: the slot index may go stale
 
-    def _to_host(self, toks: torch.Tensor):
-        """Start the copy of a chunk's tokens to the host: into a pinned
-        buffer without blocking, with an event marking its end (on a card in
-        overlap mode), else at once."""
+    def _admit_rows(self, pbs: List[Dict[str, np.ndarray]], slots: List[int],
+                    rows: List[np.ndarray]) -> None:
+        """One batched prefill of the padded prompts `pbs` at a power-of-two
+        batch (the rows beyond them are inert), then their row writes into
+        `slots` with the row parameters `rows`."""
+        take = len(pbs)
+        bucket = 1
+        while bucket < take:
+            bucket *= 2
+        hk, stk = self._prefill(stack_admission(pbs + [pbs[-1]] * (bucket - take)))
+        self._insert(hk, stk, slots, take, *rows)
+
+    def _to_host(self, toks):
+        """Start the copy of a chunk's tokens (a tensor, or one a slot group
+        in slot order) to the host: into a pinned buffer without blocking,
+        with an event a device marking its end (on a card in overlap mode),
+        else at once, one read after every group's chunk was launched."""
+        parts = toks if isinstance(toks, list) else [toks]
         if self._pinned is None:
-            return toks.cpu().numpy()
+            return np.concatenate([t.cpu().numpy() for t in parts])
         buf = self._pinned[self._flip]
         self._flip ^= 1
-        buf.copy_(toks, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-        return buf, ev
+        events, row = [], 0
+        for t in parts:
+            buf[row:row + len(t)].copy_(t, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(t.device))
+            events.append(ev)
+            row += len(t)
+        return buf, events
 
     @staticmethod
     def _from_host(handle) -> np.ndarray:
         if isinstance(handle, np.ndarray):
             return handle
-        buf, ev = handle
-        ev.synchronize()
+        buf, events = handle
+        for ev in events:
+            ev.synchronize()
         return buf.numpy()
 
     def _process(self, toks: np.ndarray, owners: List[Optional[int]]

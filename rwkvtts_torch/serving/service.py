@@ -226,6 +226,20 @@ class BatchedTTSService:
                 done.set()
 
 
+def dp_devices(device: torch.device, dp: int):
+    """The devices of a dp slot pool: cuda:0 .. cuda:dp-1 for a model on a
+    card (more than the cards present is an error), `dp` times the CPU for
+    one on the CPU; None for one group."""
+    if dp <= 1:
+        return None
+    if device.type == "cpu":
+        return ["cpu"] * dp
+    have = torch.cuda.device_count()
+    if dp > have:
+        raise ValueError(f"dp={dp} slot groups need {dp} CUDA devices; {have} present")
+    return [f"cuda:{i}" for i in range(dp)]
+
+
 class ContinuousTTSService(BatchedTTSService):
     """Every /api/rwkv_tts request is admitted into a ContinuousBatcher
     slot: mixed voices and lengths decode in one pool, since a Spark voice
@@ -252,12 +266,11 @@ class ContinuousTTSService(BatchedTTSService):
     ):
         from rwkvtts_torch.serving.continuous import ContinuousBatcher
 
-        if dp > 1:
-            raise NotImplementedError("dp-sharded serving is not ported yet")
         self.batcher = ContinuousBatcher(
             pipeline.params, pipeline.cfg, n_slots=n_slots, chunk=chunk,
             prompt_cap=prompt_cap, temperature=temperature, top_k=top_k,
-            top_p=top_p, seed=seed, overlap=overlap, megakernel=megakernel,
+            top_p=top_p, seed=seed, devices=dp_devices(pipeline.params["head"].device, dp),
+            overlap=overlap, megakernel=megakernel,
         )
         if warmup:
             self.batcher.warmup(warmup_widths)

@@ -4,6 +4,12 @@ rwkvtts_tpu/train/checkpoint.py, with ``torch.save`` in place of orbax).
 Layout: <root>/step_<n>/state.pt holds {"params", "opt_state", "step"} and
 <root>/step_<n>/meta.json the data position (epoch, batch) for a
 mid-epoch resume; only the newest ``keep`` step directories stay.
+
+On a device mesh (``mesh`` and the sharded ``optimizer`` given) a save
+gathers the shards of the parameters and of the optimizer state, rank 0
+writes the single-device format and every rank waits for it; a restore
+reads the whole file on every rank and keeps the rank's shards. So a
+checkpoint moves between any two mesh shapes, one process included.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from rwkvtts_torch.parallel import train_step
 from rwkvtts_torch.parallel.train_step import TrainState
 
 
@@ -31,11 +38,18 @@ def _ckpt_dirs(root: str) -> List[Tuple[int, str]]:
 
 
 def save(root: str, state: TrainState, meta: Optional[Dict[str, Any]] = None,
-         keep: int = 2) -> str:
+         keep: int = 2, mesh=None, optimizer=None) -> str:
     """Write step_<state.step>/ (state.pt + meta.json), then drop all but
     the newest `keep` step directories. The files are written under a
-    temporary name first, so a cut save leaves no half-written step."""
+    temporary name first, so a cut save leaves no half-written step. On a
+    `mesh`, rank 0 writes the gathered state."""
     path = os.path.abspath(os.path.join(root, f"step_{state.step}"))
+    if mesh is not None:
+        state = train_step.gather_state(state, optimizer, mesh)
+        if mesh.rank == 0:
+            save(root, state, meta, keep)
+        mesh.barrier()
+        return path
     tmp = path + ".tmp"
     os.makedirs(root, exist_ok=True)
     shutil.rmtree(tmp, ignore_errors=True)
@@ -56,10 +70,11 @@ def latest_step(root: str) -> Optional[int]:
     return dirs[-1][0] if dirs else None
 
 
-def restore(root: str, like: TrainState, step: Optional[int] = None
-            ) -> Tuple[TrainState, Dict[str, Any]]:
+def restore(root: str, like: TrainState, step: Optional[int] = None, mesh=None,
+            optimizer=None) -> Tuple[TrainState, Dict[str, Any]]:
     """(state, meta) of step `step` (default: the newest), with every
-    tensor on the device of the matching tensor of `like`."""
+    tensor on the device of the matching tensor of `like`; on a `mesh`,
+    the rank's shards of it."""
     if step is None:
         step = latest_step(root)
     if step is None:
@@ -73,7 +88,10 @@ def restore(root: str, like: TrainState, step: Optional[int] = None
     if os.path.exists(meta_path):
         with open(meta_path) as f:
             meta = json.load(f)
-    return TrainState(blob["params"], blob["opt_state"], int(blob["step"])), meta
+    state = TrainState(blob["params"], blob["opt_state"], int(blob["step"]))
+    if mesh is not None:
+        state = train_step.shard_state(state, optimizer, mesh)
+    return state, meta
 
 
 def _leaves(tree):

@@ -45,29 +45,123 @@ is replayed), ``wkv`` the WKV call (the replay never runs the forward WKV
 kernel: at Spark 1024 x 24 a step launches kernels 4 / 5 24 / 24 times,
 not 48 / 24), ``dots`` / ``dots_no_batch`` the matrix products' outputs.
 
-Not here: the device mesh and multi-host flags; ``--no-layer-unroll`` and
-``--wkv-mm`` are TPU layout and precision devices without a counterpart.
+Several GPUs: run it under ``torchrun``, which starts a process a rank and
+gives each the env:// rendezvous; every rank takes ``--batch-size`` as the
+global batch and trains its part of it on a device mesh (parallel/mesh.py):
+
+    torchrun --nproc-per-node 4 -m rwkvtts_torch.train.cli --task spark \
+        --data 'data/*.jsonl' --mesh dp=2,fsdp=2 --batch-size 16 ...
+
+``--mesh dp=..,fsdp=..,sp=..`` is the mesh (default: every rank on dp); its
+product must be the number of ranks. fsdp shards the f32 masters and the
+optimizer state; sp splits the time axis (the spark tasks), sets
+``--wkv-spans`` to sp when it is not given (a multiple of sp otherwise) and
+turns the fused prep off, and ``--pad-to`` must divide by it. tp is refused
+(not ported yet). ``--wkv-spans`` alone runs the WKV recurrence in that
+many spans on one device. The process group is initialised whenever
+torchrun's ``WORLD_SIZE`` is > 1 (or ``--mesh`` is given under torchrun):
+NCCL on CUDA, each rank on its ``LOCAL_RANK``'s card, gloo on the CPU;
+``--dist-backend gloo --device cuda:0`` puts every rank on one card (a test
+setting: NCCL takes one rank a card). ``--multihost`` asserts torchrun's
+environment (a multi-node torchrun gives it) and refuses to start without
+it. ``--no-layer-unroll`` and ``--wkv-mm`` are TPU layout and precision
+devices without a counterpart.
 """
 from __future__ import annotations
 
 import argparse
+import datetime
 import functools
 import glob
 import importlib
 import logging
 import math
+import os
 import random
 import signal
-from typing import Callable
+from typing import Callable, Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rwkvtts_torch.data import jsonl_dataset
 from rwkvtts_torch.train import metrics as metrics_lib
 from rwkvtts_torch.train import trainer as trainer_lib
 
 log = logging.getLogger("rwkvtts_torch")
+
+
+def parse_mesh(text: str) -> Dict[str, int]:
+    """--mesh "dp=2,fsdp=2" -> {"dp": 2, "fsdp": 2}; ValueError on an
+    unknown axis or a size that is not a positive integer."""
+    shape = {}
+    for kv in text.split(","):
+        key, _, val = kv.partition("=")
+        if key not in ("dp", "fsdp", "tp", "sp"):
+            raise ValueError(f"--mesh: unknown axis {key!r} (dp, fsdp, tp, sp)")
+        if not val.isdigit() or int(val) < 1:
+            raise ValueError(f"--mesh: {key}={val!r} is not a positive integer")
+        shape[key] = int(val)
+    return shape
+
+
+# a collective that waits longer than this fails the run instead of hanging it
+DIST_TIMEOUT = datetime.timedelta(seconds=600)
+
+
+def init_distributed(args) -> bool:
+    """Join the process group from torchrun's env:// rendezvous when
+    WORLD_SIZE > 1 (or --mesh is given under torchrun), with
+    ``DIST_TIMEOUT``; returns whether this call initialised it (its caller
+    then destroys it). A group initialised before (parallel/dryrun.cli_rank's
+    file:// store) is joined as it is. NCCL on CUDA (each rank on its
+    LOCAL_RANK's card, set first), gloo on the CPU or when --dist-backend
+    asks for it."""
+    if "WORLD_SIZE" not in os.environ:
+        if args.multihost:
+            raise SystemExit("--multihost runs under torchrun: WORLD_SIZE, RANK, MASTER_ADDR "
+                             "and MASTER_PORT are not set")
+        if args.mesh:
+            raise SystemExit("--mesh runs under torchrun (torchrun --nproc-per-node N -m "
+                             "rwkvtts_torch.train.cli ...)")
+        return False
+    if int(os.environ["WORLD_SIZE"]) == 1 and not args.mesh:
+        return False
+    dev = torch.device(args.device)
+    backend = args.dist_backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if backend == "nccl" and dev.type != "cuda":
+        raise SystemExit("--dist-backend nccl needs a CUDA device")
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        pick_device(str(dev))
+        torch.cuda.set_device(dev)
+        args.device = str(dev)
+    mine = not dist.is_initialized()
+    if mine:
+        kw = {"device_id": dev} if backend == "nccl" else {}
+        dist.init_process_group(backend, init_method="env://", rank=int(os.environ["RANK"]),
+                                world_size=int(os.environ["WORLD_SIZE"]), timeout=DIST_TIMEOUT,
+                                **kw)
+    if dist.get_rank() != 0:
+        logging.getLogger().setLevel(logging.WARNING)
+    return mine
+
+
+def rank_rows(collate: Callable, mesh) -> Callable:
+    """A collator of this rank's rows of each global batch only (the
+    --codec-dir path: the inline tokenization then runs on them alone); a
+    batch that the mesh's dp x fsdp does not divide raises."""
+
+    def fn(rows):
+        if len(rows) % mesh.rows:
+            raise ValueError(f"a batch of {len(rows)} rows: not divisible by dp x fsdp = "
+                             f"{mesh.rows}")
+        b = len(rows) // mesh.rows
+        return collate(rows[mesh.row_part * b:(mesh.row_part + 1) * b])
+
+    return fn
 
 
 def pick_device(name: str) -> torch.device:
@@ -86,7 +180,8 @@ def build_model(task: str, args, device: torch.device):
     both towers of asr and tts_two_tower included."""
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     rwkv = dict(head_size=args.head_size, wkv_fuse_prep=not args.no_wkv_fuse_prep,
-                remat_policy=getattr(args, "remat_policy", None))
+                remat_policy=getattr(args, "remat_policy", None),
+                wkv_spans=getattr(args, "wkv_spans", None) or 1)
     kw = dict(hidden_size=args.hidden, num_layers=args.layers, dtype=dtype, **rwkv)
     g = torch.Generator(device=device).manual_seed(args.seed)
     if task == "sfm_flow":
@@ -251,7 +346,44 @@ def main(argv=None):
     p.add_argument("--dry-run", action="store_true",
                    help="load model and data, run one collated batch through the "
                         "train step, then exit")
+    p.add_argument("--mesh", default=None,
+                   help="device mesh over the torchrun ranks, e.g. dp=2,fsdp=2 or dp=2,sp=2 "
+                        "(default: every rank on dp); sp splits the time axis")
+    p.add_argument("--wkv-spans", type=int, default=None,
+                   help="the WKV recurrence in this many spans (default 1; sp with --mesh sp)")
+    p.add_argument("--multihost", action="store_true",
+                   help="a multi-node torchrun: refuse to start without its environment")
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="default: nccl on CUDA, gloo on the CPU")
     args = p.parse_args(argv)
+    mesh_shape = None
+    if args.mesh:
+        try:
+            mesh_shape = parse_mesh(args.mesh)
+        except ValueError as e:
+            p.error(str(e))
+        if mesh_shape.get("tp", 1) > 1:
+            p.error("--mesh tp: tensor parallelism is not ported yet")
+        sp = mesh_shape.get("sp", 1)
+        if sp > 1:
+            if not args.task.startswith("spark"):
+                p.error(f"--mesh sp splits the time axis of the spark tasks; --task {args.task} "
+                        "has inputs of other lengths")
+            if args.wkv_spans is None:
+                args.wkv_spans = sp
+            elif args.wkv_spans % sp:
+                p.error(f"--wkv-spans {args.wkv_spans} must be a multiple of the mesh sp={sp}")
+            if args.pad_to % sp:
+                p.error(f"--pad-to {args.pad_to} must divide by the mesh sp={sp}")
+            args.no_wkv_fuse_prep = True
+    # the mesh the trainer builds: --mesh, or every torchrun rank on dp
+    shape = mesh_shape or {"dp": int(os.environ.get("WORLD_SIZE", "1"))}
+    rows = shape.get("dp", 1) * shape.get("fsdp", 1)
+    if args.batch_size % rows:
+        p.error(f"--batch-size {args.batch_size} (the global batch) must divide by "
+                f"dp x fsdp = {rows}")
+    if args.max_tokens_k and rows > 1:
+        p.error("--max-tokens-k shrinks batches below --batch-size: not with dp x fsdp > 1")
     if args.mark_phonemes_prob > 0 and args.task != "spark_properties":
         p.error("--mark-phonemes-prob marks the texts of --task spark_properties only")
     if args.codec_dir and not args.task.startswith("spark"):
@@ -261,33 +393,45 @@ def main(argv=None):
         p.error("--codec-dir tokenizes the audio of tars: it needs --data-format webdataset")
 
     metrics_lib.setup_logging()
+    mine = init_distributed(args)
+    try:
+        return _run(args, mesh_shape)
+    finally:
+        if mine:
+            dist.destroy_process_group()
+
+
+def _run(args, mesh_shape):
     device = pick_device(args.device)
     cfg, params = build_model(args.task, args, device)
     if args.warm_start:
         params = warm_start(args.task, args.warm_start, params, cfg, device)
     rows = load_rows(args)
     log.info("loaded %d rows", len(rows))
-    collate = build_collate(args.task, args, cfg)
-    if args.codec_dir:
-        from rwkvtts_torch.data import inline_spark
-
-        collate = inline_spark.inline_collate(collate, inline_codec(args.codec_dir, device))
-    ds = jsonl_dataset.JsonlDataset(
-        rows, collate, args.batch_size, seed=args.seed,
-        max_tokens=args.max_tokens_k * 1000 if args.max_tokens_k else None,
-    )
     tcfg = trainer_lib.TrainerConfig(
         run_dir=args.run_dir, epochs=args.epochs, save_steps=args.save_steps,
         log_every=args.log_every, peak_lr=args.lr, final_lr=args.lr_final,
         warmup_steps=args.warmup_steps, total_steps=args.total_steps,
         weight_decay=args.weight_decay, grad_clip=args.grad_clip,
         low_memory_opt=args.low_memory_opt, seed=args.seed,
-        wandb_project=args.wandb_project, run_name=args.run_name,
+        wandb_project=args.wandb_project, run_name=args.run_name, mesh_shape=mesh_shape,
     )
     tr = trainer_lib.Trainer(cfg, params, trainer_lib.LOSS_FNS[args.task], tcfg, device)
+    collate = build_collate(args.task, args, cfg)
+    if args.codec_dir:
+        from rwkvtts_torch.data import inline_spark
+
+        collate = rank_rows(inline_spark.inline_collate(collate, inline_codec(args.codec_dir,
+                                                                                device)), tr.mesh)
+    ds = jsonl_dataset.JsonlDataset(
+        rows, collate, args.batch_size, seed=args.seed,
+        max_tokens=args.max_tokens_k * 1000 if args.max_tokens_k else None,
+    )
+    rows_local = bool(args.codec_dir)
     if args.dry_run:
-        batch = tr.to_device(next(ds.epoch(0)))
+        batch = tr.to_device(next(ds.epoch(0)), rows_local)
         tr.state, m = tr.step_fn(tr.state, batch, tr.generator)
+        tr.dry_run_metrics = {k: float(v) for k, v in m.items()}
         loss = float(m["loss"])
         log.info("dry run ok: loss=%.4f tokens=%d", loss, int(m["tokens"]))
         if not math.isfinite(loss):
@@ -297,7 +441,7 @@ def main(argv=None):
         tr.maybe_resume()
     previous = tr.install_preemption_handler()
     try:
-        tr.fit(ds)
+        tr.fit(ds, rows_local)
     finally:
         for sig, handler in previous.items():
             signal.signal(sig, handler)

@@ -30,6 +30,14 @@ placeholders where optax keeps them).
 
 Leaves under a ``frozen`` path prefix (the ASR model's Whisper encoder) are
 left out: no state, no decay, their weights never change.
+
+On a device mesh (``shard``) the parameters and gradients it is given are
+this rank's fsdp shards of the leaves the layout names: the Adam moments,
+the first moment in bf16 and adafactor's unfactored second moment are
+elementwise and sharded alike; adafactor factors by the full leaf's shape,
+its row and column statistics are whole on every rank (their means over a
+sharded dimension are all-reduced over fsdp, over another one all-gathered),
+and the factors are cut to the rank's shard.
 """
 from __future__ import annotations
 
@@ -155,6 +163,24 @@ class AdamW:
         self.b1, self.b2, self.eps = b1, b2, eps
         self.grad_clip = grad_clip
         self.low_memory = low_memory
+        # the full shapes (adafactor factors by them, also on shards)
+        self.shapes = {p: tuple(t.shape) for p, t in flatten(params).items() if p in self.labels}
+        self.mesh, self.layout = None, {}
+
+    def shard(self, mesh, layout: Dict[str, Optional[int]]) -> None:
+        """Take fsdp shards from now on: `layout` is {path: the dimension a
+        leaf's shard is cut along, or None} (parallel/mesh.Mesh.layout)."""
+        self.mesh, self.layout = mesh, layout
+
+    def state_layout(self) -> Dict[str, Any]:
+        """{state key: {path: shard dimension or None}} of ``init``'s state
+        on the mesh (its count is whole)."""
+        dims = {p: self.layout.get(p) for p in self.labels}
+        if self.low_memory == "adafactor":
+            none = {p: None for p in dims}
+            v = {p: d if factored_dims(self.shapes[p]) is None else None for p, d in dims.items()}
+            return {"v_row": none, "v_col": none, "v": v}
+        return {"mu": dims, "nu": dims}
 
     def trainable(self, params) -> Dict[str, torch.Tensor]:
         """{path: leaf} of the leaves this optimizer updates."""
@@ -168,12 +194,13 @@ class AdamW:
         if self.low_memory == "adafactor":
             state = {"v_row": {}, "v_col": {}, "v": {}, "count": count}
             for p, t in flat.items():
-                dims = factored_dims(t.shape)
+                full = self.shapes[p]
+                dims = factored_dims(full)
                 if dims is None:
                     shapes = ((1,), (1,), t.shape)
                 else:
                     d1, d0 = dims
-                    shapes = (np.delete(t.shape, d0), np.delete(t.shape, d1), (1,))
+                    shapes = (np.delete(full, d0), np.delete(full, d1), (1,))
                 for key, shape in zip(("v_row", "v_col", "v"), shapes):
                     state[key][p] = f32(shape)
             return state
@@ -197,18 +224,33 @@ class AdamW:
     def _factored(self, path, g, state, decay, keep):
         v_row, v_col, v = state["v_row"][path], state["v_col"][path], state["v"][path]
         g_sq = g * g + 1e-30
-        dims = factored_dims(g.shape)
+        dims = factored_dims(self.shapes[path])
         if dims is None:
             v_new = decay * v + (1 - decay) * g_sq
             keep(v, v_new)
             return g * v_new ** -0.5
         d1, d0 = dims
-        row = decay * v_row + (1 - decay) * g_sq.mean(d0)
-        col = decay * v_col + (1 - decay) * g_sq.mean(d1)
+        sd = self.layout.get(path)
+        row = decay * v_row + (1 - decay) * self._full_mean(path, g_sq, d0, sd)
+        col = decay * v_col + (1 - decay) * self._full_mean(path, g_sq, d1, sd)
         row_mean = row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
         keep(v_row, row)
         keep(v_col, col)
-        return g * ((row / row_mean) ** -0.5).unsqueeze(d0) * (col ** -0.5).unsqueeze(d1)
+        f_row = ((row / row_mean) ** -0.5).unsqueeze(d0)
+        f_col = (col ** -0.5).unsqueeze(d1)
+        if sd is not None:  # the factors of this rank's shard
+            f_row, f_col = (f if f.shape[sd] == 1 else self.mesh.shard(f, sd)
+                            for f in (f_row, f_col))
+        return g * f_row * f_col
+
+    def _full_mean(self, path, x, dim: int, sd: Optional[int]) -> torch.Tensor:
+        """The mean over `dim` of the whole leaf of which `x` is the shard
+        cut along `sd` (None: `x` is the whole leaf)."""
+        if sd is None:
+            return x.mean(dim)
+        if sd == dim:
+            return self.mesh.all_reduce(x.sum(dim), "fsdp") / self.shapes[path][dim]
+        return self.mesh.all_gather(x.mean(dim), "fsdp", dim=sd - (sd > dim))
 
     @torch.no_grad()
     def step(self, params, grads: Dict[str, torch.Tensor], state: Dict[str, Any],

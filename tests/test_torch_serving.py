@@ -230,9 +230,13 @@ def test_warmup_leaves_the_pool_unchanged(model):
 
 
 def test_pool_refuses_a_mesh(model):
+    """The pool takes no JAX mesh: its dp form is slot groups on devices
+    (test_torch_dp_pool.py), which refuse slots they do not divide."""
     _, _, tparams = model
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         _pool(tparams, mesh=object())
+    with pytest.raises(ValueError, match="not divisible"):
+        _pool(tparams, devices=["cpu"] * 3)
 
 
 def test_mega_insert_matches_full_pack_on_the_plain_step():
